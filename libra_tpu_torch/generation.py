@@ -1,0 +1,218 @@
+"""Autoregressive generation: one prefill over the left-padded prompt, then
+a cached decode loop.
+
+The PyTorch counterpart of ``libra_tpu/generation.py``'s bf16 path: the
+same multi-codebook argmax or sampling, EOS on any codebook, EOI->newline
+forcing and vision-index auto-increment, with a Python loop in place of
+``lax.while_loop``. The loop stops once every row has finished and skips
+the forward after the last token it needs. Prompts must be LEFT-padded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from libra_tpu_torch.config import LibraConfig
+from libra_tpu_torch.models import libra as M
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 128
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0           # 0 = disabled
+    top_p: float = 1.0       # 1.0 = disabled
+    eos_token_id: int = 2
+    pad_token_id: int = 0
+    prompt_bucket: int = 0   # 0 = no padding to a bucket boundary
+    decode_modality: str = "auto"  # "auto" | "text" | "dual": "text"
+    #   decodes through the language path only (exact for prompts that end
+    #   in text); "auto" resolves per call from the prompts' last tokens
+
+
+def _filter_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    kth = torch.sort(logits, dim=-1).values[..., -k][..., None]
+    return torch.where(logits < kth, float("-inf"), logits)
+
+
+def _filter_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Keep the smallest set with cumulative probability > p (always the
+    top-1): token i goes iff the cumulative probability before it already
+    exceeds p; anything strictly below the least kept logit goes."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    removed = torch.cumsum(probs, dim=-1) - probs > p
+    kept = torch.where(removed, float("inf"), sorted_logits)
+    threshold = kept.amin(dim=-1, keepdim=True)
+    return torch.where(logits < threshold, float("-inf"), logits)
+
+
+def sample_tokens(logits: torch.Tensor, gen: GenerationConfig,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """logits (Q, B, Vc) -> tokens (Q, B): per-codebook argmax, or
+    independent multinomial draws from `generator` when sampling."""
+    if not gen.do_sample:
+        return torch.argmax(logits, dim=-1)
+    x = logits / max(gen.temperature, 1e-6)
+    if gen.top_k > 0:
+        x = _filter_top_k(x, gen.top_k)
+    if gen.top_p < 1.0:
+        x = _filter_top_p(x, gen.top_p)
+    Q, B, Vc = x.shape
+    probs = torch.softmax(x.float().reshape(Q * B, Vc), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator).reshape(Q, B)
+
+
+class GenerateResult(NamedTuple):
+    sequences: torch.Tensor      # (Q, B, prompt_len + max_new_tokens)
+    num_generated: torch.Tensor  # (B,) tokens generated incl. EOS
+
+
+def _last_position_logits(params, cfg: LibraConfig, hidden: torch.Tensor,
+                          flag_last: torch.Tensor, vi_last: torch.Tensor,
+                          lang_only: bool = False) -> torch.Tensor:
+    """Combined-vocab logits (Q, B, Vc) for the last position of `hidden`
+    (B, N, D). lang_only skips the vision heads: the vision slice is -inf
+    at text positions whatever its value, so zeros are exact there."""
+    h = hidden[:, -1:]
+    tl = M.compute_text_logits(params, h)
+    if lang_only:
+        vl = tl.new_zeros((cfg.vision_codebook_num,) + h.shape[:2]
+                          + (cfg.vision_vocab_size,))
+    else:
+        vl = M.compute_vision_logits(params, h)
+    logits = M.assemble_logits(cfg, tl, vl, flag_last[:, None])[:, :, 0]
+    return M.force_eoi_newline(cfg, logits, vi_last)
+
+
+def decode_micro_step(params, cfg: LibraConfig, tok: torch.Tensor,
+                      mask_buf: torch.Tensor, cache: M.KVCache,
+                      vi_last: torch.Tensor, pos_last: torch.Tensor,
+                      lang_only: bool = False):
+    """One decode step: advance vision_indices (auto-increment, clamped at
+    text) and positions, run the cached one-token forward, assemble the
+    logits. tok (Q, B) is the step's input token. Returns
+    (logits, cache, vi_new, pos_new)."""
+    Mv = cfg.max_vision_token_length
+    vi_new = torch.clamp_max(vi_last + 1, Mv)
+    pos_new = pos_last + 1
+    step = M.forward(params, cfg, tok[:, :, None], mask_buf, vi_new[:, None],
+                     None, position_ids=pos_new[:, None], cache=cache,
+                     lang_only=lang_only)
+    logits = _last_position_logits(params, cfg, step.hidden_states,
+                                   vi_new < Mv, vi_new, lang_only=lang_only)
+    return logits, step.cache, vi_new, pos_new
+
+
+class PrefillState(NamedTuple):
+    tokens: torch.Tensor     # (Q, B, S) prompt written at [:, :, :N]
+    mask_buf: torch.Tensor   # (B, S)
+    cache: M.KVCache         # index == N
+    logits: torch.Tensor     # (Q, B, Vc) last-prompt-position logits
+    vi_last: torch.Tensor    # (B,)
+    last_pos: torch.Tensor   # (B,)
+
+
+def _prefill(params, input_ids, attention_mask, vision_indices,
+             contiguous_signal, *, cfg: LibraConfig,
+             gen: GenerationConfig) -> PrefillState:
+    """The prompt pass: cache init (N + max_new_tokens slots), prompt
+    forward through the flash kernel, last-position logits."""
+    Q, B, N = input_ids.shape
+    S = N + gen.max_new_tokens
+    device = input_ids.device
+    cache = M.init_cache(cfg, B, S, device=device)
+    mask_buf = torch.zeros((B, S), dtype=torch.int64, device=device)
+    mask_buf[:, :N] = attention_mask
+    pos = M.position_ids_from_mask(attention_mask)
+    out = M.forward(params, cfg, input_ids, mask_buf, vision_indices,
+                    contiguous_signal, position_ids=pos, cache=cache,
+                    attn_impl="flash")
+    vi_last = vision_indices[:, -1]
+    logits = _last_position_logits(params, cfg, out.hidden_states,
+                                   vi_last < cfg.max_vision_token_length,
+                                   vi_last)
+    tokens = torch.zeros((Q, B, S), dtype=input_ids.dtype, device=device)
+    tokens[:, :, :N] = input_ids
+    return PrefillState(tokens=tokens, mask_buf=mask_buf, cache=out.cache,
+                        logits=logits, vi_last=vi_last, last_pos=pos[:, -1])
+
+
+def _generate_impl(params, input_ids, attention_mask, vision_indices,
+                   contiguous_signal, generator=None, *, cfg: LibraConfig,
+                   gen: GenerationConfig) -> GenerateResult:
+    Q, B, N = input_ids.shape
+    st = _prefill(params, input_ids, attention_mask, vision_indices,
+                  contiguous_signal, cfg=cfg, gen=gen)
+    tokens, mask_buf, cache, logits = st.tokens, st.mask_buf, st.cache, st.logits
+    vi_last, last_pos = st.vi_last, st.last_pos
+    lang_only = gen.decode_modality == "text"
+    finished = torch.zeros((B,), dtype=torch.bool, device=tokens.device)
+    num_gen = torch.zeros((B,), dtype=torch.int64, device=tokens.device)
+
+    for t in range(gen.max_new_tokens):
+        next_tok = sample_tokens(logits, gen, generator)              # (Q, B)
+        next_tok = torch.where(finished[None, :], gen.pad_token_id, next_tok)
+        # EOS on any codebook finishes the row
+        num_gen += (~finished).long()
+        finished = finished | (next_tok == gen.eos_token_id).any(dim=0)
+        tokens[:, :, N + t] = next_tok
+        mask_buf[:, N + t] = 1
+        # the forward computes the NEXT token's logits: skip it after the
+        # last token needed (one host sync per step to read `finished`)
+        if t + 1 == gen.max_new_tokens or bool(finished.all()):
+            break
+        logits, cache, vi_last, last_pos = decode_micro_step(
+            params, cfg, next_tok, mask_buf, cache, vi_last, last_pos,
+            lang_only=lang_only)
+    return GenerateResult(sequences=tokens, num_generated=num_gen)
+
+
+class Generator:
+    """Generation front end over a parameter tree on one device."""
+
+    def __init__(self, params, cfg: LibraConfig):
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed_tokens"].device
+
+    def __call__(self, inputs: Dict[str, Any],
+                 gen: Optional[GenerationConfig] = None,
+                 generator: Optional[torch.Generator] = None) -> GenerateResult:
+        """inputs: LibraTokenizer's dict (input_ids (Q, B, N) LEFT-padded,
+        attention_mask, vision_indices, coninous_signal), as tensors or
+        numpy arrays. generator: the torch.Generator to sample from (a
+        seed-0 one on the params' device when sampling without one)."""
+        gen = gen or GenerationConfig()
+        dev = self.device
+        ids = torch.as_tensor(inputs["input_ids"], device=dev).long()
+        mask = torch.as_tensor(inputs["attention_mask"], device=dev).long()
+        vi = torch.as_tensor(inputs["vision_indices"], device=dev).long()
+        sig = inputs.get("coninous_signal")
+        sig = None if sig is None else torch.as_tensor(sig, device=dev)
+        Mv = self.cfg.max_vision_token_length
+        ends_in_text = bool((vi[:, -1] >= Mv).all())
+        if gen.decode_modality == "auto":
+            gen = dataclasses.replace(
+                gen, decode_modality="text" if ends_in_text else "dual")
+        elif gen.decode_modality == "text" and not ends_in_text:
+            raise ValueError("decode_modality='text' needs prompts ending in text")
+        if gen.prompt_bucket > 1:
+            pad = (-ids.shape[-1]) % gen.prompt_bucket
+            if pad:   # left-pad to the bucket boundary
+                Q, B, _ = ids.shape
+                ids = torch.cat([ids.new_full((Q, B, pad), gen.pad_token_id), ids], -1)
+                mask = torch.cat([mask.new_zeros((B, pad)), mask], -1)
+                vi = torch.cat([vi.new_full((B, pad), Mv), vi], -1)
+                if sig is not None:
+                    sig = torch.cat([sig.new_zeros((B, pad, sig.shape[-1])), sig], 1)
+        if gen.do_sample and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        with torch.inference_mode():
+            return _generate_impl(self.params, ids, mask, vi, sig, generator,
+                                  cfg=self.cfg, gen=gen)

@@ -1,0 +1,451 @@
+"""Libra decoder: LLaMA backbone with a decoupled (routed) vision system.
+
+The PyTorch counterpart of ``libra_tpu/models/libra.py`` for inference:
+
+* modality routing is dense dual-path compute selected by the vision flag
+  (ops/routed.py);
+* the K/V bridge is a cross-modality mask in attention (ops/attention.py);
+  the prompt pass runs it through the flash kernel (ops/flash_bridge.py);
+* a Python loop over the stacked layer leaves replaces ``lax.scan``;
+* the bf16 KV cache is a preallocated sequence-major (L, B, S, H, d) buffer
+  written in place.
+
+Parameters are nested dicts of tensors with the JAX tree's key names,
+layer leaves stacked on axis 0 and weights stored for ``x @ W``.
+Dropout, remat and the modality-split prefill (``text_span``) are
+training or TPU paths the port does not carry yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from libra_tpu_torch.config import LibraConfig
+from libra_tpu_torch.ops.attention import BIG_NEG, bridged_attention, causal_bias
+from libra_tpu_torch.ops.flash_bridge import flash_bridged_attention
+from libra_tpu_torch.ops.norm import rms_norm
+from libra_tpu_torch.ops.qlinear import qdot
+from libra_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from libra_tpu_torch.ops.routed import (low_rank_linear, routed_linear,
+                                        routed_low_rank, select_by_flag)
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Initialisation
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, std, dtype, device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+def _low_rank(gen, L, d_in, d_bottleneck, d_out, std, dtype, device,
+              zero_b: bool) -> Params:
+    wa = _normal(gen, (L, d_in, d_bottleneck), std, dtype, device)
+    wb = (torch.zeros((L, d_bottleneck, d_out), dtype=dtype, device=device)
+          if zero_b else _normal(gen, (L, d_bottleneck, d_out), std, dtype, device))
+    return {"wa": wa, "wb": wb}
+
+
+def init_layer_params(gen: torch.Generator, cfg: LibraConfig,
+                      device) -> Params:
+    """All layers' params, each leaf stacked on a leading layer axis."""
+    L = cfg.num_hidden_layers
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    Db, Ib = D // cfg.vision_down_ratio, I // cfg.vision_down_ratio
+    r, std, pd = cfg.bridge_rank, cfg.initializer_range, cfg.params_dtype
+    zero_b = cfg.addition_mode
+
+    def dense(d_in, d_out):
+        return _normal(gen, (L, d_in, d_out), std, pd, device)
+
+    def low(d_in, d_b, d_out, zero):
+        return _low_rank(gen, L, d_in, d_b, d_out, std, pd, device, zero)
+
+    attn = {
+        "q_proj": dense(D, D), "k_proj": dense(D, D),
+        "v_proj": dense(D, D), "o_proj": dense(D, D),
+        "vision_q": low(D, Db, D, zero_b), "vision_k": low(D, Db, D, zero_b),
+        "vision_v": low(D, Db, D, zero_b), "vision_o": low(D, Db, D, zero_b),
+    }
+    if cfg.use_bridge:
+        # bridge B-weights start at zero, as in the reference's rank mode
+        attn.update({name: low(D, r, D, True) for name in (
+            "k_bridge_lang", "k_bridge_vis", "v_bridge_lang", "v_bridge_vis")})
+    mlp = {
+        "gate_proj": dense(D, I), "up_proj": dense(D, I), "down_proj": dense(I, D),
+        "vision_gate": low(D, Ib, I, zero_b), "vision_up": low(D, Ib, I, zero_b),
+        "vision_down": low(I, Db, D, zero_b),
+    }
+    ones = lambda: torch.ones((L, D), dtype=pd, device=device)  # noqa: E731
+    return {
+        "attn": attn,
+        "mlp": mlp,
+        "input_layernorm": ones(),
+        "post_attention_layernorm": ones(),
+        "vision_input_layernorm": ones(),
+        "vision_post_attention_layernorm": ones(),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: LibraConfig, device="cpu") -> Params:
+    """Random-init parameter tree with the JAX tree's key paths and shapes.
+    `gen` must live on `device`."""
+    D, V = cfg.hidden_size, cfg.vocab_size
+    Q, Vv = cfg.vision_codebook_num, cfg.vision_vocab_size
+    S = cfg.contiguous_signal_size
+    std, pd = cfg.initializer_range, cfg.params_dtype
+
+    def normal(shape):
+        return _normal(gen, shape, std, pd, device)
+
+    params: Params = {
+        "embed_tokens": normal((V, D)),
+        "vision_embed_tokens": normal((Q, Vv, D // Q)),
+        "layers": init_layer_params(gen, cfg, device),
+        "norm": torch.ones((D,), dtype=pd, device=device),
+        "vision_norm": torch.ones((D,), dtype=pd, device=device),
+        "lm_head": normal((D, V)),
+        "vision_lm_head": normal((Q, D, Vv)),
+    }
+    if cfg.concat_signals:
+        params["signal_proj"] = normal((S + D, D))
+        if cfg.norm_signals:
+            params["signal_norm"] = torch.ones((S + D,), dtype=pd, device=device)
+    else:
+        params["signal_proj"] = normal((S, D))
+    if cfg.use_vision_position_embedding:
+        params["vision_position_embedding"] = normal(
+            (cfg.max_vision_token_length, D))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Bridged KV cache. k/v/kb/vb: (num_layers, B, max_len, H, head_dim),
+    kb/vb None without the bridge; flag: (B, max_len) vision flags of the
+    cached tokens; index: tokens already written (all rows in lockstep)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    kb: Optional[torch.Tensor]
+    vb: Optional[torch.Tensor]
+    flag: torch.Tensor
+    index: int
+
+
+def init_cache(cfg: LibraConfig, batch: int, max_len: int,
+               device="cpu") -> KVCache:
+    """A zeroed cache in the compute dtype."""
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_attention_heads,
+             cfg.head_dim)
+
+    def z():
+        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+
+    return KVCache(k=z(), v=z(),
+                   kb=z() if cfg.use_bridge else None,
+                   vb=z() if cfg.use_bridge else None,
+                   flag=torch.zeros((batch, max_len), dtype=torch.bool,
+                                    device=device),
+                   index=0)
+
+
+def _write_seq(buf: torch.Tensor, new: torch.Tensor, index: int) -> torch.Tensor:
+    """Write `new` (B, N, ...) into `buf` (B, S, ...) at sequence offset
+    `index`, in place; returns `buf`."""
+    buf[:, index:index + new.shape[1]] = new.to(buf.dtype)
+    return buf
+
+
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, layer_idx: int,
+                 index: int) -> torch.Tensor:
+    """Write one layer's new K/V (B, N, H, d) into the stacked cache at
+    layer `layer_idx`, sequence offset `index`, in place; returns `buf`."""
+    buf[layer_idx, :, index:index + new.shape[1]] = new.to(buf.dtype)
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# Embeddings and positions
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
+                 vision_flag: torch.Tensor,
+                 contiguous_signal: Optional[torch.Tensor],
+                 vision_indices: Optional[torch.Tensor],
+                 lang_only: bool = False) -> torch.Tensor:
+    """Multi-codebook embedding + continuous-signal fusion. input_ids:
+    (Q, B, N) combined-vocab ids (vision ids carry the +vocab_size offset).
+    lang_only skips the vision embedding chain (text-only decode)."""
+    V, Vv = cfg.vocab_size, cfg.vision_vocab_size
+    cd = cfg.compute_dtype
+
+    text_emb = params["embed_tokens"][input_ids[0].clamp(0, V - 1)].to(cd)
+    if lang_only:
+        return text_emb
+
+    vis_ids = (input_ids - V).clamp(0, Vv - 1)                    # (Q,B,N)
+    vis_emb = torch.cat(
+        [params["vision_embed_tokens"][q][vis_ids[q]].to(cd)
+         for q in range(cfg.vision_codebook_num)], dim=-1)          # (B,N,D)
+
+    if cfg.use_vision_position_embedding:
+        vpe = params["vision_position_embedding"][
+            vision_indices.clamp(0, cfg.max_vision_token_length - 1)]
+        vis_emb = vis_emb + vpe.to(cd)
+
+    if cfg.concat_signals:
+        B, N = text_emb.shape[:2]
+        if contiguous_signal is None:
+            sig = torch.zeros((B, N, cfg.contiguous_signal_size), dtype=cd,
+                              device=text_emb.device)
+        else:
+            sig = contiguous_signal.to(cd)
+        cat = torch.cat([vis_emb, sig], dim=-1)
+        if cfg.norm_signals:
+            cat = rms_norm(cat, params["signal_norm"], cfg.rms_norm_eps)
+        vis_emb = qdot(cat, params["signal_proj"])
+
+    h = select_by_flag(vision_flag, vis_emb, text_emb)
+    if not cfg.concat_signals and contiguous_signal is not None:
+        # additive mode applies the signal at ALL positions
+        h = h + qdot(contiguous_signal.to(cd), params["signal_proj"])
+    return h
+
+
+def position_ids_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """cumsum(mask) - 1, with pad positions set to 1."""
+    pos = torch.cumsum(attention_mask.long(), dim=-1) - 1
+    return torch.where(attention_mask == 0, torch.ones_like(pos), pos)
+
+
+# ---------------------------------------------------------------------------
+# Decoder layer
+# ---------------------------------------------------------------------------
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, D = x.shape
+    return x.reshape(B, N, num_heads, D // num_heads)
+
+
+def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
+               flag: torch.Tensor, cos, sin, position_ids, bias, kv_flag,
+               cache_slice, attn_impl: str = "plain",
+               lang_only: bool = False) -> Tuple[torch.Tensor, Any]:
+    """Routed attention with bridge; h is the routed-normed input.
+
+    attn_impl: "plain" (ops/attention.py) or "flash" (the prompt-pass
+    kernel, ops/flash_bridge.py). lang_only (cached decode only) skips the
+    vision projections and the new tokens' bridge K/V, whose cache slots
+    are never read (cross is zero for text-query/text-key pairs).
+    cache_slice: None or {"bufs": stacked cache buffers, "layer": this
+    layer's index, "index": the sequence write offset}; the buffers are
+    written in place. Returns (attn_out (B, N, D), bufs)."""
+    H = cfg.num_attention_heads
+    a = p["attn"]
+    if lang_only and cache_slice is None:
+        raise ValueError("lang_only is a cached-decode mode")
+
+    def rproj(name):
+        if lang_only:
+            return qdot(h, a[name])
+        vp = a["vision_" + name[0]]
+        return routed_linear(h, flag, a[name], vp["wa"], vp["wb"],
+                             cfg.addition_mode)
+
+    q = apply_rope(_split_heads(rproj("q_proj"), H), cos, sin, position_ids)
+    k = apply_rope(_split_heads(rproj("k_proj"), H), cos, sin, position_ids)
+    v = _split_heads(rproj("v_proj"), H)
+
+    kb = vb = None
+    if cfg.use_bridge and not lang_only:
+        kb = _split_heads(routed_low_rank(
+            h, flag, a["k_bridge_lang"]["wa"], a["k_bridge_lang"]["wb"],
+            a["k_bridge_vis"]["wa"], a["k_bridge_vis"]["wb"]), H)
+        vb = _split_heads(routed_low_rank(
+            h, flag, a["v_bridge_lang"]["wa"], a["v_bridge_lang"]["wb"],
+            a["v_bridge_vis"]["wa"], a["v_bridge_vis"]["wb"]), H)
+        kb = apply_rope(kb, cos, sin, position_ids)  # rope is linear: rope(K+Kb)
+
+    bufs = None
+    if cache_slice is not None:
+        li, idx = cache_slice["layer"], cache_slice["index"]
+        bufs = cache_slice["bufs"]
+        # keys span the whole cache; unwritten slots are masked by `bias`
+        k = _write_cache(bufs["k"], k, li, idx)[li]
+        v = _write_cache(bufs["v"], v, li, idx)[li]
+        if cfg.use_bridge:
+            if not lang_only:
+                _write_cache(bufs["kb"], kb, li, idx)
+                _write_cache(bufs["vb"], vb, li, idx)
+            kb, vb = bufs["kb"][li], bufs["vb"][li]
+
+    attend = flash_bridged_attention if attn_impl == "flash" else bridged_attention
+    out = attend(q, k, v, kb, vb, flag, kv_flag, bias)
+    out = out.reshape(h.shape[0], h.shape[1], cfg.hidden_size)
+    if lang_only:
+        return qdot(out, a["o_proj"]), bufs
+    vo = a["vision_o"]
+    return routed_linear(out, flag, a["o_proj"], vo["wa"], vo["wb"],
+                         cfg.addition_mode), bufs
+
+
+def _mlp(p: Params, cfg: LibraConfig, h: torch.Tensor, flag: torch.Tensor,
+         lang_only: bool = False) -> torch.Tensor:
+    """Routed SwiGLU MLP; routes strictly even in addition_mode."""
+    m = p["mlp"]
+    lang = qdot(F.silu(qdot(h, m["gate_proj"])) * qdot(h, m["up_proj"]),
+                m["down_proj"])
+    if lang_only:
+        return lang
+    gate_v = low_rank_linear(h, m["vision_gate"]["wa"], m["vision_gate"]["wb"])
+    up_v = low_rank_linear(h, m["vision_up"]["wa"], m["vision_up"]["wb"])
+    vis = low_rank_linear(F.silu(gate_v) * up_v, m["vision_down"]["wa"],
+                          m["vision_down"]["wb"])
+    return select_by_flag(flag, vis, lang)
+
+
+def decoder_layer(p: Params, cfg: LibraConfig, h: torch.Tensor,
+                  flag: torch.Tensor, cos, sin, position_ids, bias, kv_flag,
+                  cache_slice, attn_impl: str = "plain",
+                  lang_only: bool = False) -> Tuple[torch.Tensor, Any]:
+    """One pre-norm decoder layer with separate vision RMSNorms."""
+    eps = cfg.rms_norm_eps
+
+    def routed_norm(x, name):
+        if lang_only:
+            return rms_norm(x, p[name], eps)
+        return select_by_flag(flag, rms_norm(x, p["vision_" + name], eps),
+                              rms_norm(x, p[name], eps))
+
+    attn_out, bufs = _attention(p, cfg, routed_norm(h, "input_layernorm"),
+                                flag, cos, sin, position_ids, bias, kv_flag,
+                                cache_slice, attn_impl, lang_only=lang_only)
+    h = h + attn_out
+    h = h + _mlp(p, cfg, routed_norm(h, "post_attention_layernorm"), flag,
+                 lang_only=lang_only)
+    return h, bufs
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+class ModelOutput(NamedTuple):
+    hidden_states: torch.Tensor     # (B, N, D), routed final norm applied
+    cache: Optional[KVCache]
+
+
+def _layer(layers: Params, i: int) -> Params:
+    """Layer i's view of the stacked layer leaves (no copy)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
+            attention_mask: torch.Tensor, vision_indices: torch.Tensor,
+            contiguous_signal: Optional[torch.Tensor] = None,
+            position_ids: Optional[torch.Tensor] = None,
+            cache: Optional[KVCache] = None,
+            attn_impl: str = "plain",
+            lang_only: bool = False) -> ModelOutput:
+    """Backbone forward.
+
+    input_ids: (Q, B, N) combined-vocab ids. attention_mask: (B, N) without
+    a cache, or (B, max_cache_len) with one (unwritten slots 0).
+    vision_indices: (B, N) in [0, max_vision_token_length]; the maximum
+    means text. With a cache, its buffers are updated in place and the
+    returned cache's index is advanced by N. lang_only: text-only cached
+    decode of prompts that end in text (exact: the vision vocab is -inf at
+    text positions, so such a sequence never re-enters vision)."""
+    flag = vision_indices < cfg.max_vision_token_length
+    B, N = flag.shape
+    device = flag.device
+    h = embed_inputs(params, cfg, input_ids, flag, contiguous_signal,
+                     vision_indices, lang_only=lang_only)
+
+    if cache is None:
+        rope_len = max(cfg.max_position_embeddings, N)
+        kv_flag = flag
+        bias = causal_bias(attention_mask, N, N)
+        if position_ids is None:
+            position_ids = position_ids_from_mask(attention_mask)
+    else:
+        S = cache.flag.shape[1]
+        rope_len = max(cfg.max_position_embeddings, S)
+        kv_flag = _write_seq(cache.flag, flag, cache.index)
+        # queries occupy slots [index, index + N); keys are the whole buffer
+        q_slots = cache.index + torch.arange(N, device=device)
+        causal = torch.arange(S, device=device)[None, :] <= q_slots[:, None]
+        keep = causal[None, None] & attention_mask.bool()[:, None, None, :]
+        bias = torch.where(keep, 0.0, BIG_NEG).float()
+        if position_ids is None:
+            raise ValueError("position_ids must be provided when using a cache")
+
+    cos, sin = rope_cos_sin(rope_len, cfg.head_dim, cfg.rope_theta, device=device)
+
+    bufs = None
+    if cache is not None:
+        bufs = {"k": cache.k, "v": cache.v}
+        if cfg.use_bridge:
+            bufs.update({"kb": cache.kb, "vb": cache.vb})
+    for i in range(cfg.num_hidden_layers):
+        cache_slice = (None if cache is None
+                       else {"bufs": bufs, "layer": i, "index": cache.index})
+        h, _ = decoder_layer(_layer(params["layers"], i), cfg, h, flag, cos,
+                             sin, position_ids, bias, kv_flag, cache_slice,
+                             attn_impl, lang_only=lang_only)
+    new_cache = None if cache is None else cache._replace(
+        flag=kv_flag, index=cache.index + N)
+
+    eps = cfg.rms_norm_eps
+    if lang_only:
+        h = rms_norm(h, params["norm"], eps)
+    else:
+        h = select_by_flag(flag, rms_norm(h, params["vision_norm"], eps),
+                           rms_norm(h, params["norm"], eps))
+    return ModelOutput(hidden_states=h, cache=new_cache)
+
+
+# ---------------------------------------------------------------------------
+# Heads / logits
+# ---------------------------------------------------------------------------
+
+def compute_text_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+    return qdot(h, params["lm_head"])
+
+
+def compute_vision_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """(Q, B, N, Vv) from the per-codebook vision heads (1d mode)."""
+    return torch.einsum("bnd,qdv->qbnv", h, params["vision_lm_head"].to(h.dtype))
+
+
+def assemble_logits(cfg: LibraConfig, text_logits: torch.Tensor,
+                    vision_logits: torch.Tensor,
+                    flag: torch.Tensor) -> torch.Tensor:
+    """(Q, B, N, V + Vv) combined fp32 logits with -inf on the wrong
+    modality's slice."""
+    Q = cfg.vision_codebook_num
+    neg = torch.tensor(float("-inf"), device=text_logits.device)
+    tl = torch.where(flag[..., None], neg, text_logits.float())
+    vl = torch.where(flag[None, ..., None], vision_logits.float(), neg)
+    return torch.cat([tl[None].expand((Q,) + tl.shape), vl], dim=-1)
+
+
+def force_eoi_newline(cfg: LibraConfig, logits: torch.Tensor,
+                      last_vision_indices: torch.Tensor) -> torch.Tensor:
+    """After <EOI> (vision_index == max_vision_token_length - 1) force the
+    next token to be the newline. logits: (Q, B, Vc); finite stand-ins
+    for +-inf keep a downstream softmax NaN-free."""
+    eoi = last_vision_indices == cfg.max_vision_token_length - 1
+    forced = torch.full_like(logits, -1e30)
+    forced[..., cfg.newline_token_id] = 1e30
+    return torch.where(eoi[None, :, None], forced, logits)

@@ -1,0 +1,177 @@
+"""Joint text + image tokenization (encode side).
+
+    tokenizer([{"language": [...], "vision": [...]}]) ->
+        {input_ids (Q, B, N), attention_mask (B, N), vision_indices (B, N),
+         coninous_signal (B, N, C) or None}
+
+Text runs host-side through a pluggable text tokenizer; images run through
+the VQGAN encode on the image tokenizer's device. Vision ids are offset by
+the text vocab size; each image becomes <BOI> + g*g tokens + <EOI>,
+scattered into the `<img_ph>` positions of the text. `vision_indices` is
+each token's index inside its image block, and max_vision_token_length for
+text. The misspelled key "coninous_signal" is kept for parity with the
+JAX package.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from libra_tpu_torch.config import VQGANConfig
+from libra_tpu_torch.models import vqgan as vqgan_model
+
+IMG_PH = "<img_ph>"
+IMG_GEN = "<img_gen>"
+
+_WORDS = re.compile(r"<img_ph>|<img_gen>|\S+?(?=<img_ph>|<img_gen>)|\S+")
+
+
+class SimpleTextTokenizer:
+    """Minimal whitespace tokenizer with the LLaMA tokenizer's surface, for
+    tests and runs without a real vocabulary: pad = unk = 0, bos = 1
+    (prepended), eos = 2. Unseen words get ids as they first appear, as in
+    the JAX package, so two tokenizers fed the same texts in the same order
+    agree."""
+
+    def __init__(self, vocab_size: int = 256):
+        self.base_vocab_size = vocab_size
+        self.vocab: Dict[str, int] = {}
+        self.pad_token_id = 0
+        self.bos_token_id = 1
+        self.eos_token_id = 2
+        self.img_ph_token_id = vocab_size - 2
+        self.img_gen_token_id = vocab_size - 1
+        self.padding_side = "right"
+        self._next_id = 3
+
+    def _word_id(self, w: str) -> int:
+        if w == IMG_PH:
+            return self.img_ph_token_id
+        if w == IMG_GEN:
+            return self.img_gen_token_id
+        if w not in self.vocab:
+            self._next_id += 1
+            self.vocab[w] = 3 + self._next_id % (self.base_vocab_size - 8)
+        return self.vocab[w]
+
+    def encode_one(self, text: str) -> List[int]:
+        return [self.bos_token_id] + [self._word_id(m.group(0))
+                                      for m in _WORDS.finditer(text)]
+
+    def __call__(self, texts: Sequence[str]) -> Dict[str, np.ndarray]:
+        seqs = [self.encode_one(t) for t in texts]
+        n = max(len(s) for s in seqs)
+        ids = np.full((len(seqs), n), self.pad_token_id, np.int64)
+        mask = np.zeros((len(seqs), n), np.int64)
+        for i, s in enumerate(seqs):
+            sl = slice(n - len(s), n) if self.padding_side == "left" else slice(0, len(s))
+            ids[i, sl] = s
+            mask[i, sl] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        inv = {v: k for k, v in self.vocab.items()}
+        inv[self.img_ph_token_id] = IMG_PH
+        special = (self.pad_token_id, self.bos_token_id, self.eos_token_id)
+        return " ".join(inv.get(int(i), f"<{int(i)}>") for i in ids
+                        if not (skip_special_tokens and int(i) in special))
+
+
+class ImageTokenizer:
+    """VQGAN-backed image tokenizer with combined-vocab framing: codes
+    occupy [offset, offset + codebook_size); BOI = offset + codebook_size;
+    EOI = BOI + 1."""
+
+    def __init__(self, cfg: VQGANConfig, params: Dict, token_offset: int,
+                 max_vision_token_length: int = 578):
+        self.cfg = cfg
+        self.params = params
+        self.offset = token_offset
+        self.num_codebook = cfg.num_codebook
+        self.vocab_size = cfg.codebook_size + 2
+        self.boi_token_id = token_offset + self.vocab_size - 2
+        self.eoi_token_id = token_offset + self.vocab_size - 1
+        self.max_vision_token_length = max_vision_token_length
+
+    def encode(self, pixels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """pixels (B, S, S, 3) CLIP-normalized NHWC -> input_ids
+        (Q, B, max_vision_token_length) with BOI/EOI framing and
+        encoder_feat (B, g*g, C), on the params' device."""
+        w = self.params["quant_conv"]["w"]
+        pixels = pixels.to(device=w.device, dtype=w.dtype)
+        out = vqgan_model.encode(self.params, self.cfg, pixels)
+        B, g, _, Q = out.indices.shape
+        ids = out.indices.permute(3, 0, 1, 2).reshape(Q, B, g * g) + self.offset
+        boi = torch.full((Q, B, 1), self.boi_token_id, dtype=ids.dtype, device=ids.device)
+        eoi = torch.full((Q, B, 1), self.eoi_token_id, dtype=ids.dtype, device=ids.device)
+        return {"input_ids": torch.cat([boi, ids, eoi], dim=-1),
+                "encoder_feat": out.feat.reshape(B, g * g, -1)}
+
+
+class LibraTokenizer:
+    """Fuses text and image tokenization into decoder-ready tensors."""
+
+    def __init__(self, text_tokenizer, image_tokenizer: ImageTokenizer):
+        self.text_tokenizer = text_tokenizer
+        self.image_tokenizer = image_tokenizer
+        self.num_codebook = image_tokenizer.num_codebook
+
+    def __call__(self, samples) -> Dict[str, Optional[torch.Tensor]]:
+        """samples: dicts with "language" (str or list) and optional
+        "vision" (images as (S, S, 3) arrays or tensors, CLIP-normalized).
+        The result lies on the image tokenizer's device when there are
+        images, else on the CPU."""
+        if not isinstance(samples, (list, tuple)):
+            samples = [samples]
+        texts: List[str] = []
+        images: List[Any] = []
+        for s in samples:
+            lang = s.get("language")
+            if lang is not None:
+                texts += list(lang) if isinstance(lang, (list, tuple)) else [lang]
+            vis = s.get("vision")
+            if vis is not None:
+                images += list(vis) if isinstance(vis, (list, tuple)) else [vis]
+        if not texts:
+            raise ValueError("Empty text inputs")
+
+        t = self.text_tokenizer(texts)
+        device = (self.image_tokenizer.params["quant_conv"]["w"].device
+                  if images else torch.device("cpu"))
+        ids = torch.as_tensor(np.asarray(t["input_ids"], np.int64), device=device)
+        mask = torch.as_tensor(np.asarray(t["attention_mask"], np.int64), device=device)
+        B, N = ids.shape
+        Q = self.num_codebook
+        M = self.image_tokenizer.max_vision_token_length
+
+        img_ph_mask = ids == self.text_tokenizer.img_ph_token_id
+        img_gen_mask = ids == self.text_tokenizer.img_gen_token_id
+        ids[img_gen_mask] = self.image_tokenizer.boi_token_id
+        input_ids = ids[None].expand(Q, B, N).clone()
+        vision_indices = torch.full((B, N), M, dtype=torch.int64, device=device)
+        signal = None
+
+        if images:
+            pixels = torch.stack([torch.as_tensor(im) for im in images])
+            enc = self.image_tokenizer.encode(pixels)
+            img_ids, feat = enc["input_ids"], enc["encoder_feat"]
+            n_img = img_ids.shape[1]
+            n_slots = int(img_ph_mask.sum())
+            if n_slots != n_img * M:
+                raise ValueError(
+                    f"{n_slots} <img_ph> slots but {n_img} images x {M} tokens")
+            input_ids[:, img_ph_mask] = img_ids.reshape(Q, -1)
+            vision_indices[img_ph_mask] = torch.arange(M, device=device).repeat(n_img)
+            zero_row = feat.new_zeros((n_img, 1, feat.shape[-1]))
+            framed = torch.cat([zero_row, feat, zero_row], dim=1)
+            signal = feat.new_zeros((B, N, feat.shape[-1]))
+            signal[img_ph_mask] = framed.reshape(-1, feat.shape[-1])
+        else:
+            vision_indices[img_gen_mask] = 0
+
+        return {"input_ids": input_ids, "attention_mask": mask,
+                "vision_indices": vision_indices, "coninous_signal": signal}
