@@ -1,9 +1,10 @@
 """Autoregressive generation: one prefill over the left-padded prompt, then
 a cached decode loop.
 
-The PyTorch counterpart of ``libra_tpu/generation.py``'s bf16 path: the
+The PyTorch counterpart of ``libra_tpu/generation.py``'s serving path: the
 same multi-codebook argmax or sampling, EOS on any codebook, EOI->newline
-forcing and vision-index auto-increment, with a Python loop in place of
+forcing and vision-index auto-increment, the int8 KV cache (``kv_quant``)
+and the w8a8 prompt pass (``a8_prefill``), with a Python loop in place of
 ``lax.while_loop``. The loop stops once every row has finished and skips
 the forward after the last token it needs. Prompts must be LEFT-padded.
 """
@@ -18,6 +19,7 @@ import torch
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.models import libra as M
+from libra_tpu_torch.ops.qlinear import a8_enabled
 
 
 @dataclass(frozen=True)
@@ -30,6 +32,10 @@ class GenerationConfig:
     eos_token_id: int = 2
     pad_token_id: int = 0
     prompt_bucket: int = 0   # 0 = no padding to a bucket boundary
+    kv_quant: bool = False   # int8 K/V cache (per-token/head scales)
+    a8_prefill: bool = False  # w8a8 prompt pass: int8-weight matmuls that
+    #   no kernel takes quantize their activations per row and run an
+    #   integer matmul; decode stays weight-only. No-op on a plain tree.
     decode_modality: str = "auto"  # "auto" | "text" | "dual": "text"
     #   decodes through the language path only (exact for prompts that end
     #   in text); "auto" resolves per call from the prompts' last tokens
@@ -121,18 +127,22 @@ class PrefillState(NamedTuple):
 def _prefill(params, input_ids, attention_mask, vision_indices,
              contiguous_signal, *, cfg: LibraConfig,
              gen: GenerationConfig) -> PrefillState:
-    """The prompt pass: cache init (N + max_new_tokens slots), prompt
-    forward through the flash kernel, last-position logits."""
+    """The prompt pass: cache init (N + max_new_tokens slots, int8 with
+    gen.kv_quant), prompt forward through the flash kernel (w8a8 with
+    gen.a8_prefill), last-position logits (weight-only). JAX rounds an
+    int8 cache's length up to 128 for its TPU kernel; the port does not
+    need to, and the extra slots are masked there anyway."""
     Q, B, N = input_ids.shape
     S = N + gen.max_new_tokens
     device = input_ids.device
-    cache = M.init_cache(cfg, B, S, device=device)
+    cache = M.init_cache(cfg, B, S, device=device, quantized=gen.kv_quant)
     mask_buf = torch.zeros((B, S), dtype=torch.int64, device=device)
     mask_buf[:, :N] = attention_mask
     pos = M.position_ids_from_mask(attention_mask)
-    out = M.forward(params, cfg, input_ids, mask_buf, vision_indices,
-                    contiguous_signal, position_ids=pos, cache=cache,
-                    attn_impl="flash")
+    with a8_enabled(gen.a8_prefill):
+        out = M.forward(params, cfg, input_ids, mask_buf, vision_indices,
+                        contiguous_signal, position_ids=pos, cache=cache,
+                        attn_impl="flash")
     vi_last = vision_indices[:, -1]
     logits = _last_position_logits(params, cfg, out.hidden_states,
                                    vi_last < cfg.max_vision_token_length,

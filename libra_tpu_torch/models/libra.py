@@ -8,7 +8,10 @@ The PyTorch counterpart of ``libra_tpu/models/libra.py`` for inference:
   the prompt pass runs it through the flash kernel (ops/flash_bridge.py);
 * a Python loop over the stacked layer leaves replaces ``lax.scan``;
 * the bf16 KV cache is a preallocated sequence-major (L, B, S, H, d) buffer
-  written in place.
+  written in place; the int8 cache (``init_cache(quantized=True)``) is
+  head-major (L, B, H, S, d) with (L, B, H, S) fp32 scales, and decode
+  steps read it through the int8 decode-attention kernel
+  (ops/decode_attention.py).
 
 Parameters are nested dicts of tensors with the JAX tree's key names,
 layer leaves stacked on axis 0 and weights stored for ``x @ W``.
@@ -25,12 +28,15 @@ import torch.nn.functional as F
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.ops.attention import BIG_NEG, bridged_attention, causal_bias
+from libra_tpu_torch.ops.decode_attention import (decode_kernel_applicable,
+                                                  int8_decode_attention)
 from libra_tpu_torch.ops.flash_bridge import flash_bridged_attention
 from libra_tpu_torch.ops.norm import rms_norm
 from libra_tpu_torch.ops.qlinear import qdot
 from libra_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from libra_tpu_torch.ops.routed import (low_rank_linear, routed_linear,
                                         routed_low_rank, select_by_flag)
+from libra_tpu_torch.quantization import QuantizedArray
 
 Params = Dict[str, Any]
 
@@ -130,25 +136,36 @@ def init_params(gen: torch.Generator, cfg: LibraConfig, device="cpu") -> Params:
 # ---------------------------------------------------------------------------
 
 class KVCache(NamedTuple):
-    """Bridged KV cache. k/v/kb/vb: (num_layers, B, max_len, H, head_dim),
-    kb/vb None without the bridge; flag: (B, max_len) vision flags of the
-    cached tokens; index: tokens already written (all rows in lockstep)."""
-    k: torch.Tensor
-    v: torch.Tensor
-    kb: Optional[torch.Tensor]
-    vb: Optional[torch.Tensor]
+    """Bridged KV cache. k/v/kb/vb: (num_layers, B, max_len, H, head_dim)
+    tensors, or head-major QuantizedArrays (q (num_layers, B, H, max_len,
+    head_dim) int8, scale (num_layers, B, H, max_len) fp32); kb/vb None
+    without the bridge; flag: (B, max_len) vision flags of the cached
+    tokens; index: tokens already written (all rows in lockstep)."""
+    k: Any
+    v: Any
+    kb: Optional[Any]
+    vb: Optional[Any]
     flag: torch.Tensor
     index: int
 
 
 def init_cache(cfg: LibraConfig, batch: int, max_len: int,
-               device="cpu") -> KVCache:
-    """A zeroed cache in the compute dtype."""
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_attention_heads,
-             cfg.head_dim)
+               device="cpu", quantized: bool = False) -> KVCache:
+    """A zeroed cache in the compute dtype, or with quantized=True int8
+    K/V with per-(token, head) scales: half the bytes to hold and to read
+    each decode step. The int8 buffers are head-major, so the decode
+    kernel reads each (batch, head)'s keys as one contiguous run."""
+    L, H, d = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
 
     def z():
-        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+        if quantized:
+            return QuantizedArray(
+                torch.zeros((L, batch, H, max_len, d), dtype=torch.int8,
+                            device=device),
+                torch.zeros((L, batch, H, max_len), dtype=torch.float32,
+                            device=device))
+        return torch.zeros((L, batch, max_len, H, d), dtype=cfg.compute_dtype,
+                           device=device)
 
     return KVCache(k=z(), v=z(),
                    kb=z() if cfg.use_bridge else None,
@@ -165,12 +182,31 @@ def _write_seq(buf: torch.Tensor, new: torch.Tensor, index: int) -> torch.Tensor
     return buf
 
 
-def _write_cache(buf: torch.Tensor, new: torch.Tensor, layer_idx: int,
-                 index: int) -> torch.Tensor:
+def _write_cache(buf, new: torch.Tensor, layer_idx: int, index: int):
     """Write one layer's new K/V (B, N, H, d) into the stacked cache at
-    layer `layer_idx`, sequence offset `index`, in place; returns `buf`."""
-    buf[layer_idx, :, index:index + new.shape[1]] = new.to(buf.dtype)
+    layer `layer_idx`, sequence offset `index`, in place; returns `buf`.
+    A quantized buffer takes int8 values with one scale per (token, head):
+    absmax / 127, rounded to nearest even and clipped to +-127."""
+    N = new.shape[1]
+    if isinstance(buf, QuantizedArray):
+        nf = new.float()
+        a = nf.abs().amax(dim=-1, keepdim=True)
+        scale = torch.where(a > 0, a, 1.0) / 127.0
+        q = torch.round(nf / scale).clamp_(-127, 127).to(torch.int8)
+        buf.q[layer_idx, :, :, index:index + N] = q.transpose(1, 2)
+        buf.scale[layer_idx, :, :, index:index + N] = scale[..., 0].transpose(1, 2)
+        return buf
+    buf[layer_idx, :, index:index + N] = new.to(buf.dtype)
     return buf
+
+
+def _read_cache(view, dtype: torch.dtype) -> torch.Tensor:
+    """One layer's cache as a sequence-major (B, S, H, d) tensor: a bf16
+    view as it is; a quantized head-major view dequantized in `dtype`
+    (q and scale each cast first, as in JAX) and transposed."""
+    if isinstance(view, QuantizedArray):
+        return (view.q.to(dtype) * view.scale.to(dtype)[..., None]).transpose(1, 2)
+    return view
 
 
 # ---------------------------------------------------------------------------
@@ -275,21 +311,37 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
             a["v_bridge_vis"]["wa"], a["v_bridge_vis"]["wb"]), H)
         kb = apply_rope(kb, cos, sin, position_ids)  # rope is linear: rope(K+Kb)
 
-    bufs = None
+    bufs = out = None
     if cache_slice is not None:
         li, idx = cache_slice["layer"], cache_slice["index"]
         bufs = cache_slice["bufs"]
         # keys span the whole cache; unwritten slots are masked by `bias`
-        k = _write_cache(bufs["k"], k, li, idx)[li]
-        v = _write_cache(bufs["v"], v, li, idx)[li]
-        if cfg.use_bridge:
-            if not lang_only:
-                _write_cache(bufs["kb"], kb, li, idx)
-                _write_cache(bufs["vb"], vb, li, idx)
-            kb, vb = bufs["kb"][li], bufs["vb"][li]
+        _write_cache(bufs["k"], k, li, idx)
+        _write_cache(bufs["v"], v, li, idx)
+        if cfg.use_bridge and not lang_only:
+            _write_cache(bufs["kb"], kb, li, idx)
+            _write_cache(bufs["vb"], vb, li, idx)
+        ck, cv = bufs["k"][li], bufs["v"][li]
+        ckb, cvb = (bufs["kb"][li], bufs["vb"][li]) if cfg.use_bridge else (None, None)
+        if decode_kernel_applicable(ck, q.shape[1], cfg.head_dim):
+            # the int8 cache's decode steps: raw int8 layer views, the
+            # scales folded into scores and probabilities
+            bridge = {} if ckb is None else dict(kbq=ckb.q, kbs=ckb.scale,
+                                                 vbq=cvb.q, vbs=cvb.scale)
+            out = int8_decode_attention(q, ck.q, ck.scale, cv.q, cv.scale,
+                                        flag_q=flag, kv_flag=kv_flag,
+                                        bias=bias[:, 0], **bridge)
+        else:
+            # the prompt pass (and any step the kernel does not take)
+            # attends over the cache as written: with an int8 cache, the
+            # dequantized keys and values, not the fresh ones
+            k, v = _read_cache(ck, q.dtype), _read_cache(cv, q.dtype)
+            if ckb is not None:
+                kb, vb = _read_cache(ckb, q.dtype), _read_cache(cvb, q.dtype)
 
-    attend = flash_bridged_attention if attn_impl == "flash" else bridged_attention
-    out = attend(q, k, v, kb, vb, flag, kv_flag, bias)
+    if out is None:
+        attend = flash_bridged_attention if attn_impl == "flash" else bridged_attention
+        out = attend(q, k, v, kb, vb, flag, kv_flag, bias)
     out = out.reshape(h.shape[0], h.shape[1], cfg.hidden_size)
     if lang_only:
         return qdot(out, a["o_proj"]), bufs

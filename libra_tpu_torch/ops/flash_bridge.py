@@ -17,20 +17,14 @@ Forward only: the backward lands with training (ROADMAP A11, kernel B4).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from libra_tpu_torch.ops import _build
 from libra_tpu_torch.ops.attention import BIG_NEG
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_bridge.cu"
-BUILD_DIR = _PKG / "build"
+SOURCE = _build.CSRC / "flash_bridge.cu"
 HEAD_DIM = 128     # libra-11b's; the kernel is built for it alone
 
 
@@ -56,50 +50,8 @@ def flash_bridged_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (o / denom.permute(0, 2, 1, 3)).to(q.dtype)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: building the flash-bridge kernel "
-                       "needs the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile csrc/flash_bridge.cu for sm_90a into BUILD_DIR, named by a
-    hash of the source (an unchanged source is not rebuilt). nvcc's
-    output, with ptxas' register and shared-memory report, is kept in a
-    .log file beside the library. Returns the library's path."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"flash_bridge-{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-_lib_fn = None   # the loaded C entry point; one per process
-
-
-def _kernel_fn():
-    global _lib_fn
-    if _lib_fn is None:
-        fn = ctypes.CDLL(str(build())).flash_bridge_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 9
-                       + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib_fn = fn
-    return _lib_fn
+_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.POINTER(ctypes.c_longlong),)
+             + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_void_p))
 
 
 def _check(q, k, v, kb, vb, flag_q, flag_kv, bias):
@@ -162,14 +114,11 @@ def flash_bridged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides += [0, 0, 0] if t is None else [t.stride(0), t.stride(1), t.stride(2)]
     strides += [bias.stride(0), bias.stride(2)]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(q.device):
-        status = _kernel_fn()(
-            ptr(q), ptr(k), ptr(v), ptr(kb), ptr(vb), ptr(fq), ptr(fk),
-            ptr(bias), ptr(out), (ctypes.c_longlong * 17)(*strides),
-            B, Nq, Nk, H, 1.0 / (d ** 0.5),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"flash_bridge_fwd launch failed: CUDA error {status}")
+    status = _build.function(SOURCE, "flash_bridge_fwd", _ARGTYPES)(
+        ptr(q), ptr(k), ptr(v), ptr(kb), ptr(vb), ptr(fq), ptr(fk),
+        ptr(bias), ptr(out), (ctypes.c_longlong * 17)(*strides),
+        B, Nq, Nk, H, 1.0 / (d ** 0.5), _build.stream(q))
+    _build.check_launch(status, "flash_bridge_fwd")
     flash_bridged_attention.launches += 1
     return out
 
