@@ -5,11 +5,16 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
-2. build: compiles the four kernels of libra_tpu_torch/csrc at once (one
+2. build: compiles the five kernels of libra_tpu_torch/csrc at once (one
    nvcc each) and prints ptxas' register, shared-memory and spill lines.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included.
+3b. flash backward kernel vs its plain version at the training shape (B=8,
+   Nq=Nk=698, H=32, d=128, bf16), bridge on and off, right-padded rows and
+   two left-padded rows (fully masked query rows: dq exactly 0), every
+   gradient against the plain backward on fp32 copies; also the forward's
+   row max and denominator, and the forward's time at this shape.
 4. int8 and int4 matmul kernels vs their plain versions at M = 4 (decode)
    and M = 160 (the gate's limit) on libra-11b's projection shapes
    (4096->4096, 4096->11008, 11008->4096, 4096->32000 lm_head), the
@@ -30,10 +35,21 @@ Phases, in order; any failure exits non-zero:
    the logits with the kernels held against those with every kernel's
    plain version patched in; last, torch.profiler's split of one prompt
    pass and of 4 decode steps by kernel.
+7. the training path: the fused pretrain step (CLIP + LFQ tokenizing inside
+   the step, frozen-language AdamW, remat), libra-11b at full width cut to
+   4 layers, B=8, N=120+578=698 (bench.py's train-step proxy), for remat
+   "big_dots" and "full": one warm-up step and 4 timed steps each, with
+   ms/step, tokens/s, MFU, peak memory, loss and grad_norm; frozen leaves
+   bitwise unchanged, trainable leaves moved, launch counts as derived from
+   the config; on two layers at full width the loss and trainable
+   gradients against the same step with the plain versions patched in;
+   torch.profiler's split of one step by kernel.
 
-Each phase-6 run sets every kernel's launch count to 0 just before it and
-reads them just after; the line before the last is the kernel report as
-JSON, with the launches summed over those runs; the last line is
+Each phase-6 and phase-7 run sets every kernel's launch count to 0 just
+before it and reads them just after; the line before the last is the
+kernel report as JSON, with the launches summed over those runs and each
+kernel's bound (bytes over HBM's 3.35 TB/s or operations over the dense
+peak of their type, the larger) from its inputs here; the last line is
 {"ok": true, "device": {...}}. Every number printed stands beside the
 card's name and power limit.
 """
@@ -42,9 +58,11 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import importlib
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -82,10 +100,35 @@ QUESTIONS = ["What is shown in this picture?",
              "Describe the image.",
              "What color is the left object?",
              "How many people are there?"]
+# The card's published rates (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): a kernel's bound is
+# the larger of its bytes over HBM_BPS and its operations over PEAK.
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "int8": 1979e12}
+# training phase: bench.py's train-step proxy (bench.py:580-685)
+TRAIN_LAYERS, TRAIN_B, TRAIN_TEXT = 4, 8, 120
+TRAIN_STEPS = 4
+IMG_T = 8                                    # the image block's start
+# Two-layer training step, kernels vs plain versions: the loss is a mean
+# over 5,584 tokens of log-softmaxes in fp32, so the logits' one-ulp
+# differences (E2E_TOL) average out to ~1e-5 of it (measured on an H100:
+# 6.6e-6); 1e-4 is allowed. The gradients also carry the plain backward's
+# rounding of p and ds to bf16 before its products (the kernel keeps them
+# in fp32), about 2^-9 relative per term, and are stored in bf16 (2^-9).
+# The bridge leaves take theirs from ds = p (dp - delta), a difference of
+# near-equal terms that magnifies those roundings (measured on an H100:
+# 0.0034-0.0081 on the bridge leaves, 0.0010-0.0055 on the others). Each
+# trainable leaf's gradient is held on its own, to a relative L2 of 0.02:
+# a dropped bridge term or a wrong mask moves a leaf by its whole size.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 0.02
 KERNELS = [
     dict(name="flash_bridged_attention", module="libra_tpu_torch.ops.flash_bridge",
          source="libra_tpu_torch/csrc/flash_bridge.cu",
          replaces="libra_tpu/ops/pallas/flash_bridge.py:117"),
+    dict(name="flash_bridged_attention_bwd", module="libra_tpu_torch.ops.flash_bridge",
+         source="libra_tpu_torch/csrc/flash_bridge_bwd.cu",
+         replaces="libra_tpu/ops/pallas/flash_bridge.py:268"),
     dict(name="int8_matmul", module="libra_tpu_torch.ops.int8_matmul",
          source="libra_tpu_torch/csrc/int8_matmul.cu",
          replaces="libra_tpu/ops/pallas/int8_matmul.py:59"),
@@ -160,6 +203,18 @@ def check(label: str, got, want, card: str) -> float:
     return err
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: int, ops: float, kind: str = "bf16") -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM_BPS and the operations over the dense peak of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, ops / PEAK[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def build(card: str) -> None:
     from libra_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -217,11 +272,114 @@ def check_flash(card: str, dev) -> dict:
             raise AssertionError("fully masked query rows must stay finite")
         ms = cuda_ms(lambda: flash_bridged_attention(*args))
         plain_ms = cuda_ms(lambda: flash_bridged_attention_plain(*args))
+        q, k = args[0], args[1]
+        # the products the function needs: QK^T and PV, with the bridge
+        # also QKb^T and (P cross)Vb
+        ops = 2 * B * H * NQ * NK * HD * (4 if use_bridge else 2)
+        bnd = bound(nbytes(*args, got), ops)
+        # no library call computes the bridged function; without the
+        # bridge, SDPA with the additive mask does
+        lib_ms = None if use_bridge else cuda_ms(lambda: sdpa(q, k, args[2], args[7]))
         print(f"flash use_bridge={use_bridge}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms [{card}]")
-        report[use_bridge] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    return {"max_abs_err": max(r["max_abs_err"] for r in report.values()),
-            "ms": report[True]["ms"], "plain_ms": report[True]["plain_ms"]}
+              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), SDPA {lib_ms} ms [{card}]")
+        report[use_bridge] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, **bnd)
+    return dict(report[True], max_abs_err=max(r["max_abs_err"] for r in report.values()))
+
+
+def sdpa(q, k, v, bias):
+    """torch's scaled_dot_product_attention on (B, N, H, d) operands with
+    the additive (B, 1, Nq, Nk) bias: the library call that computes the
+    unbridged function (a yardstick only; the port never calls it)."""
+    F = torch.nn.functional
+    t = [x.transpose(1, 2) for x in (q, k, v)]
+    return F.scaled_dot_product_attention(*t, attn_mask=bias.to(q.dtype)).transpose(1, 2)
+
+
+def train_attention_inputs(use_bridge: bool, dev):
+    """Training-shape inputs (B=8, N=120+578=698, the image block at 8):
+    rows 1-5 right-padded by 7r tokens, as the tokenizer pads captions;
+    rows 6 and 7 left-padded by 3 and 5, so their first query rows see no
+    key. Returns the forward's arguments and an output cotangent."""
+    from libra_tpu_torch.ops.attention import causal_bias
+    Bt, N, Mv = TRAIN_B, TRAIN_TEXT + 578, 578
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def rnd():
+        return torch.randn((Bt, N, H, HD), generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(), rnd(), rnd()
+    kb, vb = (rnd(), rnd()) if use_bridge else (None, None)
+    flag = torch.zeros((Bt, N), dtype=torch.bool, device=dev)
+    flag[:, IMG_T:IMG_T + Mv] = True
+    mask = torch.ones((Bt, N), dtype=torch.int64, device=dev)
+    for r in range(1, 6):
+        mask[r, N - 7 * r:] = 0
+    mask[6, :3] = 0
+    mask[7, :5] = 0
+    return (q, k, v, kb, vb, flag, flag, causal_bias(mask, N, N)), rnd()
+
+
+def check_flash_bwd(card: str, dev) -> dict:
+    """The backward kernel against the plain backward on fp32 copies, with
+    the forward kernel's row max and denominator checked against the plain
+    softmax's on the way; dq exactly 0 on the fully masked rows."""
+    from libra_tpu_torch.ops import flash_bridge as FB
+    report = {}
+    for use_bridge in (True, False):
+        args, do = train_attention_inputs(use_bridge, dev)
+        Bt, N = args[0].shape[:2]
+        out, (m, l) = FB._launch_fwd(*args, stats=True)
+        grads = FB.flash_bridged_attention_bwd(*args, out, do, m, l)
+        torch.cuda.synchronize()
+        f32 = [None if t is None else (t.float() if t.is_floating_point() else t)
+               for t in args]
+        _, m_ref, l_ref = FB._probs(f32[0], f32[1], f32[3], *f32[5:])
+        m_err = (m - m_ref[..., 0]).abs().max().item()
+        l_err = ((l - l_ref[..., 0]).abs() / l_ref[..., 0]).max().item()
+        print(f"flash fwd stats use_bridge={use_bridge}: row max max_abs_err "
+              f"{m_err:.6g} (tol 1e-4), denominator max rel err {l_err:.6g} "
+              f"(tol 1e-4: fp32 sums in another order) [{card}]")
+        if not (m_err <= 1e-4 and l_err <= 1e-4):
+            raise AssertionError("the forward kernel's softmax stats disagree")
+        want = FB.flash_bridged_attention_bwd_plain(*f32, out.float(), do.float())
+        errs = [check(f"flash bwd {name} use_bridge={use_bridge}", g, w, card)
+                for name, g, w in zip(("dq", "dk", "dv", "dkb", "dvb"), grads, want)
+                if g is not None]
+        if not (bool((grads[0][6, :3] == 0).all()) and bool((grads[0][7, :5] == 0).all())):
+            raise AssertionError("fully masked query rows must get dq == 0")
+        ms = cuda_ms(lambda: FB.flash_bridged_attention_bwd(*args, out, do, m, l),
+                     n=5, reps=3)
+        plain_ms = cuda_ms(lambda: FB.flash_bridged_attention_bwd_plain(*args, out, do),
+                           n=2, reps=3)
+        fwd_ms = cuda_ms(lambda: FB._launch_fwd(*args, stats=True), n=5, reps=3)
+        # the products the function needs: s = QK^T, dp = dO V^T, dq = ds K,
+        # dk = ds^T Q, dv = P^T dO; with the bridge also sb = QKb^T,
+        # dpb = dO Vb^T, dq += dsb Kb, dkb = dsb^T Q, dvb = (P cross)^T dO
+        ops = 2 * Bt * H * N * N * HD * (10 if use_bridge else 5)
+        bnd = bound(nbytes(*args, out, do, m, l, *grads), ops)
+        lib = ""
+        if not use_bridge:
+            # SDPA's forward + backward minus its forward: the library's
+            # backward for the unbridged function (no single call)
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in args[:3])
+            bias = args[7]
+
+            def lib_step():
+                o = sdpa(qg, kg, vg, bias)
+                torch.autograd.grad(o, (qg, kg, vg), do)
+            lib_fb = cuda_ms(lib_step, n=5, reps=3)
+            lib_f = cuda_ms(lambda: sdpa(args[0], args[1], args[2], bias), n=5, reps=3)
+            lib = f", SDPA fwd+bwd {lib_fb:.4f} ms - fwd {lib_f:.4f} ms"
+        print(f"flash bwd use_bridge={use_bridge} B={Bt} N={N}: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, forward kernel {fwd_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}){lib} [{card}]")
+        report[use_bridge] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                  library_ms=None, **bnd)
+        del args, do, out, grads, want, f32
+        torch.cuda.empty_cache()
+    return dict(report[True], max_abs_err=max(r["max_abs_err"] for r in report.values()))
 
 
 def check_matmuls(card: str, dev) -> dict:
@@ -254,16 +412,50 @@ def check_matmuls(card: str, dev) -> dict:
                 label = f"{name}{tag} M={M} {K}->{F}"
                 got = kernel(x, *layer(3))
                 torch.cuda.synchronize()
-                err = check(label, got, plain(x.float(), *layer(3)), card)
+                want = plain(x.float(), *layer(3))
+                err = check(label, got, want, card)
                 turn = itertools.cycle(range(L))
                 ms = cuda_ms(lambda: kernel(x, *layer(next(turn))))
                 plain_ms = cuda_ms(lambda: plain(x, *layer(next(turn))))
-                print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                      f"[{card}]")
+                bnd = bound(nbytes(x, *layer(3), got), 2 * M * K * F,
+                            "int8" if "a8=True" in tag else "bf16")
+                lib_ms = (int8_library_ms(x, q, s, want, label, card)
+                          if name == "int8_matmul" else None)
+                print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                      f"library {lib_ms} ms [{card}]")
                 report[name].append(dict(M=M, K=K, F=F, tag=tag, max_abs_err=err,
-                                         ms=ms, plain_ms=plain_ms))
+                                         ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms, **bnd))
         del q, s, packed, s4
     return report
+
+
+def int8_library_ms(x, q, s, want, label, card):
+    """torch._weight_int8pack_mm, x @ (q * scale) with the int8 weight in
+    its own (F, K) layout, on the layers' weights rotated as the kernel's
+    are: the one PyTorch call of the same function. None, with the reason
+    printed, where this build has no such call on the card or it
+    disagrees."""
+    L = q.shape[0]
+    qt = [q[l].t().contiguous() for l in range(L)]
+    sc = [s[l, 0].to(x.dtype) for l in range(L)]
+    try:
+        got = torch._weight_int8pack_mm(x, qt[3], sc[3])
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        print(f"{label}: torch._weight_int8pack_mm unavailable on the card: "
+              f"{str(e).splitlines()[0][:120]} [{card}]")
+        return None
+    if not (got.float() - want).abs().max().item() <= bf16_tol(want) * 4:
+        print(f"{label}: torch._weight_int8pack_mm disagrees; not timed [{card}]")
+        return None
+    turn = itertools.cycle(range(L))
+
+    def call():
+        i = next(turn)
+        return torch._weight_int8pack_mm(x, qt[i], sc[i])
+    return cuda_ms(call)
 
 
 def check_decode_attention(card: str, dev) -> dict:
@@ -317,9 +509,14 @@ def check_decode_attention(card: str, dev) -> dict:
             ms = cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw))
             plain_ms = cuda_ms(lambda: int8_decode_attention_plain(
                 q, **layer(next(turn)), **kw))
-            print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+            # score and value products over the S cached keys (x2 with the
+            # bridge); no library call reads an int8 cache
+            bnd = bound(nbytes(q, *layer(1).values(), fq, flag_kv, bias, got),
+                        2 * B * H * N * S * HD * (4 if bridge else 2))
+            print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
             report.append(dict(N=N, bridge=bridge, max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms))
+                               plain_ms=plain_ms, library_ms=None, **bnd))
     return report
 
 
@@ -334,7 +531,7 @@ def decoder_params(cfg, dev, mode: str = "bf16"):
     from libra_tpu_torch.models import libra as M
     from libra_tpu_torch.quantization import quantize_params
     g = torch.Generator(device=dev).manual_seed(SEED)
-    with torch.inference_mode():
+    with torch.no_grad():      # not inference_mode: training takes these too
         params = M.init_params(g, cfg, dev)
         attn = params["layers"]["attn"]
         for name in ("k_bridge_lang", "k_bridge_vis", "v_bridge_lang", "v_bridge_vis"):
@@ -387,13 +584,21 @@ def text_logits(cfg, params, args, gen, tok=None):
 
 
 def plain_kernels():
-    """Every kernel's plain version patched in where the model calls it."""
+    """Every kernel's plain version patched in where the model calls it:
+    the flash forward and backward where flash_bridged_attention and its
+    autograd Function dispatch."""
     from libra_tpu_torch.models import libra as M
     from libra_tpu_torch.ops import decode_attention as DA, flash_bridge as FB
     from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
+
+    def plain_forward(q, k, v, kb, vb, flag_q, flag_kv, bias, stats):
+        return FB.flash_bridged_attention_plain(q, k, v, kb, vb, flag_q, flag_kv,
+                                                bias), ()
+
     stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(FB, "_forward", plain_forward))
     stack.enter_context(mock.patch.object(
-        M, "flash_bridged_attention", FB.flash_bridged_attention_plain))
+        FB, "flash_bridged_attention_bwd", FB.flash_bridged_attention_bwd_plain))
     stack.enter_context(mock.patch.object(
         M, "int8_decode_attention", DA.int8_decode_attention_plain))
     stack.enter_context(mock.patch.object(I8, "int8_matmul", I8.int8_matmul_plain))
@@ -514,31 +719,37 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
     return N
 
 
+def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS):
+    """Run fn under torch.profiler: print its wall and device time and the
+    kernels that take the most device time; return fn's result."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the kernels' own rows (an op's row repeats its kernels' time)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CPU),
+                     key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"profile {label}: {wall * 1e3:.3f} ms wall, {device_ms:.3f} "
+          f"ms device [{card}]")
+    for e in kernels[:rows]:
+        print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.count:6d} launches")
+    return res
+
+
 def profile_paths(card: str, cfg, params, args, gen, mode: str) -> None:
     """torch.profiler over one prompt pass, then over 4 text-only decode
     steps: wall and device time, and the kernels that take the most device
     time."""
-    from torch.profiler import ProfilerActivity, profile
     from libra_tpu_torch.generation import _prefill, decode_micro_step
 
     def record(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # the kernels' own rows (an op's row repeats its kernels' time)
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type != torch.autograd.DeviceType.CPU),
-                         key=lambda e: -e.self_device_time_total)
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"profile {mode} {name}: {wall * 1e3:.3f} ms wall, {device_ms:.3f} "
-              f"ms device [{card}]")
-        for e in kernels[:PROFILE_ROWS]:
-            print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
-                  f"{e.count:6d} launches")
-        return res
+        return profiled(card, f"{mode} {name}", fn)
 
     def steps(st):
         tok = torch.argmax(st.logits, dim=-1)
@@ -574,6 +785,197 @@ def _tensors(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# Training path
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, dev, image_size: int):
+    """bench.py:607-627's batch: B=8, N=120+578, one image block at 8,
+    random text ids and labels from numpy's RandomState(0), the image
+    tokens' labels copied from the on-device encode (BOI's masked), every
+    row unpadded; random uint8 images (336x336 for CLIP ViT-L/14-336). The first text label after
+    the image is also masked, as the data layer masks it: the EOI position
+    (vision) would predict it across modalities, a BIG_NEG logit that
+    swamps the loss."""
+    import numpy as np
+    from libra_tpu_torch.training.fused import FusedBatch
+    Mv, Q, V = cfg.max_vision_token_length, cfg.vision_codebook_num, cfg.vocab_size
+    Bt, N = TRAIN_B, TRAIN_TEXT + cfg.max_vision_token_length
+    rng = np.random.RandomState(0)
+    vi = np.full((Bt, N), Mv, np.int64)
+    vi[:, IMG_T:IMG_T + Mv] = np.arange(Mv)
+    labels = rng.randint(3, V, size=(Q, Bt, N)).astype(np.int64)
+    copy_mask = np.zeros((Bt, N), bool)
+    copy_mask[:, IMG_T + 1:IMG_T + Mv] = True
+    labels[:, :, IMG_T:IMG_T + Mv + 1] = -100
+    text_ids = rng.randint(3, V, (Bt, N))
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    S = image_size
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    return FusedBatch(
+        pixels=torch.randint(0, 256, (Bt, S, S, 3), generator=g, device=dev,
+                             dtype=torch.uint8),
+        text_ids=t(text_ids), img_start=t(np.full((Bt,), IMG_T)),
+        attention_mask=torch.ones((Bt, N), dtype=torch.int64, device=dev),
+        vision_indices=t(vi), labels_static=t(labels), label_copy_mask=t(copy_mask),
+        signal_ignore=torch.zeros((Bt,), dtype=torch.bool, device=dev))
+
+
+def flops_per_token(params, mask) -> int:
+    """bench.py:658-673's MFU convention: 6 P for trainable and 4 P for
+    frozen matmul leaves (ndim >= 2; frozen leaves skip dL/dW), the
+    embeddings left out."""
+    from libra_tpu_torch.training.optimizer import leaves_with_paths
+    train = dict(leaves_with_paths(mask))
+    return sum((6 if train[p] else 4) * t.numel()
+               for p, t in leaves_with_paths(params)
+               if t.dim() >= 2 and "embed" not in p)
+
+
+def train_policy(card: str, dev, cfg, vq_cfg, vq_params, batch, remat: str,
+                 main_counts: Counter) -> dict:
+    """One remat policy: a fresh state, a warm-up step, TRAIN_STEPS timed
+    steps with every kernel count at zero before them; the checks."""
+    from libra_tpu_torch.training.fused import make_fused_train_step
+    from libra_tpu_torch.training.optimizer import (OptimizerConfig, leaves_with_paths,
+                                                    make_optimizer, trainable_mask)
+    from libra_tpu_torch.training.trainer import init_state
+    opt_cfg = OptimizerConfig(frozen_language=True, total_steps=1000)
+    params = decoder_params(cfg, dev)
+    mask = trainable_mask(params, opt_cfg)
+    opt = make_optimizer(opt_cfg, params)
+    state = init_state(params, opt)
+    step = make_fused_train_step(cfg, vq_cfg, opt, grad_mask=mask, remat=remat)
+    leaves = dict(leaves_with_paths(params))
+    train = dict(leaves_with_paths(mask))
+    frozen0 = {p: t.clone() for p, t in leaves.items() if not train[p]}
+
+    t0 = time.perf_counter()
+    state, m = step(state, vq_params, batch)       # the warm-up: lr 0
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    train0 = {p: t.clone() for p, t in leaves.items() if train[p]}
+
+    L = cfg.num_hidden_layers
+    snapshots = nbytes(*frozen0.values(), *train0.values())
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, vq_params, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    got = read_counts()
+    main_counts.update(got)
+    want = Counter({k["name"]: 0 for k in KERNELS})
+    want["flash_bridged_attention"] = TRAIN_STEPS * 2 * L     # forward + remat recompute
+    want["flash_bridged_attention_bwd"] = TRAIN_STEPS * L
+    assert_counts(f"train remat={remat} ({TRAIN_STEPS} steps, {L} layers)", got,
+                  want, card)
+    # the steps' peak, without this script's snapshots of the leaves
+    peak_gb = (torch.cuda.max_memory_allocated() - snapshots) / 1e9
+
+    losses = [float(x["loss"]) for x in metrics]
+    norms = [float(x["grad_norm"]) for x in metrics]
+    changed = [p for p, t in frozen0.items() if not torch.equal(leaves[p], t)]
+    # a bf16 leaf moves where an update exceeds half its ulp: the warm-up's
+    # learning rates (2e-6 to 8e-6 a step here) cannot move a norm scale
+    # of 1.0 (half an ulp: 2^-8), so an unmoved leaf must be a norm scale
+    # whose first moment is nonzero (the gradient reached it)
+    still = [p for p, t in train0.items() if torch.equal(leaves[p], t)]
+    bad = [p for p in still if "norm" not in p.split("/")[-1]
+           or not bool(state.opt_state.mu[p].abs().sum() > 0)]
+    n_tok = batch.text_ids.numel()
+    fpt = flops_per_token(params, mask)
+    mfu = fpt * n_tok / dt / PEAK["bf16"]
+    print(f"train remat={remat} L={L} B={TRAIN_B} N={batch.text_ids.shape[1]}: "
+          f"{dt * 1e3:.3f} ms/step, {n_tok / dt:.1f} tokens/s, MFU {mfu:.4f} "
+          f"({fpt / 1e9:.4f} GFLOP/token, against the dense bf16 peak 989 TFLOP/s), "
+          f"peak memory {peak_gb:.3f} GB, "
+          f"warm-up step {warm_s:.3f} s, loss {losses}, grad_norm {norms}; "
+          f"{len(frozen0) - len(changed)} of {len(frozen0)} frozen leaves bitwise "
+          f"unchanged, {len(train0) - len(still)} of {len(train0)} trainable "
+          f"leaves moved, unmoved norm scales with live moments: "
+          f"{[p for p in still if p not in bad]} [{card}]")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses}, {norms}")
+    if changed:
+        raise AssertionError(f"frozen leaves changed: {changed}")
+    if bad:
+        raise AssertionError(f"trainable leaves did not move: {bad}")
+    if remat == "big_dots":
+        profiled(card, f"train step remat={remat}",
+                 lambda: step(state, vq_params, batch), rows=20)
+    return dict(ms=dt * 1e3, tok_s=n_tok / dt, mfu=mfu, peak_gb=peak_gb,
+                loss=losses, grad_norm=norms)
+
+
+def train_vs_plain(card: str, dev, vq_cfg, vq_params) -> None:
+    """Two layers at full width: loss and trainable gradients of one fused
+    step's backward with the kernels against the same with every plain
+    version patched in."""
+    from libra_tpu_torch.config import LibraConfig
+    from libra_tpu_torch.training.fused import fused_loss_fn
+    from libra_tpu_torch.training.optimizer import OptimizerConfig, trainable_mask
+    from libra_tpu_torch.training.trainer import masked_value_and_grad
+    cfg = LibraConfig(num_hidden_layers=2, dtype="bfloat16", param_dtype="bfloat16")
+    params = decoder_params(cfg, dev)
+    mask = trainable_mask(params, OptimizerConfig(frozen_language=True))
+    batch = train_batch(cfg, dev, vq_cfg.clip.image_size)
+
+    def run():
+        loss, grads = masked_value_and_grad(
+            lambda p: fused_loss_fn(p, vq_params, cfg, vq_cfg, batch, remat="big_dots"),
+            params, mask)
+        return loss.float(), {p: g.float() for p, g in grads.items()}
+
+    zero_counts()
+    loss_k, g_k = run()
+    got = read_counts()
+    with plain_kernels():
+        loss_p, g_p = run()
+    torch.cuda.synchronize()
+    if got["flash_bridged_attention_bwd"] != 2 or read_counts() != got:
+        raise AssertionError("the kernel run must launch the kernels, the plain run none")
+    rel_loss = abs((loss_k - loss_p).item()) / abs(loss_p.item())
+    # per trainable leaf; a leaf whose reference gradient is exactly zero
+    # (a low-rank A under a zero B) must be exactly zero with the kernels
+    rel_g = {}
+    for p, want in g_p.items():
+        diff, ref = (g_k[p] - want).norm().item(), want.norm().item()
+        rel_g[p] = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+    worst = sorted(rel_g.items(), key=lambda kv: -kv[1])
+    print(f"train 2-layer step vs the plain versions: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (rel {rel_loss:.6g}, tol {TRAIN_LOSS_TOL}); trainable "
+          f"gradients, relative L2 per leaf, worst {worst[0][1]:.6g} (tol "
+          f"{TRAIN_GRAD_TOL}), {len(rel_g)} leaves: "
+          + ", ".join(f"{p} {v:.4g}" for p, v in worst) + f" [{card}]")
+    if not (rel_loss < TRAIN_LOSS_TOL and worst[0][1] < TRAIN_GRAD_TOL):
+        raise AssertionError("the 2-layer training step differs from the plain path")
+
+
+def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
+    from libra_tpu_torch.config import LibraConfig
+    cfg = LibraConfig(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
+                      param_dtype="bfloat16")
+    batch = train_batch(cfg, dev, vq_cfg.clip.image_size)
+    out = {}
+    for remat in ("big_dots", "full"):
+        out[remat] = train_policy(card, dev, cfg, vq_cfg, vq_params, batch, remat,
+                                  main_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_vs_plain(card, dev, vq_cfg, vq_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs "
@@ -586,7 +988,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} [{card}]")
 
     build(card)
-    report = {"flash_bridged_attention": check_flash(card, dev)}
+    report = {"flash_bridged_attention": check_flash(card, dev),
+              "flash_bridged_attention_bwd": check_flash_bwd(card, dev)}
     mm = check_matmuls(card, dev)
     da = check_decode_attention(card, dev)
     # the JSON line's times: the decode shapes (M = 4, 4096 -> 11008; N = 1
@@ -596,8 +999,10 @@ def main() -> int:
             ("int4_matmul", mm["int4_matmul"], dict(M=4, F=11008, tag=" a8=True")),
             ("int8_decode_attention", da, dict(N=1, bridge=True))):
         row = next(r for r in rows if all(r[k] == v for k, v in pick.items()))
-        report[name] = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                            ms=row["ms"], plain_ms=row["plain_ms"])
+        report[name] = dict(
+            {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            max_abs_err=max(r["max_abs_err"] for r in rows))
 
     from libra_tpu_torch.config import LibraConfig, VQGANConfig
     from libra_tpu_torch.models import vqgan
@@ -605,7 +1010,7 @@ def main() -> int:
     vq_cfg = VQGANConfig(select_layer=(-2, -1))
     if vq_cfg.clip_feature_dim != cfg.contiguous_signal_size:
         raise ValueError("the CLIP taps must give contiguous_signal_size channels")
-    with torch.inference_mode():
+    with torch.no_grad():
         vq_params = vqgan.init_params(torch.Generator(device=dev).manual_seed(SEED),
                                       vq_cfg, dev, torch.bfloat16)
     L = cfg.num_hidden_layers
@@ -618,6 +1023,11 @@ def main() -> int:
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
         torch.cuda.empty_cache()
+    train = train_path(card, dev, vq_cfg, vq_params, main_counts)
+    print("train summary: " + "; ".join(
+        f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "
+        f"{v['mfu']:.4f}, peak {v['peak_gb']:.3f} GB" for r, v in train.items())
+          + f" [{card}]")
     missing = [k["name"] for k in KERNELS if main_counts[k["name"]] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")

@@ -65,7 +65,8 @@ class LibraConfig:
     unified_head: bool = False
     use_2d_rope: bool = False
 
-    # --- dropout (training only; the port runs inference) ---
+    # --- dropout (training only; not ported yet: the port's train steps
+    # raise on a nonzero rate) ---
     resid_pdrop: float = 0.0
     attn_pdrop: float = 0.0
     embd_pdrop: float = 0.0

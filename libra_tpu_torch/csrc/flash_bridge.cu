@@ -65,6 +65,8 @@ struct Args {
   const uint8_t* flag_kv;  // (B, Nk) contiguous, 0/1
   const float* bias;       // (B, 1, Nq, Nk), key stride 1
   void* out;               // (B, Nq, H, d) contiguous
+  float* row_max;          // (B, H, Nq) or null: each row's final max
+  float* row_sum;          // (B, H, Nq) or null: each row's denominator
   Strides sq, sk, sv, skb, svb;
   long long bias_b, bias_q;
   int Nq, Nk, H;
@@ -232,6 +234,11 @@ flash_bridge_fwd_kernel(const Args a) {
     lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     if (!rvalid[i]) continue;
     const int qi = q0 + 2 * ty + i;
+    if (a.row_max != nullptr && tx == 0) {   // the backward's softmax stats
+      const long long st = ((long long)b * a.H + h) * a.Nq + qi;
+      a.row_max[st] = m[i];
+      a.row_sum[st] = lt;
+    }
     T* orow = out + (((long long)b * a.Nq + qi) * a.H + h) * D;
     const float inv = 1.f / lt;
 #pragma unroll
@@ -255,7 +262,10 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 }  // namespace
 
 // Operands are bfloat16 with head dim 128 (libra-11b's); the wrapper
-// checks both. kb/vb are null without the bridge.
+// checks both. kb/vb are null without the bridge. row_max/row_sum are
+// null for inference; training passes fp32 (B, H, Nq) buffers that get each
+// row's final max and softmax denominator, which the backward
+// (flash_bridge_bwd.cu) reads instead of recomputing them.
 // strides: 17 element strides, in order
 //   q (b, n, h), k (b, n, h), v (b, n, h), kb (b, n, h), vb (b, n, h),
 //   bias (b, q).
@@ -265,6 +275,7 @@ extern "C" int flash_bridge_fwd(const void* q, const void* k, const void* v,
                                 const void* kb, const void* vb,
                                 const void* flag_q, const void* flag_kv,
                                 const void* bias, void* out,
+                                void* row_max, void* row_sum,
                                 const long long* strides,
                                 int B, int Nq, int Nk, int H,
                                 float scale, void* stream) {
@@ -278,6 +289,8 @@ extern "C" int flash_bridge_fwd(const void* q, const void* k, const void* v,
   a.flag_kv = static_cast<const uint8_t*>(flag_kv);
   a.bias = static_cast<const float*>(bias);
   a.out = out;
+  a.row_max = static_cast<float*>(row_max);
+  a.row_sum = static_cast<float*>(row_sum);
   Strides* s[5] = {&a.sq, &a.sk, &a.sv, &a.skb, &a.svb};
   for (int i = 0; i < 5; ++i) {
     s[i]->b = strides[3 * i];

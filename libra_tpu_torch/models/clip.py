@@ -31,7 +31,7 @@ def _layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
 
 
 def init_params(gen: torch.Generator, cfg: CLIPVisionConfig,
-                device="cpu", dtype=torch.float32) -> Params:
+                device="cuda", dtype=torch.float32) -> Params:
     """Random-init tree with the JAX tree's key paths and shapes; layer
     leaves stacked on axis 0. `gen` must live on `device`."""
     D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers

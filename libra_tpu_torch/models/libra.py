@@ -13,18 +13,28 @@ The PyTorch counterpart of ``libra_tpu/models/libra.py`` for inference:
   steps read it through the int8 decode-attention kernel
   (ops/decode_attention.py).
 
+Training adds per-layer rematerialisation (``forward(remat=...)``:
+``torch.utils.checkpoint``, full or selective on the named big dots) and
+the multi-codebook loss.
+
 Parameters are nested dicts of tensors with the JAX tree's key names,
 layer leaves stacked on axis 0 and weights stored for ``x @ W``.
-Dropout, remat and the modality-split prefill (``text_span``) are
-training or TPU paths the port does not carry yet.
+Dropout and the modality-split prefill (``text_span``) are training or
+TPU paths the port does not carry yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.ops.attention import BIG_NEG, bridged_attention, causal_bias
@@ -39,6 +49,15 @@ from libra_tpu_torch.ops.routed import (low_rank_linear, routed_linear,
 from libra_tpu_torch.quantization import QuantizedArray
 
 Params = Dict[str, Any]
+
+
+def dropout_enabled(cfg: LibraConfig) -> bool:
+    """True when any of the reference's pdrop fields is nonzero. The port
+    has no dropout yet (ROADMAP A11): its training step refuses such a
+    config."""
+    return any(r > 0.0 for r in (cfg.resid_pdrop, cfg.attn_pdrop,
+                                 cfg.embd_pdrop, cfg.vision_embd_pdrop,
+                                 cfg.vision_resid_pdrop))
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +118,7 @@ def init_layer_params(gen: torch.Generator, cfg: LibraConfig,
     }
 
 
-def init_params(gen: torch.Generator, cfg: LibraConfig, device="cpu") -> Params:
+def init_params(gen: torch.Generator, cfg: LibraConfig, device="cuda") -> Params:
     """Random-init parameter tree with the JAX tree's key paths and shapes.
     `gen` must live on `device`."""
     D, V = cfg.hidden_size, cfg.vocab_size
@@ -150,7 +169,7 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: LibraConfig, batch: int, max_len: int,
-               device="cpu", quantized: bool = False) -> KVCache:
+               device="cuda", quantized: bool = False) -> KVCache:
     """A zeroed cache in the compute dtype, or with quantized=True int8
     K/V with per-(token, head) scales: half the bytes to hold and to read
     each decode step. The int8 buffers are head-major, so the decode
@@ -264,6 +283,96 @@ def position_ids_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+# The decoder layer's named matmul regions: the routed q/k/v/o projections
+# and the six MLP dots (language gate/up/down and their low-rank vision
+# twins), the tags JAX's forward puts on them with checkpoint_name.
+BIG_DOT_NAMES = ("attn_q", "attn_k", "attn_v", "attn_o",
+                 "mlp_gate", "mlp_up", "mlp_down",
+                 "mlp_vgate", "mlp_vup", "mlp_vdown")
+
+_CKPT_NAME: contextvars.ContextVar = contextvars.ContextVar(
+    "libra_torch_ckpt_name", default=None)
+# True only while a layer runs under a named policy ("big_dots",
+# "names:..."), in its forward and in its recompute
+_NAMING: contextvars.ContextVar = contextvars.ContextVar(
+    "libra_torch_ckpt_naming", default=False)
+_UNNAMED = contextlib.nullcontext()
+# matmuls with no batch dims: what "dots" and the names policies may save
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def checkpoint_name(name: str):
+    """Name the matmuls run inside the block for the selective remat
+    policies: under "big_dots" or "names:..." their outputs are saved for
+    the backward instead of recomputed. JAX tags the region's result
+    (checkpoint_name); PyTorch's recompute re-runs every op whose output
+    was not saved, so the policy saves the region's matmul outputs, and
+    the result follows from them by cheap elementwise ops (the routed
+    select). Outside a named policy (serving, no remat, "full", "dots")
+    it is a shared no-op context."""
+    return _named(name) if _NAMING.get() else _UNNAMED
+
+
+@contextlib.contextmanager
+def _named(name: str):
+    token = _CKPT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CKPT_NAME.reset(token)
+
+
+def _naming_on(fn):
+    """fn with checkpoint_name's tags live while it runs."""
+    def run(*args):
+        token = _NAMING.set(True)
+        try:
+            return fn(*args)
+        finally:
+            _NAMING.reset(token)
+    return run
+
+
+def _save_dots(names):
+    """A selective-checkpoint policy: save the outputs of matmuls run
+    inside a region named in `names` (every matmul when names is None)."""
+    def policy(ctx, func, *args, **kwargs):
+        if func in _DOTS and (names is None or _CKPT_NAME.get() in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _remat_context_fn(remat):
+    """forward()'s remat argument -> (None, False) for no remat, or (the
+    context_fn of a per-layer torch.utils.checkpoint, whether its policy
+    reads checkpoint_name's tags): True/"full" saves the layer input only
+    (the backward re-runs the layer); "dots" saves every matmul output;
+    "big_dots" the matmul outputs of the BIG_DOT_NAMES regions;
+    "names:a,b,..." those of a subset of BIG_DOT_NAMES."""
+    if not remat:
+        return None, False
+    if remat is True or remat == "full":
+        return noop_context_fn, False
+    if remat == "dots":
+        return _save_dots(None), False
+    if remat == "big_dots":
+        return _save_dots(frozenset(BIG_DOT_NAMES)), True
+    if isinstance(remat, str) and remat.startswith("names:"):
+        names = tuple(remat[len("names:"):].split(","))
+        unknown = set(names) - set(BIG_DOT_NAMES)
+        if unknown:
+            raise ValueError(f"unknown remat names {sorted(unknown)}; "
+                             f"available: {BIG_DOT_NAMES}")
+        return _save_dots(frozenset(names)), True
+    raise ValueError(f"remat must be falsy, True, 'full', 'dots', "
+                     f"'big_dots' or 'names:...' -- got {remat!r}")
+
+
+# ---------------------------------------------------------------------------
 # Decoder layer
 # ---------------------------------------------------------------------------
 
@@ -291,11 +400,12 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
         raise ValueError("lang_only is a cached-decode mode")
 
     def rproj(name):
-        if lang_only:
-            return qdot(h, a[name])
-        vp = a["vision_" + name[0]]
-        return routed_linear(h, flag, a[name], vp["wa"], vp["wb"],
-                             cfg.addition_mode)
+        with checkpoint_name("attn_" + name[0]):
+            if lang_only:
+                return qdot(h, a[name])
+            vp = a["vision_" + name[0]]
+            return routed_linear(h, flag, a[name], vp["wa"], vp["wb"],
+                                 cfg.addition_mode)
 
     q = apply_rope(_split_heads(rproj("q_proj"), H), cos, sin, position_ids)
     k = apply_rope(_split_heads(rproj("k_proj"), H), cos, sin, position_ids)
@@ -343,25 +453,31 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
         attend = flash_bridged_attention if attn_impl == "flash" else bridged_attention
         out = attend(q, k, v, kb, vb, flag, kv_flag, bias)
     out = out.reshape(h.shape[0], h.shape[1], cfg.hidden_size)
-    if lang_only:
-        return qdot(out, a["o_proj"]), bufs
-    vo = a["vision_o"]
-    return routed_linear(out, flag, a["o_proj"], vo["wa"], vo["wb"],
-                         cfg.addition_mode), bufs
+    with checkpoint_name("attn_o"):
+        if lang_only:
+            return qdot(out, a["o_proj"]), bufs
+        vo = a["vision_o"]
+        return routed_linear(out, flag, a["o_proj"], vo["wa"], vo["wb"],
+                             cfg.addition_mode), bufs
 
 
 def _mlp(p: Params, cfg: LibraConfig, h: torch.Tensor, flag: torch.Tensor,
          lang_only: bool = False) -> torch.Tensor:
     """Routed SwiGLU MLP; routes strictly even in addition_mode."""
     m = p["mlp"]
-    lang = qdot(F.silu(qdot(h, m["gate_proj"])) * qdot(h, m["up_proj"]),
-                m["down_proj"])
+
+    def dot(name, x, *w):
+        with checkpoint_name(name):
+            return qdot(x, w[0]) if len(w) == 1 else low_rank_linear(x, *w)
+
+    lang = dot("mlp_down", F.silu(dot("mlp_gate", h, m["gate_proj"]))
+               * dot("mlp_up", h, m["up_proj"]), m["down_proj"])
     if lang_only:
         return lang
-    gate_v = low_rank_linear(h, m["vision_gate"]["wa"], m["vision_gate"]["wb"])
-    up_v = low_rank_linear(h, m["vision_up"]["wa"], m["vision_up"]["wb"])
-    vis = low_rank_linear(F.silu(gate_v) * up_v, m["vision_down"]["wa"],
-                          m["vision_down"]["wb"])
+    gate_v = dot("mlp_vgate", h, m["vision_gate"]["wa"], m["vision_gate"]["wb"])
+    up_v = dot("mlp_vup", h, m["vision_up"]["wa"], m["vision_up"]["wb"])
+    vis = dot("mlp_vdown", F.silu(gate_v) * up_v, m["vision_down"]["wa"],
+              m["vision_down"]["wb"])
     return select_by_flag(flag, vis, lang)
 
 
@@ -408,7 +524,7 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
             position_ids: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None,
             attn_impl: str = "plain",
-            lang_only: bool = False) -> ModelOutput:
+            lang_only: bool = False, remat=False) -> ModelOutput:
     """Backbone forward.
 
     input_ids: (Q, B, N) combined-vocab ids. attention_mask: (B, N) without
@@ -417,7 +533,16 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
     means text. With a cache, its buffers are updated in place and the
     returned cache's index is advanced by N. lang_only: text-only cached
     decode of prompts that end in text (exact: the vision vocab is -inf at
-    text positions, so such a sequence never re-enters vision)."""
+    text positions, so such a sequence never re-enters vision).
+
+    remat (training, no cache): False = none; True or "full" = each layer
+    under torch.utils.checkpoint (non-reentrant), the backward re-running
+    it from its input; "dots", "big_dots" or "names:a,b" = selective
+    checkpointing that saves every matmul output, or those of the named
+    regions (BIG_DOT_NAMES), and recomputes the rest."""
+    context_fn, named = _remat_context_fn(remat)
+    if context_fn is not None and cache is not None:
+        raise ValueError("remat is a training option; it takes no cache")
     flag = vision_indices < cfg.max_vision_token_length
     B, N = flag.shape
     device = flag.device
@@ -452,9 +577,16 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
     for i in range(cfg.num_hidden_layers):
         cache_slice = (None if cache is None
                        else {"bufs": bufs, "layer": i, "index": cache.index})
-        h, _ = decoder_layer(_layer(params["layers"], i), cfg, h, flag, cos,
-                             sin, position_ids, bias, kv_flag, cache_slice,
-                             attn_impl, lang_only=lang_only)
+        layer = functools.partial(decoder_layer, _layer(params["layers"], i),
+                                  cfg)
+        if context_fn is not None:
+            run = lambda x, fn=layer: fn(x, flag, cos, sin, position_ids, bias,
+                                         kv_flag, None, attn_impl)[0]
+            h = checkpoint(_naming_on(run) if named else run, h,
+                           use_reentrant=False, context_fn=context_fn)
+            continue
+        h, _ = layer(h, flag, cos, sin, position_ids, bias, kv_flag,
+                     cache_slice, attn_impl, lang_only=lang_only)
     new_cache = None if cache is None else cache._replace(
         flag=kv_flag, index=cache.index + N)
 
@@ -468,7 +600,7 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Heads / logits
+# Heads / logits / loss
 # ---------------------------------------------------------------------------
 
 def compute_text_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -490,6 +622,60 @@ def assemble_logits(cfg: LibraConfig, text_logits: torch.Tensor,
     tl = torch.where(flag[..., None], neg, text_logits.float())
     vl = torch.where(flag[None, ..., None], vision_logits.float(), neg)
     return torch.cat([tl[None].expand((Q,) + tl.shape), vl], dim=-1)
+
+
+def multicodebook_loss_terms(cfg: LibraConfig, text_logits: torch.Tensor,
+                             vision_logits: torch.Tensor, flag: torch.Tensor,
+                             labels: torch.Tensor, unified: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unnormalised per-codebook CE terms: (nll_sums (Q,) fp32,
+    valid_counts (Q,)); the loss is mean_q(nll_q / max(valid_q, 1)), and
+    gradient accumulation normalises by the group's totals instead.
+
+    labels (Q, B, N): combined-vocab ids, -100 = ignore; logits[t] predict
+    labels[t + 1]. The combined softmax is never built: a text position's
+    reduces to the text slice, a vision position's to the vision slice, and
+    a label of the other modality gets the logit BIG_NEG (the reference
+    would give -inf). unified=True: one softmax over both slices at every
+    position."""
+    V = cfg.vocab_size
+    tl = text_logits.float()
+    vl = vision_logits.float()
+    lse_text = torch.logsumexp(tl, dim=-1)            # (B, N)
+    lse_vis = torch.logsumexp(vl, dim=-1)             # (Q, B, N)
+    shift_flag = flag[:, :-1]
+    nll_sums, valid_counts = [], []
+    for q in range(cfg.vision_codebook_num):
+        lab = labels[q][:, 1:]                         # (B, N - 1)
+        valid = lab != -100
+        lab_safe = torch.where(valid, lab, 0)
+        is_text_label = lab_safe < V
+        t_gather = tl[:, :-1].gather(
+            -1, lab_safe.clamp(0, V - 1)[..., None])[..., 0]
+        v_gather = vl[q][:, :-1].gather(
+            -1, (lab_safe - V).clamp(0, cfg.vision_vocab_size - 1)[..., None])[..., 0]
+        if unified:
+            logit = torch.where(is_text_label, t_gather, v_gather)
+            lse = torch.logaddexp(lse_text[:, :-1], lse_vis[q][:, :-1])
+        else:
+            logit = torch.where(shift_flag, v_gather, t_gather)
+            modality_ok = torch.where(shift_flag, ~is_text_label, is_text_label)
+            logit = torch.where(modality_ok, logit, BIG_NEG)
+            lse = torch.where(shift_flag, lse_vis[q][:, :-1], lse_text[:, :-1])
+        nll = (lse - logit) * valid
+        nll_sums.append(nll.sum())
+        valid_counts.append(valid.sum())
+    return torch.stack(nll_sums), torch.stack(valid_counts)
+
+
+def multicodebook_loss(cfg: LibraConfig, text_logits: torch.Tensor,
+                       vision_logits: torch.Tensor, flag: torch.Tensor,
+                       labels: torch.Tensor, unified: bool = False) -> torch.Tensor:
+    """Per-codebook shifted CE over the combined vocab, averaged over the
+    codebooks (see multicodebook_loss_terms)."""
+    nll, valid = multicodebook_loss_terms(cfg, text_logits, vision_logits,
+                                          flag, labels, unified)
+    return (nll / valid.clamp_min(1)).mean()
 
 
 def force_eoi_newline(cfg: LibraConfig, logits: torch.Tensor,

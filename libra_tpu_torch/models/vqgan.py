@@ -20,7 +20,7 @@ def lfq_spec(cfg: VQGANConfig) -> lfq.LFQSpec:
                        num_codebooks=cfg.num_codebook, dim=cfg.embed_dim)
 
 
-def init_params(gen: torch.Generator, cfg: VQGANConfig, device="cpu",
+def init_params(gen: torch.Generator, cfg: VQGANConfig, device="cuda",
                 dtype=torch.float32) -> Params:
     """The encode side's tree (`clip`, `quant_conv`) with the JAX tree's
     key paths and shapes. quant_conv keeps its HWIO (1, 1, Cin, Cout)

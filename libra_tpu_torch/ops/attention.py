@@ -8,8 +8,9 @@ cross-modality mask ``cross[q, k] = flag_q != flag_k``:
     A   = softmax(max(S, BIG_NEG))       # fp32
     out = A V + (A * cross) Vb
 
-The cached decode step uses this function; the prompt pass uses the
-kernel in ``ops/flash_bridge.py``.
+The cached decode step and ``training.trainer.loss_fn`` use this
+function; the prompt pass and the fused train step on the card use the
+kernels in ``ops/flash_bridge.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +39,15 @@ def bridged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sb = torch.einsum("bqhd,bkhd->bhqk", q, kb) * scale
         s = s + torch.where(cross, sb, torch.zeros_like(sb))
     s = s + bias.to(s.dtype)
-    s = torch.clamp_min(s, BIG_NEG)
+    # Under autograd torch.maximum, not clamp_min: at a tie (a masked score
+    # rounds to exactly BIG_NEG) it splits the gradient in half, as JAX's
+    # jnp.maximum does; clamp_min would pass all of it. The bound is filled
+    # on the device: a host scalar would be copied to the card, and that
+    # copy waits for the stream in every layer of a decode step.
+    if s.requires_grad:
+        s = torch.maximum(s, torch.full((), BIG_NEG, dtype=s.dtype, device=s.device))
+    else:
+        s = torch.clamp_min(s, BIG_NEG)
     a = torch.softmax(s.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", a, v)
     if use_bridge:

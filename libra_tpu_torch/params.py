@@ -36,7 +36,7 @@ def _leaf(arr: np.ndarray, device, dtype: Optional[torch.dtype]) -> torch.Tensor
     return t.to(device)
 
 
-def from_numpy_tree(tree: Any, device="cpu",
+def from_numpy_tree(tree: Any, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Any:
     """Numpy leaves -> tensors on `device`, keeping the tree's structure.
     dtype: cast every floating leaf to it (None keeps each leaf's dtype);

@@ -25,6 +25,7 @@ from libra_tpu_torch.config import VQGANConfig
 from libra_tpu_torch.models import vqgan as vqgan_model
 
 IMG_PH = "<img_ph>"
+MAX_TOKEN_LENGTH = 2048   # the reference tokenizer's model_max_length
 IMG_GEN = "<img_gen>"
 
 _WORDS = re.compile(r"<img_ph>|<img_gen>|\S+?(?=<img_ph>|<img_gen>)|\S+")
@@ -120,24 +121,37 @@ class LibraTokenizer:
         self.image_tokenizer = image_tokenizer
         self.num_codebook = image_tokenizer.num_codebook
 
-    def __call__(self, samples) -> Dict[str, Optional[torch.Tensor]]:
+    def __call__(self, samples, truncation: bool = False,
+                 max_length: Optional[int] = None
+                 ) -> Dict[str, Optional[torch.Tensor]]:
         """samples: dicts with "language" (str or list) and optional
-        "vision" (images as (S, S, 3) arrays or tensors, CLIP-normalized).
-        The result lies on the image tokenizer's device when there are
-        images, else on the CPU."""
+        "vision" (images as (S, S, 3) arrays or tensors, CLIP-normalized),
+        "contiguous_ignore_sign" (per image: zero its signal rows) and
+        "has_image" (per image: False drops a placeholder image).
+        truncation cuts every row to max_length (default: the text
+        tokenizer's model_max_length, else MAX_TOKEN_LENGTH) after the
+        images are placed. The result lies on the image tokenizer's device
+        when there are images, else on the CPU."""
         if not isinstance(samples, (list, tuple)):
             samples = [samples]
         texts: List[str] = []
         images: List[Any] = []
+        ignore_signs: List[bool] = []
+        has_image: List[bool] = []
+
+        def extend(out: list, x):
+            out += list(x) if isinstance(x, (list, tuple)) else [x]
+
         for s in samples:
-            lang = s.get("language")
-            if lang is not None:
-                texts += list(lang) if isinstance(lang, (list, tuple)) else [lang]
-            vis = s.get("vision")
-            if vis is not None:
-                images += list(vis) if isinstance(vis, (list, tuple)) else [vis]
+            for key, out in (("language", texts), ("vision", images),
+                             ("contiguous_ignore_sign", ignore_signs),
+                             ("has_image", has_image)):
+                if s.get(key) is not None:
+                    extend(out, s[key])
         if not texts:
             raise ValueError("Empty text inputs")
+        max_length = max_length or getattr(self.text_tokenizer,
+                                           "model_max_length", MAX_TOKEN_LENGTH)
 
         t = self.text_tokenizer(texts)
         device = (self.image_tokenizer.params["quant_conv"]["w"].device
@@ -159,6 +173,9 @@ class LibraTokenizer:
             pixels = torch.stack([torch.as_tensor(im) for im in images])
             enc = self.image_tokenizer.encode(pixels)
             img_ids, feat = enc["input_ids"], enc["encoder_feat"]
+            if has_image:
+                keep = torch.as_tensor(has_image, dtype=torch.bool, device=device)
+                img_ids, feat = img_ids[:, keep], feat[keep]
             n_img = img_ids.shape[1]
             n_slots = int(img_ph_mask.sum())
             if n_slots != n_img * M:
@@ -168,10 +185,19 @@ class LibraTokenizer:
             vision_indices[img_ph_mask] = torch.arange(M, device=device).repeat(n_img)
             zero_row = feat.new_zeros((n_img, 1, feat.shape[-1]))
             framed = torch.cat([zero_row, feat, zero_row], dim=1)
+            if ignore_signs:
+                ignore = torch.as_tensor(ignore_signs, dtype=torch.bool, device=device)
+                framed = torch.where(ignore[:, None, None], 0.0, framed)
             signal = feat.new_zeros((B, N, feat.shape[-1]))
             signal[img_ph_mask] = framed.reshape(-1, feat.shape[-1])
         else:
             vision_indices[img_gen_mask] = 0
 
+        if truncation:
+            input_ids = input_ids[:, :, :max_length]
+            mask = mask[:, :max_length]
+            vision_indices = vision_indices[:, :max_length]
+            if signal is not None:
+                signal = signal[:, :max_length]
         return {"input_ids": input_ids, "attention_mask": mask,
                 "vision_indices": vision_indices, "coninous_signal": signal}

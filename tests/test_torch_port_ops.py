@@ -184,7 +184,14 @@ def test_flash_checks_reject(bad):
     elif bad == "bias_dtype":
         bias = bias.double()
     elif bad == "grad":
+        # the backward kernel's checks: a cotangent in another dtype
         q = q.float().requires_grad_(True).bfloat16()
+        out = q.detach().clone()
+        with pytest.raises(TypeError):
+            tflash._check_bwd(q, k, v, kb, vb, fq, fk, bias, out, out.float(),
+                              None, None)
+        tflash._check(q, k, v, kb, vb, fq, fk, bias)   # inputs that need grad pass
+        return
     elif bad == "bridge_half":
         vb = None
     elif bad == "flag_shape":
@@ -227,10 +234,10 @@ def test_2d_modes_not_ported(kw):
 def test_from_numpy_tree_bf16_exact():
     x = np.asarray(jnp.asarray(_rs(8).randn(3, 4), jnp.bfloat16))
     assert x.dtype.name == "bfloat16"
-    tree = from_numpy_tree({"a": {"w": x}, "l": [np.arange(3)]})
+    tree = from_numpy_tree({"a": {"w": x}, "l": [np.arange(3)]}, device="cpu")
     assert tree["a"]["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(tree["a"]["w"].float().numpy(),
                                   x.astype(np.float32))
     assert tree["l"][0].tolist() == [0, 1, 2]
-    f32 = from_numpy_tree({"w": x}, dtype=torch.float32)["w"]
+    f32 = from_numpy_tree({"w": x}, device="cpu", dtype=torch.float32)["w"]
     assert f32.dtype == torch.float32

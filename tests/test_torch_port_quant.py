@@ -67,7 +67,7 @@ def test_quantize_params_matches_jax(kw, bits, group):
     params = _np_tree(jax.jit(lambda k: JM.init_params(k, jcfg))(
         jax.random.PRNGKey(0)))
     want = jq.quantize_params(params, min_elems=64, bits=bits, group=group)
-    got = tq.quantize_params(from_numpy_tree(params), min_elems=64, bits=bits,
+    got = tq.quantize_params(from_numpy_tree(params, device="cpu"), min_elems=64, bits=bits,
                              group=group)
     got_leaves = dict(_leaves_with_names(got))
     want_leaves = dict(_leaves_with_names(want))
@@ -102,7 +102,7 @@ def test_quantize_params_matches_jax(kw, bits, group):
     inner = Ib if Ib < 128 else -(-Ib // mult) * mult        # < 128: kept
     assert mlp["vision_gate"]["wa"].shape[-1] == inner
     assert mlp["vision_gate"]["wb"].shape[-2] == inner
-    assert tq.quantization_error(from_numpy_tree(params), got) < (
+    assert tq.quantization_error(from_numpy_tree(params, device="cpu"), got) < (
         0.01 if bits == 8 else 0.15)
 
 
@@ -124,7 +124,7 @@ def test_from_numpy_tree_carries_quantized_tree(bits):
         jax.random.PRNGKey(1)))
     jtree = jq.quantize_params(params, min_elems=64, bits=bits, group=64)
     jtree["padded"] = _padded_int4(np.random.RandomState(0))
-    ttree = from_numpy_tree(_np_tree(jtree))
+    ttree = from_numpy_tree(_np_tree(jtree), device="cpu")
     assert isinstance(ttree["padded"], tq.Quantized4Array)
     assert ttree["padded"].out_features == 192
     assert ttree["padded"].shape == (2, 256, 192)
@@ -158,7 +158,7 @@ def test_int8_matmul_plain_matches_pallas(M):
     L, K, F = 3, 256, 384
     qa = jq.quantize_array(rs.randn(L, K, F).astype(np.float32) * 0.1, axis=-2)
     x = _bf16(rs.randn(M, K).astype(np.float32))
-    tqa = from_numpy_tree(qa)
+    tqa = from_numpy_tree(qa, device="cpu")
     for li in range(L):
         want = np.asarray(ji8.int8_matmul(jnp.asarray(x), jnp.asarray(qa.q),
                                           jnp.asarray(qa.scale),
@@ -241,12 +241,12 @@ def test_int8_decode_attention_plain_matches_pallas(bridge, N):
 def test_decode_kernel_gate():
     cfg = LibraConfig.tiny(hidden_size=256, num_attention_heads=2,
                            intermediate_size=256)
-    cache = TM.init_cache(cfg, 2, 40, quantized=True)
+    cache = TM.init_cache(cfg, 2, 40, quantized=True, device="cpu")
     ok = [n for n in range(1, 80)
           if tda.decode_kernel_applicable(cache.k[0], n, cfg.head_dim)]
     assert ok == [1, 2, 3, 4, 5, 6, 7, 8, 16, 24, 32, 40, 48, 56, 64]
     assert not tda.decode_kernel_applicable(cache.k[0], 1, 64)
-    plain = TM.init_cache(cfg, 2, 40)
+    plain = TM.init_cache(cfg, 2, 40, device="cpu")
     assert not tda.decode_kernel_applicable(plain.k[0], 1, cfg.head_dim)
 
 
@@ -275,10 +275,10 @@ def _qdot_cases(rs):
                                    jnp.int32(1))
     return [
         ("plain", jnp.asarray(w), torch.from_numpy(w)),
-        ("int8", qa, from_numpy_tree(qa)),
-        ("int8 layer view", jview(qa3), from_numpy_tree(qa3)[1]),
-        ("int4 layer view", jview(q4), from_numpy_tree(q4)[1]),
-        ("int4 padded O", jview(pad4), from_numpy_tree(pad4)[1]),
+        ("int8", qa, from_numpy_tree(qa, device="cpu")),
+        ("int8 layer view", jview(qa3), from_numpy_tree(qa3, device="cpu")[1]),
+        ("int4 layer view", jview(q4), from_numpy_tree(q4, device="cpu")[1]),
+        ("int4 padded O", jview(pad4), from_numpy_tree(pad4, device="cpu")[1]),
     ]
 
 
@@ -329,7 +329,7 @@ def test_quantized_write_cache_matches_jax():
     prompt[0, 2] = 0.0                                # an all-zero token
     step = rs.randn(B, 1, H, d).astype(np.float32) * 3
     jbuf = JM.init_cache(jcfg, B, S, quantized=True).k
-    tbuf = TM.init_cache(cfg, B, S, quantized=True).k
+    tbuf = TM.init_cache(cfg, B, S, quantized=True, device="cpu").k
     for new, idx in ((prompt, 0), (step, N)):
         jbuf = JM._write_cache(jbuf, jnp.asarray(new), 1, idx)
         TM._write_cache(tbuf, torch.from_numpy(new), 1, idx)
@@ -354,7 +354,7 @@ def test_quantized_gathers_match_jax():
     for w, axis, codebook in leaves:
         jqa = jax.tree_util.tree_map(
             jnp.asarray, jq.quantize_array(w.astype(np.float32), axis))
-        tqa = from_numpy_tree(_np_tree(jqa))
+        tqa = from_numpy_tree(_np_tree(jqa), device="cpu")
         if codebook is not None:
             jqa, tqa = jqa[codebook], tqa[codebook]
         want = np.asarray(jqa[jnp.asarray(ids)].astype(jnp.float32))

@@ -91,7 +91,7 @@ def test_quantized_generation_matches_jax(kw, bits, gen_kw, monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     gen = dict(max_new_tokens=MAX_NEW, eos_token_id=-1, **gen_kw)
     want = jgen.Generator(jtree, jcfg)(inputs, jgen.GenerationConfig(**gen))
-    got = tgen.Generator(from_numpy_tree(jtree), cfg)(
+    got = tgen.Generator(from_numpy_tree(jtree, device="cpu"), cfg)(
         inputs, tgen.GenerationConfig(**gen))
     np.testing.assert_array_equal(got.sequences.numpy(), np.asarray(want.sequences))
     np.testing.assert_array_equal(got.num_generated.numpy(),
@@ -115,7 +115,7 @@ def test_quantized_prefill_logits_match_jax(bits, a8):
         jtree, *(inputs[k] for k in ("input_ids", "attention_mask",
                                       "vision_indices", "coninous_signal")))
     t = {k: torch.as_tensor(v) for k, v in inputs.items()}
-    got = tgen._prefill(from_numpy_tree(jtree), t["input_ids"].long(),
+    got = tgen._prefill(from_numpy_tree(jtree, device="cpu"), t["input_ids"].long(),
                         t["attention_mask"], t["vision_indices"].long(),
                         t["coninous_signal"], cfg=cfg,
                         gen=tgen.GenerationConfig(max_new_tokens=4,
@@ -132,7 +132,7 @@ def test_a8_prefill_changes_only_the_prompt_pass():
     jcfg, jtree = _trees(tuple(sorted(KW128.items())), 8)
     cfg = LibraConfig.tiny(**KW128)
     t = {k: torch.as_tensor(v) for k, v in _inputs(cfg).items()}
-    params = from_numpy_tree(jtree)
+    params = from_numpy_tree(jtree, device="cpu")
     args = (t["input_ids"].long(), t["attention_mask"], t["vision_indices"].long(),
             t["coninous_signal"])
     logits = [tgen._prefill(params, *args, cfg=cfg, gen=tgen.GenerationConfig(

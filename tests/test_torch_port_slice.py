@@ -92,9 +92,9 @@ def slice_setup():
     def torch_pipe(params=None):
         tok = LibraTokenizer(
             SimpleTextTokenizer(vocab_size=cfg.vocab_size),
-            ImageTokenizer(vq, from_numpy_tree(np_vq), cfg.vocab_size,
+            ImageTokenizer(vq, from_numpy_tree(np_vq, device="cpu"), cfg.vocab_size,
                            cfg.max_vision_token_length))
-        return LibraPipeline(cfg, params or from_numpy_tree(np_params), tok,
+        return LibraPipeline(cfg, params or from_numpy_tree(np_params, device="cpu"), tok,
                              LibraEvalImageProcessor(CLIPVisionConfig.tiny()))
 
     return dict(jcfg=jcfg, cfg=cfg, np_params=np_params, images=images,
@@ -128,7 +128,7 @@ def test_init_params_tree_matches(kw):
     want = _flat_shapes(jax.eval_shape(
         lambda: JM.init_params(jax.random.PRNGKey(0), jcfg)))
     got = _flat_shapes(TM.init_params(torch.Generator().manual_seed(0),
-                                      LibraConfig.tiny(**kw)))
+                                      LibraConfig.tiny(**kw), device="cpu"))
     assert got == want
 
 
@@ -138,10 +138,11 @@ def test_vision_init_params_tree_matches():
     # the encode side only: the conv decoder waits for text-to-image
     want = _flat_shapes({k: full[k] for k in ("clip", "quant_conv")})
     got = _flat_shapes(tvqgan.init_params(
-        torch.Generator().manual_seed(0), VQGANConfig.tiny(select_layer=(-2, -1))))
+        torch.Generator().manual_seed(0), VQGANConfig.tiny(select_layer=(-2, -1)),
+        device="cpu"))
     assert got == want
     assert _flat_shapes(tclip.init_params(
-        torch.Generator().manual_seed(0), CLIPVisionConfig.tiny())) == \
+        torch.Generator().manual_seed(0), CLIPVisionConfig.tiny(), device="cpu")) == \
         _flat_shapes(full["clip"])
 
 
@@ -167,7 +168,7 @@ def test_forward_matches(kw):
     ids, mask, vi, sig = _batch(jcfg)
     want = jax.jit(lambda p, *a: JM.forward(p, jcfg, *a).hidden_states)(
         np_params, ids, mask, vi, sig)
-    got = TM.forward(from_numpy_tree(np_params), LibraConfig.tiny(**kw),
+    got = TM.forward(from_numpy_tree(np_params, device="cpu"), LibraConfig.tiny(**kw),
                      *map(torch.from_numpy, (ids, mask, vi, sig))).hidden_states
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
 
@@ -176,7 +177,7 @@ def test_cached_decode_matches_full_forward():
     """Prompt pass + one cached step == the forward over both, at the
     last position (the port against itself)."""
     jcfg, np_params = _np_params()
-    cfg, params = LibraConfig.tiny(), from_numpy_tree(np_params)
+    cfg, params = LibraConfig.tiny(), from_numpy_tree(np_params, device="cpu")
     ids, mask, vi, sig = map(torch.from_numpy, _batch(jcfg))
     gen = tgen.GenerationConfig(max_new_tokens=2)
     st = tgen._prefill(params, ids, mask, vi, sig, cfg=cfg, gen=gen)
@@ -213,7 +214,7 @@ def test_prefill_logits_match_and_bridge_is_live(slice_setup):
     inputs = _inputs(slice_setup)
     want = _prefill_logits_jax(slice_setup, inputs,
                                jgen.GenerationConfig(max_new_tokens=4))
-    params = from_numpy_tree(slice_setup["np_params"])
+    params = from_numpy_tree(slice_setup["np_params"], device="cpu")
     got = _prefill_logits_torch(slice_setup, inputs, params)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     for name in BRIDGES:
@@ -229,7 +230,7 @@ def test_greedy_tokens_match(slice_setup, bucket):
     jres = jgen.Generator(slice_setup["np_params"], slice_setup["jcfg"])(
         inputs, jgen.GenerationConfig(max_new_tokens=6, prompt_bucket=bucket,
                                       eos_token_id=-1))
-    tres = tgen.Generator(from_numpy_tree(slice_setup["np_params"]),
+    tres = tgen.Generator(from_numpy_tree(slice_setup["np_params"], device="cpu"),
                           slice_setup["cfg"])(
         inputs, tgen.GenerationConfig(max_new_tokens=6, prompt_bucket=bucket,
                                       eos_token_id=-1))
@@ -251,7 +252,7 @@ def test_chat_matches(slice_setup):
 def test_generation_stops_when_all_rows_finish(slice_setup):
     """EOS on every row ends the loop early; finished rows emit pads."""
     inputs = _inputs(slice_setup)
-    gen = tgen.Generator(from_numpy_tree(slice_setup["np_params"]),
+    gen = tgen.Generator(from_numpy_tree(slice_setup["np_params"], device="cpu"),
                          slice_setup["cfg"])
     first = gen(inputs, tgen.GenerationConfig(max_new_tokens=1, eos_token_id=-1))
     N = np.asarray(inputs["input_ids"]).shape[-1]

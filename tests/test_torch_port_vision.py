@@ -66,7 +66,7 @@ def test_vqgan_encode_matches(select_layer):
     pre = conv2d(jfeat, **jax.tree_util.tree_map(jnp.asarray,
                                                  np_params["quant_conv"]))
     assert float(jnp.min(jnp.abs(pre))) > 1e-5
-    out = tvqgan.encode(from_numpy_tree(np_params), tcfg, torch.from_numpy(pix))
+    out = tvqgan.encode(from_numpy_tree(np_params, device="cpu"), tcfg, torch.from_numpy(pix))
     np.testing.assert_allclose(out.feat.numpy(), np.asarray(jfeat),
                                rtol=0, atol=1e-4)
     np.testing.assert_array_equal(out.indices.numpy(), np.asarray(jidx))
@@ -100,7 +100,7 @@ def _tokenizers(jcfg_vq, tcfg_vq, np_params, cfg):
                         max_vision_token_length=cfg.max_vision_token_length))
     ttok = LibraTokenizer(
         SimpleTextTokenizer(vocab_size=cfg.vocab_size),
-        ImageTokenizer(tcfg_vq, from_numpy_tree(np_params), cfg.vocab_size,
+        ImageTokenizer(tcfg_vq, from_numpy_tree(np_params, device="cpu"), cfg.vocab_size,
                        cfg.max_vision_token_length))
     return jtok, ttok
 
