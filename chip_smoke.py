@@ -5,8 +5,9 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
-2. build: compiles the five kernels of libra_tpu_torch/csrc at once (one
-   nvcc each) and prints ptxas' register, shared-memory and spill lines.
+2. build: compiles the kernels' six sources of libra_tpu_torch/csrc at once
+   (one nvcc each) and prints ptxas' register, shared-memory and spill
+   lines.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included.
@@ -44,9 +45,14 @@ Phases, in order; any failure exits non-zero:
    the config; on two layers at full width the loss and trainable
    gradients against the same step with the plain versions patched in;
    torch.profiler's split of one step by kernel.
+8. the int4 decode-matvec experiment (B6a) at its full size (K = 4096,
+   O = 11008, L = 8, G = 128, M = 4, Bp = 8): the kernels D (both unpack
+   widths) and C against their plain versions at layers 0 and 7, to 1e-4 of
+   max|ref|, timed beside torch._weight_int4pack_mm; then the experiment's
+   entry point, libra_tpu_torch.tools.exp_int4.main([]), every ported row.
 
-Each phase-6 and phase-7 run sets every kernel's launch count to 0 just
-before it and reads them just after; the line before the last is the
+Each phase-6, phase-7 and phase-8 run sets every kernel's launch count
+to 0 just before it and reads them just after; the line before the last is the
 kernel report as JSON, with the launches summed over those runs and each
 kernel's bound (bytes over HBM's 3.35 TB/s or operations over the dense
 peak of their type, the larger) from its inputs here; the last line is
@@ -122,6 +128,13 @@ IMG_T = 8                                    # the image block's start
 # a dropped bridge term or a wrong mask moves a leaf by its whole size.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 0.02
+# phase 8, the experiment's shape (tools/exp_int4.py:46-50)
+EXP_K, EXP_O, EXP_L, EXP_G, EXP_M, EXP_BP = 4096, 11008, 8, 128, 4, 8
+# D and C against their plain versions: the same products, summed in fp32
+# in another order over K = 4096 (each term's rounding is 2^-24 of it;
+# ~1e-6 of max|ref| in all); a lost bf16 rounding of D's weights moves the
+# output by ~3e-3 of max|ref| (measured at K = 256 on the CPU)
+EXP_TOL = 1e-4
 KERNELS = [
     dict(name="flash_bridged_attention", module="libra_tpu_torch.ops.flash_bridge",
          source="libra_tpu_torch/csrc/flash_bridge.cu",
@@ -138,6 +151,10 @@ KERNELS = [
     dict(name="int8_decode_attention", module="libra_tpu_torch.ops.decode_attention",
          source="libra_tpu_torch/csrc/decode_attention.cu",
          replaces="libra_tpu/ops/pallas/decode_attention.py:172"),
+    dict(name="int4_exp_d", module="libra_tpu_torch.ops.int4_exp",
+         source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:157"),
+    dict(name="int4_exp_c", module="libra_tpu_torch.ops.int4_exp",
+         source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:213"),
 ]
 MATMUL_KERNEL = {"bf16": None, "int8": "int8_matmul", "int4": "int4_matmul"}
 
@@ -218,9 +235,9 @@ def bound(n_bytes: int, ops: float, kind: str = "bf16") -> dict:
 def build(card: str) -> None:
     from libra_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    libs = _build.build_all(ROOT / k["source"] for k in KERNELS)
-    print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.2f} s "
-          f"(one nvcc each, in parallel) [{card}]")
+    libs = _build.build_all(dict.fromkeys(ROOT / k["source"] for k in KERNELS))
+    print(f"build: {len(libs)} sources of {len(KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel) [{card}]")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -976,6 +993,131 @@ def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The int4 decode-matvec experiment (B6a)
+# ---------------------------------------------------------------------------
+
+def check_exp_int4(card: str, dev) -> dict:
+    """D (both unpack widths) and C against their plain versions in fp32
+    (TF32 off) on random bytes and scales, at layers 0 and L - 1 of the
+    stacked buffer; rows >= M exactly 0. Timed on layers rotating over
+    the 8 (8 x 23.9 MB exceed the 50 MB L2), beside the library's
+    weight-only int4 call."""
+    from libra_tpu_torch.ops import int4_exp as E
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K, O, L, G, M = EXP_K, EXP_O, EXP_L, EXP_G, EXP_M
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    packed = torch.randint(-128, 128, (L, K // 2, O), generator=g, device=dev,
+                           dtype=torch.int8)
+    scales = torch.rand((L, K // G, O), generator=g, device=dev) * 2e-2
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    lib_ms = int4_library_ms(x, packed, scales, G, card)
+    report = {}
+    for name, tag, kernel, plain in (
+            ("int4_exp_d", " wdt=int32", functools.partial(E.int4_exp_d, wdt=torch.int32),
+             E.int4_exp_d_plain),
+            ("int4_exp_d", " wdt=int16", functools.partial(E.int4_exp_d, wdt=torch.int16),
+             E.int4_exp_d_plain),
+            ("int4_exp_c", "", E.int4_exp_c, E.int4_exp_c_plain)):
+        errs = []
+        for li in (0, L - 1):
+            got = kernel(x, packed, scales, li, G)
+            torch.cuda.synchronize()
+            want = plain(x, packed, scales, li, G)
+            err = (got - want).abs().max().item()
+            tol = EXP_TOL * want.abs().max().item()
+            print(f"{name}{tag} layer {li} K={K} O={O}: max_abs_err {err:.6g} (tol "
+                  f"{tol:.6g}: 1e-4 of max|ref|, fp32 sums in another order) [{card}]")
+            if not (bool(torch.isfinite(got).all()) and err <= tol
+                    and tuple(got.shape) == (EXP_BP, O) and bool((got[M:] == 0).all())):
+                raise AssertionError(f"{name}{tag}: the kernel disagrees with its "
+                                     f"plain version")
+            errs.append(err)
+        turn = itertools.cycle(range(L))
+        ms = cuda_ms(lambda: kernel(x, packed, scales, next(turn), G))
+        plain_ms = cuda_ms(lambda: plain(x, packed, scales, next(turn), G))
+        # the packed bytes, the scales, x and the (8, O) fp32 result; the
+        # products of the 8 rows the function computes
+        bnd = bound(nbytes(x, packed[0], scales[0], got), 2 * EXP_BP * K * O)
+        print(f"{name}{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; the weights and "
+              f"scales alone {nbytes(packed[0], scales[0]) / HBM_BPS * 1e3:.5f} ms), "
+              f"library {lib_ms} ms [{card}]")
+        row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bnd)
+        if name in report:    # D: the default width's times, the larger error
+            row = dict(report[name], max_abs_err=max(report[name]["max_abs_err"],
+                                                     row["max_abs_err"]))
+        report[name] = row
+    return report
+
+
+def int4_library_ms(x, packed, scales, group, card):
+    """torch._weight_int4pack_mm, x @ ((u - 8) * scale + zero) with its
+    own packing of the unsigned nibbles u = q + 8 (high nibble first) and
+    bf16 scales, zero points 0: the weight-only function with the scales
+    rounded to bf16, on the layers rotated as the kernels' are. None, with
+    the reason printed, where this build has no such call on the card or
+    it disagrees."""
+    from libra_tpu_torch.ops.int4_matmul import unpack_int4
+    L = packed.shape[0]
+    try:
+        ws, szs = [], []
+        for l in range(L):
+            u = (unpack_int4(packed[l]) + 8).t().contiguous()         # (O, K)
+            ws.append(torch._convert_weight_to_int4pack(
+                ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8))
+            s = scales[l].to(torch.bfloat16)
+            szs.append(torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous())
+            del u
+        got = torch._weight_int4pack_mm(x, ws[0], group, szs[0])
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError, TypeError) as e:
+        print(f"torch._weight_int4pack_mm unavailable on the card: "
+              f"{str(e).splitlines()[0][:160]} [{card}]")
+        return None
+    w = unpack_int4(packed[0]).float() * torch.repeat_interleave(
+        scales[0].to(torch.bfloat16).float(), group, dim=0)
+    want = x.float() @ w
+    err = (got.float() - want).abs().max().item()
+    if not err <= bf16_tol(want) * 4:
+        print(f"torch._weight_int4pack_mm disagrees (max_abs_err {err:.6g}); "
+              f"not timed [{card}]")
+        return None
+    print(f"torch._weight_int4pack_mm: max_abs_err {err:.6g} against x @ the "
+          f"weights with bf16 scales [{card}]")
+    turn = itertools.cycle(range(L))
+
+    def call():
+        i = next(turn)
+        return torch._weight_int4pack_mm(x, ws[i], group, szs[i])
+    return cuda_ms(call)
+
+
+def exp_int4_path(card: str, main_counts: Counter) -> None:
+    """The experiment's entry point with every ported row, each kernel's
+    count at zero before it; D and C must have launched."""
+    from libra_tpu_torch.tools import exp_int4
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = exp_int4.main([])
+    torch.cuda.synchronize()
+    got = read_counts()
+    main_counts.update(got)
+    nbytes_int4 = EXP_K * EXP_O // 2
+    print(f"exp_int4 main([]): {len(rows)} rows in {time.perf_counter() - t0:.1f} s, "
+          f"launches {dict(got)} [{card}]")
+    print("exp_int4 rows (rel err, ms, GB/s over the packed int4 bytes; int8 over "
+          "its int8 bytes): " + "; ".join(
+              f"{r} {v['err']:.3g} {v['ms']:.4f} ms "
+              f"{(2 if r == 'int8' else 1) * nbytes_int4 / v['ms'] / 1e6:.0f} GB/s"
+              for r, v in rows.items()) + f" [{card}]")
+    if set(rows) != set(exp_int4.ROWS):
+        raise AssertionError(f"exp_int4 ran {sorted(rows)}, not every row")
+    if not (got["int4_exp_d"] > 0 and got["int4_exp_c"] > 0):
+        raise AssertionError("the experiment did not launch the D and C kernels")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; this script runs "
@@ -1028,6 +1170,8 @@ def main() -> int:
         f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "
         f"{v['mfu']:.4f}, peak {v['peak_gb']:.3f} GB" for r, v in train.items())
           + f" [{card}]")
+    report.update(check_exp_int4(card, dev))
+    exp_int4_path(card, main_counts)
     missing = [k["name"] for k in KERNELS if main_counts[k["name"]] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
