@@ -5,7 +5,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
-2. build: compiles the kernels' six sources of libra_tpu_torch/csrc at once
+2. build: compiles the kernels' seven sources of libra_tpu_torch/csrc at once
    (one nvcc each) and prints ptxas' register, shared-memory and spill
    lines.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
@@ -45,11 +45,14 @@ Phases, in order; any failure exits non-zero:
    the config; on two layers at full width the loss and trainable
    gradients against the same step with the plain versions patched in;
    torch.profiler's split of one step by kernel.
-8. the int4 decode-matvec experiment (B6a) at its full size (K = 4096,
-   O = 11008, L = 8, G = 128, M = 4, Bp = 8): the kernels D (both unpack
-   widths) and C against their plain versions at layers 0 and 7, to 1e-4 of
-   max|ref|, timed beside torch._weight_int4pack_mm; then the experiment's
-   entry point, libra_tpu_torch.tools.exp_int4.main([]), every ported row.
+8. the int4 decode-matvec experiment (B6) at its full size (K = 4096,
+   O = 11008, L = 8, G = 128, M = 4, Bp = 8): the weight-only kernels D
+   (both unpack widths) and C, and the W4A8 kernels in every unpack mode
+   (E; H and F, each with and without the int8-domain mask; F at bp = 32),
+   against their plain versions at layers 0 and 7, to 1e-4 of max|ref|,
+   rows >= M exactly 0, timed beside torch._weight_int4pack_mm; then the
+   experiment's entry point, libra_tpu_torch.tools.exp_int4.main([]), all
+   21 rows.
 
 Each phase-6, phase-7 and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
@@ -133,7 +136,10 @@ EXP_K, EXP_O, EXP_L, EXP_G, EXP_M, EXP_BP = 4096, 11008, 8, 128, 4, 8
 # D and C against their plain versions: the same products, summed in fp32
 # in another order over K = 4096 (each term's rounding is 2^-24 of it;
 # ~1e-6 of max|ref| in all); a lost bf16 rounding of D's weights moves the
-# output by ~3e-3 of max|ref| (measured at K = 256 on the CPU)
+# output by ~3e-3 of max|ref| (measured at K = 256 on the CPU). The W4A8
+# kernels' group sums are exact integers, so only the fp32 sums over the
+# 32 groups and the correction differ in order; one flipped rounding of x
+# to int8 moves an output by ~1/127 of its row's step, far over 1e-4.
 EXP_TOL = 1e-4
 KERNELS = [
     dict(name="flash_bridged_attention", module="libra_tpu_torch.ops.flash_bridge",
@@ -155,6 +161,10 @@ KERNELS = [
          source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:157"),
     dict(name="int4_exp_c", module="libra_tpu_torch.ops.int4_exp",
          source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:213"),
+    dict(name="int4_exp_e", module="libra_tpu_torch.ops.int4_exp",
+         source="libra_tpu_torch/csrc/int4_exp_a8.cu", replaces="tools/exp_int4.py:291"),
+    dict(name="int4_exp_a8", module="libra_tpu_torch.ops.int4_exp",
+         source="libra_tpu_torch/csrc/int4_exp_a8.cu", replaces="tools/exp_int4.py:420"),
 ]
 MATMUL_KERNEL = {"bf16": None, "int8": "int8_matmul", "int4": "int4_matmul"}
 
@@ -994,16 +1004,36 @@ def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The int4 decode-matvec experiment (B6a)
+# The int4 decode-matvec experiment (B6)
 # ---------------------------------------------------------------------------
 
-def check_exp_int4(card: str, dev) -> dict:
-    """D (both unpack widths) and C against their plain versions in fp32
-    (TF32 off) on random bytes and scales, at layers 0 and L - 1 of the
-    stacked buffer; rows >= M exactly 0. Timed on layers rotating over
-    the 8 (8 x 23.9 MB exceed the 50 MB L2), beside the library's
-    weight-only int4 call."""
+def exp_int4_modes():
+    """Phase 8's cases: (kernel name, tag, kernel, plain version, bp). A
+    kernel's first case gives its times in the report."""
     from libra_tpu_torch.ops import int4_exp as E
+    P = functools.partial
+    modes = [("int4_exp_d", " wdt=int32", P(E.int4_exp_d, wdt=torch.int32),
+              E.int4_exp_d_plain, EXP_BP),
+             ("int4_exp_d", " wdt=int16", P(E.int4_exp_d, wdt=torch.int16),
+              E.int4_exp_d_plain, EXP_BP),
+             ("int4_exp_c", "", E.int4_exp_c, E.int4_exp_c_plain, EXP_BP),
+             ("int4_exp_e", "", E.int4_exp_e, E.int4_exp_a8_plain, EXP_BP)]
+    for body, bp, i8mask in (("h", 8, False), ("h", 8, True), ("f", 8, False),
+                             ("f", 8, True), ("f", 32, False)):
+        modes.append(("int4_exp_a8", f" body={body} bp={bp} i8mask={i8mask}",
+                      P(E.int4_exp_a8, body=body, bp=bp, i8mask=i8mask),
+                      P(E.int4_exp_a8_plain, bp=bp), bp))
+    return modes
+
+
+def check_exp_int4(card: str, dev) -> dict:
+    """D (both unpack widths), C and the W4A8 kernels (every unpack mode)
+    against their plain versions in fp32 (TF32 off) on random bytes and
+    scales, at layers 0 and L - 1 of the stacked buffer, and on 7 rows of
+    x with an all-zero third row (the kernels' 8-row path) at layer L // 2;
+    rows >= M and the zero row exactly 0. Timed at M = 4 on layers
+    rotating over the 8 (8 x 23.9 MB exceed the 50 MB L2), beside the
+    library's weight-only int4 call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     K, O, L, G, M = EXP_K, EXP_O, EXP_L, EXP_G, EXP_M
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1011,41 +1041,49 @@ def check_exp_int4(card: str, dev) -> dict:
                            dtype=torch.int8)
     scales = torch.rand((L, K // G, O), generator=g, device=dev) * 2e-2
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    x7 = torch.randn((7, K), generator=g, device=dev).to(torch.bfloat16)
+    x7[2] = 0
     lib_ms = int4_library_ms(x, packed, scales, G, card)
     report = {}
-    for name, tag, kernel, plain in (
-            ("int4_exp_d", " wdt=int32", functools.partial(E.int4_exp_d, wdt=torch.int32),
-             E.int4_exp_d_plain),
-            ("int4_exp_d", " wdt=int16", functools.partial(E.int4_exp_d, wdt=torch.int16),
-             E.int4_exp_d_plain),
-            ("int4_exp_c", "", E.int4_exp_c, E.int4_exp_c_plain)):
+    for name, tag, kernel, plain, bp in exp_int4_modes():
         errs = []
-        for li in (0, L - 1):
-            got = kernel(x, packed, scales, li, G)
+        for li, xx in ((0, x), (L - 1, x), (L // 2, x7)):
+            got = kernel(xx, packed, scales, li, G)
             torch.cuda.synchronize()
-            want = plain(x, packed, scales, li, G)
+            want = plain(xx, packed, scales, li, G)
             err = (got - want).abs().max().item()
             tol = EXP_TOL * want.abs().max().item()
-            print(f"{name}{tag} layer {li} K={K} O={O}: max_abs_err {err:.6g} (tol "
-                  f"{tol:.6g}: 1e-4 of max|ref|, fp32 sums in another order) [{card}]")
+            rows = xx.shape[0]
+            print(f"{name}{tag} layer {li} M={rows} K={K} O={O}: max_abs_err {err:.6g} "
+                  f"(tol {tol:.6g}: 1e-4 of max|ref|, fp32 sums in another order) "
+                  f"[{card}]")
+            zero = got[rows:] if rows == M else torch.cat([got[2:3], got[rows:]])
             if not (bool(torch.isfinite(got).all()) and err <= tol
-                    and tuple(got.shape) == (EXP_BP, O) and bool((got[M:] == 0).all())):
+                    and tuple(got.shape) == (bp, O) and bool((zero == 0).all())):
                 raise AssertionError(f"{name}{tag}: the kernel disagrees with its "
                                      f"plain version")
             errs.append(err)
         turn = itertools.cycle(range(L))
         ms = cuda_ms(lambda: kernel(x, packed, scales, next(turn), G))
         plain_ms = cuda_ms(lambda: plain(x, packed, scales, next(turn), G))
-        # the packed bytes, the scales, x and the (8, O) fp32 result; the
-        # products of the 8 rows the function computes
-        bnd = bound(nbytes(x, packed[0], scales[0], got), 2 * EXP_BP * K * O)
-        print(f"{name}{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; the weights and "
+        # the packed bytes, the scales, x and the (bp, O) fp32 result; the
+        # products of the bp rows the function computes (W4A8: int8 ones)
+        a8 = name in ("int4_exp_e", "int4_exp_a8")
+        bnd = bound(nbytes(x, packed[0], scales[0], got), 2 * bp * K * O,
+                    "int8" if a8 else "bf16")
+        # no library call computes W4A8 with group scales; the nearest,
+        # weight-only one is printed beside it
+        lib = (f"no library call computes W4A8; nearest, weight-only "
+               f"torch._weight_int4pack_mm {lib_ms} ms" if a8 else f"library {lib_ms} ms")
+        print(f"{name}{tag}: kernel {ms:.4f} ms "
+              f"({nbytes(packed[0]) / ms / 1e6:.0f} GB/s over the packed bytes, "
+              f"{bnd['bound_ms'] / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+              f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}; the weights and "
               f"scales alone {nbytes(packed[0], scales[0]) / HBM_BPS * 1e3:.5f} ms), "
-              f"library {lib_ms} ms [{card}]")
-        row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   **bnd)
-        if name in report:    # D: the default width's times, the larger error
+              f"{lib} [{card}]")
+        row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                   library_ms=None if a8 else lib_ms, **bnd)
+        if name in report:    # the first case's times, the largest error
             row = dict(report[name], max_abs_err=max(report[name]["max_abs_err"],
                                                      row["max_abs_err"]))
         report[name] = row
@@ -1095,8 +1133,9 @@ def int4_library_ms(x, packed, scales, group, card):
 
 
 def exp_int4_path(card: str, main_counts: Counter) -> None:
-    """The experiment's entry point with every ported row, each kernel's
-    count at zero before it; D and C must have launched."""
+    """The experiment's entry point with all 21 rows, each kernel's count
+    at zero before it; each of the experiment's kernels must have
+    launched."""
     from libra_tpu_torch.tools import exp_int4
     zero_counts()
     t0 = time.perf_counter()
@@ -1112,10 +1151,12 @@ def exp_int4_path(card: str, main_counts: Counter) -> None:
               f"{r} {v['err']:.3g} {v['ms']:.4f} ms "
               f"{(2 if r == 'int8' else 1) * nbytes_int4 / v['ms'] / 1e6:.0f} GB/s"
               for r, v in rows.items()) + f" [{card}]")
-    if set(rows) != set(exp_int4.ROWS):
-        raise AssertionError(f"exp_int4 ran {sorted(rows)}, not every row")
-    if not (got["int4_exp_d"] > 0 and got["int4_exp_c"] > 0):
-        raise AssertionError("the experiment did not launch the D and C kernels")
+    if set(rows) != set(exp_int4.ROWS) or len(rows) != 21:
+        raise AssertionError(f"exp_int4 ran {sorted(rows)}, not all 21 rows")
+    idle = [k["name"] for k in KERNELS
+            if k["module"] == "libra_tpu_torch.ops.int4_exp" and got[k["name"]] == 0]
+    if idle:
+        raise AssertionError(f"the experiment did not launch {idle}")
 
 
 def main() -> int:

@@ -1,9 +1,11 @@
-"""The int4 decode-matvec experiment's two weight-only kernels, D and C.
+"""The int4 decode-matvec experiment's kernels: the weight-only D and C,
+and the W4A8 function of E, H and F.
 
-Each computes y = x @ W for the rows of x (at most BP = 8, the result
-zero past them) against one layer of a stacked group-int4 buffer, with
-the layer picked by index. They compute what the experiment's Pallas
-TPU kernels compute (``tools/exp_int4.py::main``):
+Each computes y = x @ W for the rows of x (at most 8, the result zero
+past them, over BP = 8 rows, or 32 for the experiment's F32R) against
+one layer of a stacked group-int4 buffer, with the layer picked by
+index. They compute what the experiment's Pallas TPU kernels compute
+(``tools/exp_int4.py::main``):
 
 * D (``build_d``): the weights dequantized to bf16 before the products.
   With s_hat = bf16(s), each byte gives bf16(u0 * s_hat) and
@@ -20,8 +22,9 @@ u0 = q[2r] + 8 in its low nibble and q[2r + 1] in its high nibble
 (arithmetic shift of the signed byte).
 
 On a CUDA tensor `int4_exp_d` and `int4_exp_c` launch the hand-written
-Hopper kernels of ``csrc/int4_exp.cu`` or raise; on a CPU tensor they
-run `int4_exp_d_plain` and `int4_exp_c_plain`.
+Hopper kernels of ``csrc/int4_exp.cu``, `int4_exp_e` and `int4_exp_a8`
+those of ``csrc/int4_exp_a8.cu``, or raise; on a CPU tensor they run
+`int4_exp_d_plain`, `int4_exp_c_plain` and `int4_exp_a8_plain`.
 """
 
 from __future__ import annotations
@@ -33,13 +36,16 @@ import torch
 from libra_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "int4_exp.cu"
+SOURCE_A8 = _build.CSRC / "int4_exp_a8.cu"
 BP = 8              # rows of the result: x padded to 8, as the TPU blocks are
+BPS = (BP, 32)      # the W4A8 rows' padded row counts (F32R: 32)
 MAX_GROUPS = 256    # K / group: the kernel keeps the group sums of x on chip
-_ARGTYPES = ((ctypes.c_void_p, ctypes.c_longlong) * 2
-             + (ctypes.c_void_p, ctypes.c_longlong)
-             + (ctypes.c_void_p, ctypes.c_longlong)
-             + (ctypes.c_int,) * 4 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+# x, packed, scales, out (pointer, row stride); M, K, F, G
+_TENSORS = (ctypes.c_void_p, ctypes.c_longlong) * 4 + (ctypes.c_int,) * 4
+_ARGTYPES = _TENSORS + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)      # mode, w16
+_ARGTYPES_A8 = _TENSORS + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)   # bp, i8mask, low_only
 WDTS = (torch.int32, torch.int16)
+BODIES = ("h", "f")
 
 
 def _prep(x: torch.Tensor, packed: torch.Tensor, group: int):
@@ -86,12 +92,40 @@ def int4_exp_c_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     return (sums * s[:, None, :]).sum(dim=0) - 8.0 * (cg @ s)
 
 
-def _check(name, x, packed, scales, li, group):
+def int4_exp_a8_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                      li: int, group: int = 128, bp: int = BP) -> torch.Tensor:
+    """The W4A8 function of E, H and F in plain torch on layer `li`:
+    (bp, O) fp32. x padded to bp rows is quantized to exact integers in
+    fp32 (xq, rounding half to even) with the row scales xs; each group's
+    sum of products of integers is then exact in fp32 (|d| <= group / 2 *
+    127 * 23 < 2^24 for group < 11,000)."""
+    xp = torch.zeros((bp, x.shape[-1]), dtype=torch.float32, device=x.device)
+    xp[:x.shape[0]] = x.float()
+    amax = xp.abs().amax(dim=1, keepdim=True)
+    xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    xq = torch.clamp(torch.round(xp / xs), -127, 127)
+    xe, xo = xq[:, 0::2], xq[:, 1::2]
+    w = packed[li].to(torch.int32)                 # sign-extends the byte
+    s = scales[li].float()
+    G, gh, O = s.shape[0], group // 2, s.shape[1]
+
+    def by_group(t):
+        return t.reshape(bp, G, gh).transpose(0, 1)              # (G, bp, gh)
+
+    d = (torch.bmm(by_group(xe), (w & 15).float().reshape(G, gh, O))
+         + torch.bmm(by_group(xo), (w >> 4).float().reshape(G, gh, O)))  # (G, bp, O)
+    cg = by_group(xe).sum(dim=-1).t()                               # (bp, G)
+    return ((d * s[:, None, :]).sum(dim=0) - 8.0 * (cg @ s)) * xs
+
+
+def _check(name, x, packed, scales, li, group, bp=BP):
     if x.dim() != 2 or packed.dim() != 3 or scales.dim() != 3 or group % 2:
         raise ValueError(f"{name}: takes x (M, K), packed (L, K/2, O) and "
                          f"scales (L, K/group, O) with an even group, not x "
                          f"{tuple(x.shape)}, packed {tuple(packed.shape)}, "
                          f"scales {tuple(scales.shape)}, group {group}")
+    if bp not in BPS:
+        raise ValueError(f"{name}: bp must be one of {BPS}, not {bp}")
     (M, K), (L, Kh, O) = x.shape, packed.shape
     if (K != 2 * Kh or K % group or tuple(scales.shape) != (L, K // group, O)
             or not 1 <= M <= BP or K // group > MAX_GROUPS or O % 4):
@@ -116,15 +150,17 @@ def _check(name, x, packed, scales, li, group):
                          f"it must start 4-byte aligned")
 
 
-def _run(name, mode, x, packed, scales, li, group, w16):
-    _check(name, x, packed, scales, li, group)
+def _run(name, source, entry, argtypes, x, packed, scales, li, group, bp, *flags):
+    """Launch `entry` of `source` on layer `li` into a new (bp, O) fp32
+    result; `flags` are the entry's trailing int arguments."""
+    _check(name, x, packed, scales, li, group, bp)
     p, s = packed[li], scales[li]
     O = p.shape[1]
-    out = torch.empty((BP, O), dtype=torch.float32, device=x.device)
-    fn = _build.function(SOURCE, "int4_exp", _ARGTYPES)
+    out = torch.empty((bp, O), dtype=torch.float32, device=x.device)
+    fn = _build.function(source, entry, argtypes)
     status = fn(x.data_ptr(), x.stride(0), p.data_ptr(), p.stride(0),
                 s.data_ptr(), s.stride(0), out.data_ptr(), out.stride(0),
-                x.shape[0], x.shape[1], O, group, mode, int(w16), _build.stream(x))
+                x.shape[0], x.shape[1], O, group, *flags, _build.stream(x))
     _build.check_launch(status, name)
     return out
 
@@ -142,7 +178,8 @@ def int4_exp_d(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return int4_exp_d_plain(x, packed, scales, li, group)
     if x.device.type != "cuda":
         raise ValueError(f"int4_exp_d: no kernel for {x.device}")
-    out = _run("int4_exp_d", 0, x, packed, scales, li, group, wdt == torch.int16)
+    out = _run("int4_exp_d", SOURCE, "int4_exp", _ARGTYPES, x, packed, scales, li,
+               group, BP, 0, int(wdt == torch.int16))
     int4_exp_d.launches += 1
     return out
 
@@ -156,10 +193,53 @@ def int4_exp_c(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return int4_exp_c_plain(x, packed, scales, li, group)
     if x.device.type != "cuda":
         raise ValueError(f"int4_exp_c: no kernel for {x.device}")
-    out = _run("int4_exp_c", 1, x, packed, scales, li, group, False)
+    out = _run("int4_exp_c", SOURCE, "int4_exp", _ARGTYPES, x, packed, scales, li,
+               group, BP, 1, 0)
     int4_exp_c.launches += 1
+    return out
+
+
+def int4_exp_e(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+               li: int, group: int = 128) -> torch.Tensor:
+    """E (``build_e``) on layer `li`: the W4A8 function with the unpack on
+    the int8 bytes; x (M <= 8, K) -> (BP, O) fp32, rows >= M zero. CPU
+    tensors take the plain version. CUDA tensors launch the kernel and add
+    one to `int4_exp_e.launches`."""
+    if x.device.type == "cpu":
+        return int4_exp_a8_plain(x, packed, scales, li, group)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_exp_e: no kernel for {x.device}")
+    out = _run("int4_exp_e", SOURCE_A8, "int4_exp_a8", _ARGTYPES_A8, x, packed, scales,
+               li, group, BP, BP, 1, 0)
+    int4_exp_e.launches += 1
+    return out
+
+
+def int4_exp_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                li: int, group: int = 128, body: str = "h", bp: int = BP,
+                i8mask: bool = False) -> torch.Tensor:
+    """``_a8_fn`` on layer `li` with the body ``build_h`` ("h": both
+    nibbles, from bytes widened to int32) or ``build_f`` ("f": the low
+    nibble only), x padded to `bp` (8 or 32) rows; `i8mask` unpacks on
+    the int8 bytes instead. x (M <= 8, K) -> (bp, O) fp32, rows >= M zero;
+    the result depends on none of the three options but bp. CPU tensors
+    take the plain version. CUDA tensors launch the kernel and add one to
+    `int4_exp_a8.launches`."""
+    if body not in BODIES:
+        raise ValueError(f"int4_exp_a8: body must be one of {BODIES}, not {body!r}")
+    if bp not in BPS:
+        raise ValueError(f"int4_exp_a8: bp must be one of {BPS}, not {bp}")
+    if x.device.type == "cpu":
+        return int4_exp_a8_plain(x, packed, scales, li, group, bp)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_exp_a8: no kernel for {x.device}")
+    out = _run("int4_exp_a8", SOURCE_A8, "int4_exp_a8", _ARGTYPES_A8, x, packed, scales,
+               li, group, bp, bp, int(i8mask), int(body == "f"))
+    int4_exp_a8.launches += 1
     return out
 
 
 int4_exp_d.launches = 0
 int4_exp_c.launches = 0
+int4_exp_e.launches = 0
+int4_exp_a8.launches = 0

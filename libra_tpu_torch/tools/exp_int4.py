@@ -18,12 +18,18 @@ effective rate over the packed int4 bytes:
                      group's fp32 sum;
   int8               the int8_matmul kernel (B2) on per-column int8
                      weights, for comparison (rate over the int8 bytes);
+  E                  ops.int4_exp.int4_exp_e: W4A8 (x quantized per row to
+                     int8, exact integer group sums, the fp32 group scale on
+                     each), the bytes unpacked in the int8 domain;
+  H8                 ops.int4_exp.int4_exp_a8, body "h": the same function,
+                     the bytes widened to int32 before the unpack;
+  F8, F32R, FM8      body "f": only the low nibble unpacked, xo * q1 taken
+                     as (xo * b - xo * u0) / 16 from the raw byte b; x
+                     padded to 8 rows, to 32 (a (32, O) result), and with
+                     the mask in the int8 domain;
   P<G>, P<G>a        B5 at group sizes 256, 512 and 2048;
   PAD, PADa, PADG<G> B5 with O padded to 11264 (W4A8 at G = 256, 512 for
                      PADG).
-
-The W4A8 variants of the experiment (E, H8, F8, F32R, FM8) are not ported
-yet (ROADMAP B6b): naming one raises.
 
 Timing: device time between CUDA events, n1 = 48 and n2 = 448 calls queued
 behind a sleep on the device that outlasts the host's queuing, best of 3,
@@ -43,8 +49,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from libra_tpu_torch.ops.int4_exp import BP as Bp  # rows of D's and C's result
-from libra_tpu_torch.ops.int4_exp import int4_exp_c, int4_exp_d
+from libra_tpu_torch.ops.int4_exp import int4_exp_a8, int4_exp_c, int4_exp_d, int4_exp_e
 from libra_tpu_torch.ops.int4_matmul import dequant_int4, int4_matmul, pack_int4
 from libra_tpu_torch.ops.int8_matmul import int8_matmul
 from libra_tpu_torch.quantization import quantize_array
@@ -53,9 +58,14 @@ K, O, L = 4096, 11008, 8
 GROUP = 128
 PAD_TO = 1024          # PAD rows: O rounded up to a multiple (11008 -> 11264)
 REJECT = 0.05          # relative error of a row that fails its numerics
-ROWS = ("prod", "prod8", "d", "c", "int8", "p256", "p256a", "p512", "p512a",
-        "p2048", "p2048a", "pada", "pad", "padg256", "padg512", "d16")
-UNPORTED = ("e", "h8", "f8", "f32r", "fm8")
+ROWS = ("prod", "prod8", "d", "c", "int8", "e", "h8", "f8", "f32r", "fm8", "p256",
+        "p256a", "p512", "p512a", "p2048", "p2048a", "pada", "pad", "padg256",
+        "padg512", "d16")
+# the W4A8 rows after E: (the script's name, body, bp, i8mask)
+A8_ROWS = {"h8": ("H w4a8 i32-unpack bp8", "h", 8, False),
+           "f8": ("F raw-byte 3dot bp8", "f", 8, False),
+           "f32r": ("F raw-byte 3dot bp32", "f", 32, False),
+           "fm8": ("F raw-byte 3dot bp8 i8mask", "f", 8, True)}
 # the production kernel's other rows: (group, W4A8, O padded)
 PROD_ROWS = {"p256": (256, False, False), "p256a": (256, True, False),
              "p512": (512, False, False), "p512a": (512, True, False),
@@ -70,10 +80,6 @@ def select(argv: Sequence[str]) -> list:
     """The rows that argv names (case-insensitive), in the experiment's
     order; all of them for an empty argv."""
     only = {a.lower() for a in argv}
-    unported = sorted(only & set(UNPORTED))
-    if unported:
-        raise ValueError(f"variants {unported} are the experiment's W4A8 kernels, "
-                         f"not ported yet (ROADMAP B6b)")
     unknown = sorted(only - set(ROWS))
     if unknown:
         raise ValueError(f"unknown variants {unknown}; the rows are {list(ROWS)}")
@@ -190,6 +196,20 @@ def build_c(inp: Inputs) -> Fn:
     return lambda xx, li: int4_exp_c(xx, inp.packed, inp.scales, li, GROUP)
 
 
+def build_e(inp: Inputs) -> Fn:
+    return lambda xx, li: int4_exp_e(xx, inp.packed, inp.scales, li, GROUP)
+
+
+def build_h(inp: Inputs, bp: int = 8, i8mask: bool = False) -> Fn:
+    return lambda xx, li: int4_exp_a8(xx, inp.packed, inp.scales, li, GROUP, "h", bp,
+                                      i8mask)
+
+
+def build_f(inp: Inputs, bp: int = 8, i8mask: bool = False) -> Fn:
+    return lambda xx, li: int4_exp_a8(xx, inp.packed, inp.scales, li, GROUP, "f", bp,
+                                      i8mask)
+
+
 def _prod(pk: torch.Tensor, sc: torch.Tensor, g: int, a8: bool) -> Fn:
     return lambda xx, li: int4_matmul(xx, pk[li], sc[li], group=g, a8=a8)
 
@@ -239,6 +259,12 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda", K: int = K,
                  lambda: (lambda xx, li: int8_matmul(xx, q8.q[li], q8.scale[li])),
                  yref8, max(yref8.abs().max().item(), 1e-6), K * O)
             del q8
+        elif row == "e":
+            case(row, "E w4a8 s8xs8 MXU dots", lambda: build_e(inp))
+        elif row in A8_ROWS:
+            name, body, bp, i8mask = A8_ROWS[row]
+            build = build_h if body == "h" else build_f
+            case(row, name, lambda: build(inp, bp, i8mask))
         else:
             # the P and PAD rows: a reference from the row's own group
             # size (against G = 128's, a G = 256 output would measure the
