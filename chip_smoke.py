@@ -10,12 +10,15 @@ Phases, in order; any failure exits non-zero:
    lines.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
-   rows with fully masked query rows included.
+   rows with fully masked query rows included (one row padded by 70
+   tokens, more than a key tile, so that live rows start behind masked
+   tiles); times beside SDPA's, with TFLOP/s and the share of the bound.
 3b. flash backward kernel vs its plain version at the training shape (B=8,
    Nq=Nk=698, H=32, d=128, bf16), bridge on and off, right-padded rows and
-   two left-padded rows (fully masked query rows: dq exactly 0), every
-   gradient against the plain backward on fp32 copies; also the forward's
-   row max and denominator, and the forward's time at this shape.
+   three left-padded rows (by 70, 3 and 5; fully masked query rows: dq
+   exactly 0), every gradient against the plain backward on the same bf16
+   inputs; also the forward's row max and denominator, and the forward's
+   time at this shape.
 4. int8 and int4 matmul kernels vs their plain versions at M = 4 (decode)
    and M = 160 (the gate's limit) on libra-11b's projection shapes
    (4096->4096, 4096->11008, 11008->4096, 4096->32000 lm_head), the
@@ -85,6 +88,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 B, NQ, NK, H, HD = 4, 610, 738, 32, 128      # the prompt pass's attention shape
 IMG0, IMG1 = 8, 586                          # image block of the kernel checks
+PAD_LONG = 70                                # a left pad longer than a key tile
 S_DECODE = 674                               # 610 prompt + 64 new tokens
 MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 SEED = 0
@@ -121,12 +125,14 @@ IMG_T = 8                                    # the image block's start
 # Two-layer training step, kernels vs plain versions: the loss is a mean
 # over 5,584 tokens of log-softmaxes in fp32, so the logits' one-ulp
 # differences (E2E_TOL) average out to ~1e-5 of it (measured on an H100:
-# 6.6e-6); 1e-4 is allowed. The gradients also carry the plain backward's
-# rounding of p and ds to bf16 before its products (the kernel keeps them
-# in fp32), about 2^-9 relative per term, and are stored in bf16 (2^-9).
-# The bridge leaves take theirs from ds = p (dp - delta), a difference of
-# near-equal terms that magnifies those roundings (measured on an H100:
-# 0.0034-0.0081 on the bridge leaves, 0.0010-0.0055 on the others). Each
+# 6.6e-6); 1e-4 is allowed. The kernels and the plain backward both round
+# p and ds to bf16 before the gradient products, from fp32 values summed in
+# another order, so a rounding flips here and there (2^-8 relative for the
+# term it hits); the gradients are stored in bf16 (2^-9). The bridge
+# leaves take theirs from ds = p (dp - delta), a difference of near-equal
+# terms that magnifies those flips (measured on an H100 with the earlier
+# fp32 kernels: 0.0034-0.0081 on the bridge leaves, 0.0010-0.0055 on the
+# others). Each
 # trainable leaf's gradient is held on its own, to a relative L2 of 0.02:
 # a dropped bridge term or a wrong mask moves a leaf by its whole size.
 TRAIN_LOSS_TOL = 1e-4
@@ -260,8 +266,9 @@ def build(card: str) -> None:
 
 def attention_inputs(use_bridge: bool, dev):
     """Prompt-pass inputs: keys span the whole cache (610 prompt slots +
-    128 decode slots, the tail masked); rows 2 and 3 are left-padded by 3
-    and 5 tokens, so their first query rows are fully masked."""
+    128 decode slots, the tail masked); rows 1, 2 and 3 are left-padded by
+    70, 3 and 5 tokens, so their first query rows are fully masked, and
+    row 1's live rows see masked key tiles before their first live key."""
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def rnd(n):
@@ -275,12 +282,31 @@ def attention_inputs(use_bridge: bool, dev):
                                              device=dev)], dim=1)
     mask = torch.zeros((B, NK), dtype=torch.int64, device=dev)
     mask[:, :NQ] = 1
+    mask[1, :PAD_LONG] = 0
     mask[2, :3] = 0
     mask[3, :5] = 0
     causal = torch.arange(NK, device=dev)[None, :] <= torch.arange(NQ, device=dev)[:, None]
     keep = causal[None, None] & mask.bool()[:, None, None, :]
     bias = torch.where(keep, 0.0, -2.0 ** 30).float()
     return q, k, v, kb, vb, flag_q, flag_kv, bias
+
+
+def needed_pairs(bias) -> int:
+    """The (batch, query, key) pairs whose products the function needs:
+    the unmasked ones (bias above BIG_NEG / 2; a masked pair's probability
+    is exactly 0 once its row has a live key), and every key of a fully
+    masked row (its output is the uniform average)."""
+    keep = bias[:, 0] > -2.0 ** 29
+    dead = ~keep.any(dim=-1)
+    return int(keep.sum().item()) + int(dead.sum().item()) * bias.shape[-1]
+
+
+def rate_line(ops_needed: float, ops_dense: float, ms: float, bnd: dict) -> str:
+    """TFLOP/s over the products the data needs and over the dense
+    products (what SDPA, which cannot skip a masked tile, computes), and
+    the share of the bound."""
+    return (f"{ops_needed / ms / 1e9:.1f} TFLOP/s needed, {ops_dense / ms / 1e9:.1f} "
+            f"dense-equivalent, {bnd['bound_ms'] / ms:.2%} of the bound")
 
 
 def check_flash(card: str, dev) -> dict:
@@ -291,25 +317,30 @@ def check_flash(card: str, dev) -> dict:
         args = attention_inputs(use_bridge, dev)
         got = flash_bridged_attention(*args)
         torch.cuda.synchronize()
-        f32 = [None if t is None else (t.float() if t.is_floating_point() else t)
-               for t in args]
+        # the plain version on the same bf16 inputs: fp32 scores and
+        # softmax, p rounded to bf16 for the value products, as the kernel
         err = check(f"flash use_bridge={use_bridge}", got,
-                    flash_bridged_attention_plain(*f32), card)
-        if not bool(torch.isfinite(got[2:, :3]).all()):
+                    flash_bridged_attention_plain(*args), card)
+        if not (bool(torch.isfinite(got[2:, :3]).all())
+                and bool(torch.isfinite(got[1, :PAD_LONG]).all())):
             raise AssertionError("fully masked query rows must stay finite")
         ms = cuda_ms(lambda: flash_bridged_attention(*args))
         plain_ms = cuda_ms(lambda: flash_bridged_attention_plain(*args))
         q, k = args[0], args[1]
         # the products the function needs: QK^T and PV, with the bridge
-        # also QKb^T and (P cross)Vb
-        ops = 2 * B * H * NQ * NK * HD * (4 if use_bridge else 2)
+        # also QKb^T and (P cross)Vb, over the pairs the mask leaves
+        per_pair = 2 * H * HD * (4 if use_bridge else 2)
+        ops, dense = per_pair * needed_pairs(args[7]), per_pair * B * NQ * NK
         bnd = bound(nbytes(*args, got), ops)
         # no library call computes the bridged function; without the
         # bridge, SDPA with the additive mask does
         lib_ms = None if use_bridge else cuda_ms(lambda: sdpa(q, k, args[2], args[7]))
-        print(f"flash use_bridge={use_bridge}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']}), SDPA {lib_ms} ms [{card}]")
+        print(f"flash use_bridge={use_bridge}: kernel {ms:.4f} ms "
+              f"({rate_line(ops, dense, ms, bnd)}), plain {plain_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; dense products "
+              f"{dense / PEAK['bf16'] * 1e3:.4f} ms), SDPA {lib_ms} ms"
+              + ("" if lib_ms is None else f" ({dense / lib_ms / 1e9:.1f} TFLOP/s)")
+              + f" [{card}]")
         report[use_bridge] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   library_ms=lib_ms, **bnd)
     return dict(report[True], max_abs_err=max(r["max_abs_err"] for r in report.values()))
@@ -327,8 +358,8 @@ def sdpa(q, k, v, bias):
 def train_attention_inputs(use_bridge: bool, dev):
     """Training-shape inputs (B=8, N=120+578=698, the image block at 8):
     rows 1-5 right-padded by 7r tokens, as the tokenizer pads captions;
-    rows 6 and 7 left-padded by 3 and 5, so their first query rows see no
-    key. Returns the forward's arguments and an output cotangent."""
+    rows 0, 6 and 7 left-padded by 70, 3 and 5, so their first query rows
+    see no key. Returns the forward's arguments and an output cotangent."""
     from libra_tpu_torch.ops.attention import causal_bias
     Bt, N, Mv = TRAIN_B, TRAIN_TEXT + 578, 578
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -343,15 +374,18 @@ def train_attention_inputs(use_bridge: bool, dev):
     mask = torch.ones((Bt, N), dtype=torch.int64, device=dev)
     for r in range(1, 6):
         mask[r, N - 7 * r:] = 0
+    mask[0, :PAD_LONG] = 0
     mask[6, :3] = 0
     mask[7, :5] = 0
     return (q, k, v, kb, vb, flag, flag, causal_bias(mask, N, N)), rnd()
 
 
 def check_flash_bwd(card: str, dev) -> dict:
-    """The backward kernel against the plain backward on fp32 copies, with
-    the forward kernel's row max and denominator checked against the plain
-    softmax's on the way; dq exactly 0 on the fully masked rows."""
+    """The backward kernel against the plain backward on the same bf16
+    inputs (which rounds p and ds to bf16 before the gradient products, as
+    the kernel does), with the forward kernel's row max and denominator
+    checked against the plain softmax's on fp32 copies on the way; dq
+    exactly 0 on the fully masked rows."""
     from libra_tpu_torch.ops import flash_bridge as FB
     report = {}
     for use_bridge in (True, False):
@@ -370,11 +404,12 @@ def check_flash_bwd(card: str, dev) -> dict:
               f"(tol 1e-4: fp32 sums in another order) [{card}]")
         if not (m_err <= 1e-4 and l_err <= 1e-4):
             raise AssertionError("the forward kernel's softmax stats disagree")
-        want = FB.flash_bridged_attention_bwd_plain(*f32, out.float(), do.float())
+        want = FB.flash_bridged_attention_bwd_plain(*args, out, do)
         errs = [check(f"flash bwd {name} use_bridge={use_bridge}", g, w, card)
                 for name, g, w in zip(("dq", "dk", "dv", "dkb", "dvb"), grads, want)
                 if g is not None]
-        if not (bool((grads[0][6, :3] == 0).all()) and bool((grads[0][7, :5] == 0).all())):
+        if not (bool((grads[0][6, :3] == 0).all()) and bool((grads[0][7, :5] == 0).all())
+                and bool((grads[0][0, :PAD_LONG] == 0).all())):
             raise AssertionError("fully masked query rows must get dq == 0")
         ms = cuda_ms(lambda: FB.flash_bridged_attention_bwd(*args, out, do, m, l),
                      n=5, reps=3)
@@ -383,8 +418,10 @@ def check_flash_bwd(card: str, dev) -> dict:
         fwd_ms = cuda_ms(lambda: FB._launch_fwd(*args, stats=True), n=5, reps=3)
         # the products the function needs: s = QK^T, dp = dO V^T, dq = ds K,
         # dk = ds^T Q, dv = P^T dO; with the bridge also sb = QKb^T,
-        # dpb = dO Vb^T, dq += dsb Kb, dkb = dsb^T Q, dvb = (P cross)^T dO
-        ops = 2 * Bt * H * N * N * HD * (10 if use_bridge else 5)
+        # dpb = dO Vb^T, dq += dsb Kb, dkb = dsb^T Q, dvb = (P cross)^T dO;
+        # over the pairs the mask leaves
+        per_pair = 2 * H * HD * (10 if use_bridge else 5)
+        ops, dense = per_pair * needed_pairs(args[7]), per_pair * Bt * N * N
         bnd = bound(nbytes(*args, out, do, m, l, *grads), ops)
         lib = ""
         if not use_bridge:
@@ -398,10 +435,15 @@ def check_flash_bwd(card: str, dev) -> dict:
                 torch.autograd.grad(o, (qg, kg, vg), do)
             lib_fb = cuda_ms(lib_step, n=5, reps=3)
             lib_f = cuda_ms(lambda: sdpa(args[0], args[1], args[2], bias), n=5, reps=3)
-            lib = f", SDPA fwd+bwd {lib_fb:.4f} ms - fwd {lib_f:.4f} ms"
+            lib = (f", SDPA fwd+bwd {lib_fb:.4f} ms - fwd {lib_f:.4f} ms = "
+                   f"{lib_fb - lib_f:.4f} ms ({dense / (lib_fb - lib_f) / 1e9:.1f} "
+                   f"TFLOP/s)")
+        fwd_ops = ops * (4 if use_bridge else 2) // (10 if use_bridge else 5)
         print(f"flash bwd use_bridge={use_bridge} B={Bt} N={N}: kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, forward kernel {fwd_ms:.4f} ms, "
-              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}){lib} [{card}]")
+              f"ms ({rate_line(ops, dense, ms, bnd)}), plain {plain_ms:.4f} ms, "
+              f"forward kernel {fwd_ms:.4f} ms ({fwd_ops / fwd_ms / 1e9:.1f} TFLOP/s "
+              f"needed), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; dense "
+              f"products {dense / PEAK['bf16'] * 1e3:.4f} ms){lib} [{card}]")
         report[use_bridge] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                                   library_ms=None, **bnd)
         del args, do, out, grads, want, f32

@@ -5,50 +5,69 @@
 //
 //   s[k]  = (q . K[k]) * scale + cross[q,k] * (q . Kb[k]) * scale + bias[b,0,q,k]
 //   s[k]  = max(s[k], BIG_NEG)                      BIG_NEG = -2^30
-//   out   = sum_k exp(s[k] - m) (V[k] + cross[q,k] Vb[k]) / sum_k exp(s[k] - m)
+//   p[k]  = exp(s[k] - m),  m = max_k s[k]
+//   out   = (sum_k bf16(p[k]) V[k] + sum_k bf16(p[k] cross[q,k]) Vb[k]) / sum_k p[k]
 //
-// with cross[q,k] = flag_q[b,q] != flag_kv[b,k]. Because cross is one scalar
-// per (q, k) pair, one accumulator carries both value terms.
+// with cross[q,k] = flag_q[b,q] != flag_kv[b,k]. Like the TPU kernel, the
+// probabilities are rounded to bf16 for the value products and the
+// denominator sums them in fp32.
 //
 // What bounds it on this card: at the prompt shape (B=4, H=32, Nq=610,
-// Nk=738, d=128) the kernel does about 2*B*H*Nq*Nk*d*3 = 44 GFLOP and reads
-// q/k/v/kb/vb plus the fp32 bias plane (B*Nq*Nk*4 = 7 MB), so arithmetic,
-// not memory, is the limit. This first version does that arithmetic as fp32
-// FMAs out of shared memory, with no tensor cores; shared-memory load
-// bandwidth (about one load per two FMAs in the inner loops) bounds it.
+// Nk=738, d=128) the four products take 2*B*H*Nq*Nk*d*4 = 59 GFLOP if every
+// (query, key) pair is computed (0.06 ms at the 989 TFLOP/s bf16 peak), but
+// the causal mask and the unwritten cache tail leave only ~41% of the pairs
+// live, so the 0.14 GB of operands, bias plane and output (0.043 ms at 3.35
+// TB/s) bound it. This kernel computes the live tiles on the tensor cores;
+// what holds it back is latency: at 213 registers a thread two blocks (8
+// warps) fit an SM, and each warp's 16 rows feed only 2 products per
+// ldmatrix, so the per-tile barrier, the bias loads from L2 and the mma
+// chains are not hidden.
 //
-// Design:
-//   * one block per (q-tile of 64 rows, head, batch); 256 threads, each
-//     owning 2 query rows x 4 keys of a score tile and 2 rows x d/8 output
-//     columns, so a row's softmax state lives in the 8 lanes that own it;
-//   * keys stream through shared memory in tiles of 32 with an online
-//     softmax (fp32 running max, running sum and accumulator), so K/V of any
-//     length fit (the TPU kernel held all of a head's K/V in VMEM);
-//   * cross is built in the kernel from the two flag vectors; operands are
-//     read in their (B, N, H, d) layout through strides (no head-major
-//     transposes, no dense cross plane);
-//   * the ragged query tail and key tail are masked in the kernel;
-//   * masked scores are clamped to BIG_NEG, never -inf, and the running max
-//     starts at BIG_NEG, so a fully masked query row is the uniform average
-//     of V that the reference gives; keys past Nk get probability 0.
-//   * padded shared-memory rows (d+1, 32+1 floats) keep the inner loops free
-//     of bank conflicts; P * cross is formed from the flags as it is read,
-//     not stored, so two blocks fit on an SM at d = 128 with the bridge.
+// Design (FlashAttention-2's forward with the bridge):
+//   * one block per (64 query rows, head, batch), 4 warps of 16 rows; each
+//     warp keeps its rows' Q fragments, fp32 output accumulator (16 x 128)
+//     and online-softmax state in registers;
+//   * keys stream in tiles of 32 through a 2-stage cp.async ring holding
+//     K, V (and Kb, Vb) in swizzled shared memory (flash_mma.cuh), the next
+//     tile's copies in flight while the current one is computed;
+//   * per tile, S = Q K^T and Sb = Q Kb^T on the tensor cores (mma.sync
+//     m16n8k16 bf16, fp32 sums), s = scale S + cross scale Sb + bias clamped to
+//     BIG_NEG in fp32, the online max and sum in fp32, then P and P * cross
+//     packed to bf16 in registers as the A operand of O += P V + (P cross) Vb;
+//   * operands are read in their (B, N, H, d) layout through strides (the
+//     wrapper checks 16-byte aligned rows); the bias plane (rows of Nk fp32,
+//     not 16-byte aligned in general) is read with 4-byte loads straight
+//     into the accumulator layout; cross comes from the two flag vectors;
+//   * exact skipping: a warp skips a key tile when every bias entry of its
+//     16 rows there is <= BIG_NEG / 2 and every row already has a running
+//     max >= BIG_NEG / 4, so that every skipped probability is exactly 0 in
+//     fp32 (SKIP_BIAS, SKIP_MAX in flash_mma.cuh). A row with no live key yet never
+//     skips: its masked terms are either wiped exactly later (alpha = 0) or
+//     make up its uniform average if the row stays fully masked. This drops
+//     the causal upper triangle and the unwritten cache tail;
+//   * keys past Nk get probability 0; masked scores are clamped to BIG_NEG,
+//     never -inf, and the running max starts at BIG_NEG, so a fully masked
+//     row is the uniform average of V (+ Vb) that the reference gives.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 32;         // keys per shared-memory tile
-constexpr int THREADS = 256;   // 32 row groups x 8 lanes
-constexpr float BIG_NEG = -1073741824.0f;
+using namespace fmma;
+using T = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int D = 128;              // head dim (libra-11b's)
+constexpr int BQ = 64;              // query rows per block
+constexpr int BK = 32;              // keys per tile
+constexpr int WARPS = BQ / 16;
+constexpr int THREADS = 32 * WARPS;
+constexpr int QTILE = BQ * D * 2;   // bytes of the Q tile
+constexpr int KTILE = BK * D * 2;   // bytes of one operand's key tile
 
 // Element strides of a (B, N, H, d) operand; d has unit stride.
 struct Strides {
@@ -73,157 +92,176 @@ struct Args {
   float scale;
 };
 
-template <int D, bool BRIDGE>
-constexpr int smem_floats() {
-  return BQ * (D + 1)                       // Q tile
-         + BK * (D + 1) * (BRIDGE ? 2 : 1)  // K (+ Kb) tiles
-         + BK * D * (BRIDGE ? 2 : 1)        // V (+ Vb) tiles
-         + BQ * (BK + 1);                   // P tile
+template <bool BRIDGE>
+constexpr int smem_bytes() {
+  return QTILE + 2 * (BRIDGE ? 4 : 2) * KTILE;
 }
 
-template <int D, bool BRIDGE>
+template <bool BRIDGE>
 __global__ void __launch_bounds__(THREADS)
 flash_bridge_fwd_kernel(const Args a) {
-  using T = __nv_bfloat16;
-  constexpr int DP = D + 1;
-  constexpr int PP = BK + 1;
-  constexpr int CPT = D / 8;   // output columns per thread: tx + 8 * c
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * DP;
-  float* KBs = Ks + BK * DP;
-  float* Vs = KBs + (BRIDGE ? BK * DP : 0);
-  float* VBs = Vs + BK * D;
-  float* Ps = VBs + (BRIDGE ? BK * D : 0);
-  __shared__ uint8_t fk[BK];
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;   // rows 2*ty, 2*ty + 1 of the tile
-  const int tx = tid & 7;    // keys tx + 8*jj of a key tile
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  constexpr int NOPS = BRIDGE ? 4 : 2;   // K, V (, Kb, Vb) in a stage
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t s_q = smem_addr(smem);
+  const uint32_t s_kv = s_q + QTILE;
 
   const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* k = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const T* v = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const T* kb = BRIDGE ? static_cast<const T*>(a.kb) + b * a.skb.b + h * a.skb.h : nullptr;
-  const T* vb = BRIDGE ? static_cast<const T*>(a.vb) + b * a.svb.b + h * a.svb.h : nullptr;
+  const T* ops[4] = {
+      static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h,
+      static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h,
+      BRIDGE ? static_cast<const T*>(a.kb) + b * a.skb.b + h * a.skb.h : nullptr,
+      BRIDGE ? static_cast<const T*>(a.vb) + b * a.svb.b + h * a.svb.h : nullptr};
+  const long long lds[4] = {a.sk.n, a.sv.n, a.skb.n, a.svb.n};
   const uint8_t* flag_kv = a.flag_kv + (long long)b * a.Nk;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D, qi = q0 + r;
-    Qs[r * DP + c] = qi < a.Nq ? to_f32(q[qi * a.sq.n + c]) : 0.f;
-  }
+  auto load_keys = [&](int stage, int k0) {
+#pragma unroll
+    for (int o = 0; o < NOPS; ++o)
+      load_tile<BK, THREADS>(s_kv + (stage * NOPS + o) * KTILE, ops[o], lds[o], k0,
+                             a.Nk, tid);
+  };
+  load_tile<BQ, THREADS>(s_q, q, a.sq.n, q0, a.Nq, tid);
+  load_keys(0, 0);
+  cp_commit();
 
+  // this thread's rows: g and g + 8 of the warp's 16
   bool rvalid[2];
   uint8_t rflag[2];
   const float* brow[2];
-  float m[2], l[2], acc[2][CPT];
+  float m[2], l[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + 2 * ty + i;
+    const int qi = q0 + 16 * warp + g + 8 * i;
     rvalid[i] = qi < a.Nq;
     rflag[i] = rvalid[i] ? a.flag_q[(long long)b * a.Nq + qi] : 0;
     brow[i] = a.bias + b * a.bias_b + (rvalid[i] ? qi : 0) * a.bias_q;
     m[i] = BIG_NEG;
     l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  uint32_t qa[D / 16][4];   // the warp's Q rows as A fragments
 
-  for (int k0 = 0; k0 < a.Nk; k0 += BK) {
-    __syncthreads();   // the previous tile is fully consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, c = i % D, kj = k0 + j;
-      const bool ok = kj < a.Nk;
-      Ks[j * DP + c] = ok ? to_f32(k[kj * a.sk.n + c]) : 0.f;
-      Vs[j * D + c] = ok ? to_f32(v[kj * a.sv.n + c]) : 0.f;
-      if (BRIDGE) {
-        KBs[j * DP + c] = ok ? to_f32(kb[kj * a.skb.n + c]) : 0.f;
-        VBs[j * D + c] = ok ? to_f32(vb[kj * a.svb.n + c]) : 0.f;
-      }
+  const int ntiles = (a.Nk + BK - 1) / BK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    cp_wait<0>();
+    __syncthreads();   // tile `it` has landed; tile it - 1 is fully consumed
+    if (it + 1 < ntiles) load_keys((it + 1) & 1, k0 + BK);
+    cp_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) load_a<16>(qa[kc], s_q, 16 * warp, kc, lane);
     }
-    if (tid < BK) fk[tid] = k0 + tid < a.Nk ? flag_kv[k0 + tid] : 0;
-    __syncthreads();
+    const uint32_t sK = s_kv + (it & 1) * NOPS * KTILE;
+    const uint32_t sV = sK + KTILE, sKb = sK + 2 * KTILE, sVb = sK + 3 * KTILE;
 
-    float s[2][4], sb[2][4];
+    // bias of (row g + 8i, key k0 + 8j + 2t + e) at [4j + 2i + e] (the C
+    // fragment's order), -inf past Nk; the warp skips the tile when it is
+    // masked for all its rows and each of them has a live key already
+    float bias[4 * (BK / 8)];
+    bool skip = true;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = sb[i][jj] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float qa = Qs[(2 * ty) * DP + c];
-      const float qb = Qs[(2 * ty + 1) * DP + c];
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1, kj = k0 + 8 * j + 2 * t + (c & 1);
+        const float bv = kj < a.Nk ? __ldg(brow[i] + kj) : -INFINITY;
+        bias[4 * j + c] = bv;
+        skip &= !rvalid[i] || (m[i] >= SKIP_MAX && bv <= SKIP_BIAS);
+      }
+    if (__all_sync(0xffffffffu, skip)) continue;
+
+    float s[BK / 8][4], sb[BK / 8][4];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float kv = Ks[(tx + 8 * jj) * DP + c];
-        s[0][jj] = fmaf(qa, kv, s[0][jj]);
-        s[1][jj] = fmaf(qb, kv, s[1][jj]);
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = sb[j][c] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bk[4];
+        load_b_nk<16>(bk, sK, 16 * np, kc, lane);
+        mma16816(s[2 * np], qa[kc], bk[0], bk[1]);
+        mma16816(s[2 * np + 1], qa[kc], bk[2], bk[3]);
         if (BRIDGE) {
-          const float kbv = KBs[(tx + 8 * jj) * DP + c];
-          sb[0][jj] = fmaf(qa, kbv, sb[0][jj]);
-          sb[1][jj] = fmaf(qb, kbv, sb[1][jj]);
+          load_b_nk<16>(bk, sKb, 16 * np, kc, lane);
+          mma16816(sb[2 * np], qa[kc], bk[0], bk[1]);
+          mma16816(sb[2 * np + 1], qa[kc], bk[2], bk[3]);
         }
       }
-    }
 
+    // scores, the online max, and the unnormalised probabilities
+    uint32_t cross = 0;   // bit 4j + c: element c of n-block j is cross-modal
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1, kj = k0 + 8 * j + 2 * t + (c & 1);
+        float x = s[j][c] * a.scale;
+        if (BRIDGE && kj < a.Nk && flag_kv[kj] != rflag[i]) {
+          x += sb[j][c] * a.scale;
+          cross |= 1u << (4 * j + c);
+        }
+        x += bias[4 * j + c];
+        x = kj < a.Nk ? fmaxf(x, BIG_NEG) : -INFINITY;
+        s[j][c] = x;
+        mt[i] = fmaxf(mt[i], x);
+      }
+    float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float mt = BIG_NEG;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = tx + 8 * jj, kj = k0 + j;
-        float x = -INFINITY;   // past the last key: probability 0
-        if (kj < a.Nk) {
-          x = s[i][jj] * a.scale;
-          if (BRIDGE && fk[j] != rflag[i]) x += sb[i][jj] * a.scale;
-          if (rvalid[i]) x += brow[i][kj];
-          x = fmaxf(x, BIG_NEG);
-        }
-        s[i][jj] = x;
-        mt = fmaxf(mt, x);
-      }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);   // both finite: never NaN
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float m_new = fmaxf(m[i], mt[i]);
+      alpha[i] = expf(m[i] - m_new);   // both finite: never NaN
       m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-      const int r = 2 * ty + i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - m_new);
-        l[i] += p;
-        Ps[r * PP + tx + 8 * jj] = p;
-      }
+      l[i] *= alpha[i];
     }
-    __syncwarp();   // a row's P entries are written and read by one warp
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float pa = Ps[(2 * ty) * PP + j];
-      const float pb = Ps[(2 * ty + 1) * PP + j];
-      // P * cross, from the flags (cross is one bit per (row, key))
-      const float pca = BRIDGE && fk[j] != rflag[0] ? pa : 0.f;
-      const float pcb = BRIDGE && fk[j] != rflag[1] ? pb : 0.f;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float vv = Vs[j * D + tx + 8 * c];
-        acc[0][c] = fmaf(pa, vv, acc[0][c]);
-        acc[1][c] = fmaf(pb, vv, acc[1][c]);
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+    float px[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[j][c] - m[c >> 1]);
+        l[c >> 1] += p;
+        s[j][c] = p;
+        px[j][c] = (cross >> (4 * j + c)) & 1u ? p : 0.f;
+      }
+
+    // O += bf16(P) V + bf16(P cross) Vb, 16 keys at a time
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t pa[4], pxa[4];
+      pack_a(pa, s[2 * kc], s[2 * kc + 1]);
+      if (BRIDGE) pack_a(pxa, px[2 * kc], px[2 * kc + 1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bv[4];
+        load_b_kn<16>(bv, sV, 16 * kc, 16 * np, lane);
+        mma16816(acc[2 * np], pa, bv[0], bv[1]);
+        mma16816(acc[2 * np + 1], pa, bv[2], bv[3]);
         if (BRIDGE) {
-          const float vbv = VBs[j * D + tx + 8 * c];
-          acc[0][c] = fmaf(pca, vbv, acc[0][c]);
-          acc[1][c] = fmaf(pcb, vbv, acc[1][c]);
+          load_b_kn<16>(bv, sVb, 16 * kc, 16 * np, lane);
+          mma16816(acc[2 * np], pxa, bv[0], bv[1]);
+          mma16816(acc[2 * np + 1], pxa, bv[2], bv[3]);
         }
       }
     }
   }
+  cp_wait<0>();
 
   T* out = static_cast<T*>(a.out);
 #pragma unroll
@@ -231,10 +269,9 @@ flash_bridge_fwd_kernel(const Args a) {
     float lt = l[i];   // this lane's share of the row sum
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     if (!rvalid[i]) continue;
-    const int qi = q0 + 2 * ty + i;
-    if (a.row_max != nullptr && tx == 0) {   // the backward's softmax stats
+    const int qi = q0 + 16 * warp + g + 8 * i;
+    if (a.row_max != nullptr && t == 0) {   // the backward's softmax stats
       const long long st = ((long long)b * a.H + h) * a.Nq + qi;
       a.row_max[st] = m[i];
       a.row_sum[st] = lt;
@@ -242,17 +279,18 @@ flash_bridge_fwd_kernel(const Args a) {
     T* orow = out + (((long long)b * a.Nq + qi) * a.H + h) * D;
     const float inv = 1.f / lt;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(orow + tx + 8 * c, acc[i][c] * inv);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
   }
 }
 
 template <bool BRIDGE>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int D = 128;
-  const size_t smem = smem_floats<D, BRIDGE>() * sizeof(float);
-  auto kernel = flash_bridge_fwd_kernel<D, BRIDGE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int smem = smem_bytes<BRIDGE>();
+  auto kernel = flash_bridge_fwd_kernel<BRIDGE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Nq + BQ - 1) / BQ, a.H, B);
   kernel<<<grid, THREADS, smem, stream>>>(a);
@@ -261,8 +299,9 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// Operands are bfloat16 with head dim 128 (libra-11b's); the wrapper
-// checks both. kb/vb are null without the bridge. row_max/row_sum are
+// Operands are bfloat16 with head dim 128 (libra-11b's), 16-byte aligned
+// with b/n/h strides that are multiples of 8 elements; the wrapper checks
+// all three. kb/vb are null without the bridge. row_max/row_sum are
 // null for inference; training passes fp32 (B, H, Nq) buffers that get each
 // row's final max and softmax denominator, which the backward
 // (flash_bridge_bwd.cu) reads instead of recomputing them.

@@ -13,54 +13,79 @@
 //   dKb = scale * sum_q ds cross Q              dV  = sum_q p dO
 //   dVb = sum_q p cross dO
 //
-// A fully masked row (m == BIG_NEG: every score clamped) gets ds = 0, so its
-// dq is exactly zero, while its uniform probabilities still feed dV and dVb,
-// as in the TPU kernel (flash_bridge.py:218-226). No bias cotangent: the
-// bias is mask-derived everywhere, and its gradient is zero by contract.
+// with p, p cross, ds and ds cross rounded to bf16 before the gradient
+// products, as the TPU kernel does (flash_bridge.py:228-233). A fully
+// masked row (m == BIG_NEG: every score clamped) gets ds = 0, so its dq is
+// exactly zero, while its uniform probabilities still feed dV and dVb, as
+// in the TPU kernel (flash_bridge.py:218-226). No bias cotangent: the bias
+// is mask-derived everywhere, and its gradient is zero by contract.
 //
 // What bounds it on this card: at the training shape (B=8, H=32,
-// Nq=Nk=698, d=128, bridge) the work is about 2*B*H*Nq*Nk*d*11 = 256 GFLOP
-// (the TPU kernel's cost estimate; this kernel recomputes the four score
-// products in both passes, 14 products in all) against ~0.2 GB of operands
-// and a 62 MB fp32 bias plane, so arithmetic bounds it. This first version
-// does that arithmetic as fp32 FMAs out of shared memory, with no tensor
-// cores, like the forward.
+// Nq=Nk=698, d=128, bridge) the function needs 10 products, 2*B*H*Nq*Nk*d*10
+// = 319 GFLOP over every pair (0.32 ms at 989 TFLOP/s), about half of them
+// on live pairs under the causal mask; the 0.57 GB it must move (operands,
+// the 62 MB fp32 bias plane, the gradients) takes about as long (0.17 ms at
+// 3.35 TB/s). This kernel recomputes the four score products in both the dq and
+// the dk/dv pass, 14 products in all, and skips the (query, key) tiles
+// whose terms are all exactly zero (below). Its dk/dv kernel holds 255
+// registers a thread (128 of them accumulators), one block of 8 warps an
+// SM, so latency, not the tensor cores' rate, sets its time.
 //
-// Design: the TPU kernel accumulated dK/dV across query blocks in an
-// output block that its sequential grid revisited. GPU blocks run in no
-// order, so the backward is three launches, none with atomics, each
-// deterministic:
+// Design: the TPU kernel accumulated dK/dV across query blocks in an output
+// block that its sequential grid revisited. GPU blocks run in no order, so
+// the backward is three launches, none with atomics, each deterministic:
 //   1. a row pass: delta = rowsum(dO * O) in fp32, one warp a row;
-//   2. dq, query-tile-major: one block per (64 query rows, head, batch)
-//      streams key tiles of 32, recomputes p from the saved m and l (no
-//      second softmax pass), and keeps its rows' dq in registers;
-//   3. dk/dv/dkb/dvb, key-tile-major: one block per (32 keys, head, batch)
-//      streams query tiles of 32 and keeps its keys' four gradients in
-//      registers (64 fp32 a thread).
-// cross comes from the two flag vectors, bias is read through its strides,
-// ragged query and key tails are masked in the kernels (no padding of Nq
-// to a multiple of 128), and every sum is fp32; dq is written in q's dtype,
-// the key-side gradients in k's (bfloat16).
+//   2. dq, query-tile-major: one block per (64 query rows, head, batch),
+//      4 warps of 16 rows, streams key tiles of 32 (K, V, Kb, Vb) through a
+//      2-stage cp.async ring. Per tile each warp does S = Q K^T, Sb = Q Kb^T,
+//      dP = dO V^T and dPb = dO Vb^T on the tensor cores (mma.sync
+//      m16n8k16 bf16, fp32 sums; Q and dO fragments by ldmatrix), forms p
+//      from the saved m and l and ds in fp32, packs ds and ds cross to bf16
+//      in registers and accumulates dq += ds K + (ds cross) Kb in fp32
+//      registers (K, Kb as the B operand through ldmatrix.trans);
+//   3. dk/dv/dkb/dvb, key-tile-major: one block per (64 keys, head, batch),
+//      8 warps, streams query tiles of 64 (Q, dO) through a 2-stage ring.
+//      The four fp32 (64 x 128) accumulators are 256 registers a thread for
+//      16 keys a warp, over the limit, so each pair of warps shares 16 keys
+//      and splits the 128 gradient columns in halves (128 accumulator
+//      registers a thread). The pair first splits the query tile to compute
+//      the transposed score tiles once (S^T = K Q^T and the other three, so
+//      that keys are the rows), and stages bf16 P^T, (P cross)^T, dS^T and
+//      (dS cross)^T in shared memory (32 KB); then each warp accumulates
+//      dV += P^T dO, dVb += (P cross)^T dO, dK += dS^T Q, dKb += (dS cross)^T Q
+//      over the whole tile for its half of the columns.
+// Exact skipping (SKIP_BIAS, SKIP_MAX in flash_mma.cuh): a (16 rows, tile)
+// piece is skipped where every bias entry is <= BIG_NEG / 2 and every query
+// row's final max is >= BIG_NEG / 4, so that p and ds are exactly 0 there.
+// In the dq pass a fully masked row (ds = 0) never blocks a skip; in the
+// dk/dv pass it always does (its p = 1/l feeds dV). Operands are read in
+// their (B, N, H, d) layout through strides (16-byte aligned, checked by the
+// wrapper), the bias with 4-byte loads; ragged query and key tails are
+// zero-filled by the copies and masked in the kernels; dq is written in q's
+// dtype, the key-side gradients in k's (bfloat16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
-constexpr int D = 128;          // head dim (libra-11b's)
-constexpr int DP = D + 1;       // padded shared-memory row
-constexpr int CPT = D / 8;      // columns a thread owns: tx + 8 * c
-constexpr int THREADS = 256;
-constexpr int BQ = 64;          // dq pass: query rows per block
-constexpr int BK = 32;          // dq pass: keys per tile; dkv pass: keys per block
-constexpr int BQ2 = 32;         // dkv pass: query rows per tile
-constexpr float BIG_NEG = -1073741824.0f;
-
+using namespace fmma;
 using T = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(T x) { return __bfloat162float(x); }
+constexpr int D = 128;            // head dim (libra-11b's)
+constexpr int ROW = D * 2;        // bytes of an operand row
+constexpr int DELTA_THREADS = 256;
+constexpr int BQ = 64;            // dq pass: query rows per block
+constexpr int BK = 32;            // dq pass: keys per tile
+constexpr int DQ_THREADS = 32 * (BQ / 16);
+constexpr int BKV = 64;           // dk/dv pass: keys per block
+constexpr int BQ2 = 64;           // dk/dv pass: query rows per tile
+constexpr int DKV_THREADS = 32 * 2 * (BKV / 16);
+constexpr int PTILE = BKV * BQ2 * 2;   // bytes of one staged bf16 (keys, queries) tile
 
 // Element strides of a (B, N, H, d) operand; d has unit stride.
 struct Strides {
@@ -86,9 +111,13 @@ __device__ __forceinline__ const T* head(const void* base, const Strides& s, int
   return static_cast<const T*>(base) + b * s.b + h * s.h;
 }
 
+__device__ __forceinline__ void store2(T* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
 // 1. delta[b, h, q] = sum_c dO[b, q, h, c] * O[b, q, h, c]; one warp a row.
-__global__ void __launch_bounds__(THREADS) delta_kernel(const Args a) {
-  const long long row = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+__global__ void __launch_bounds__(DELTA_THREADS) delta_kernel(const Args a) {
+  const long long row = (long long)blockIdx.x * (DELTA_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (long long)a.B * a.Nq * a.H) return;   // whole warps leave together
   const int h = (int)(row % a.H);
@@ -98,63 +127,53 @@ __global__ void __launch_bounds__(THREADS) delta_kernel(const Args a) {
   const T* d = head(a.dout, a.sdo, b, h) + qi * a.sdo.n;
   float s = 0.f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) s = fmaf(to_f32(d[c]), to_f32(o[c]), s);
+  for (int c = lane; c < D; c += 32) s = fmaf(__bfloat162float(d[c]), __bfloat162float(o[c]), s);
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) a.delta[((long long)b * a.H + h) * a.Nq + qi] = s;
 }
 
 template <bool BRIDGE>
-constexpr int dq_smem_floats() {
-  return 2 * BQ * DP                        // Q, dO tiles
-         + BK * DP * (BRIDGE ? 4 : 2)       // K, V (+ Kb, Vb) tiles
-         + BQ * (BK + 1);                   // dS tile
+constexpr int dq_smem_bytes() {
+  return 2 * BQ * ROW + 2 * (BRIDGE ? 4 : 2) * BK * ROW;
 }
 
-// 2. dq: 256 threads, thread (ty, tx) owns rows 2ty, 2ty+1 of the block, keys
-//    tx + 8*jj of each key tile, and columns tx + 8*c of its rows' dq.
+// 2. dq. Warp w owns query rows 16w..16w+15 of the block; lane (g, t) holds
+//    rows g, g + 8 and, of each 8-key n-block j, keys 8j + 2t, 8j + 2t + 1.
 template <bool BRIDGE>
-__global__ void __launch_bounds__(THREADS) dq_kernel(const Args a) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* DOs = Qs + BQ * DP;
-  float* Ks = DOs + BQ * DP;
-  float* Vs = Ks + BK * DP;
-  float* KBs = Vs + BK * DP;
-  float* VBs = KBs + (BRIDGE ? BK * DP : 0);
-  float* DSs = VBs + (BRIDGE ? BK * DP : 0);
-  constexpr int SP = BK + 1;
-  __shared__ uint8_t fk[BK];
+__global__ void __launch_bounds__(DQ_THREADS) dq_kernel(const Args a) {
+  constexpr int NOPS = BRIDGE ? 4 : 2;   // K, V (, Kb, Vb) in a stage
+  constexpr int KT = BK * ROW;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t sQ = smem_addr(smem), sDO = sQ + BQ * ROW, s_kv = sDO + BQ * ROW;
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const T* q = head(a.q, a.sq, b, h);
-  const T* dout = head(a.dout, a.sdo, b, h);
-  const T* k = head(a.k, a.sk, b, h);
-  const T* v = head(a.v, a.sv, b, h);
-  const T* kb = BRIDGE ? head(a.kb, a.skb, b, h) : nullptr;
-  const T* vb = BRIDGE ? head(a.vb, a.svb, b, h) : nullptr;
+  const T* ops[4] = {head(a.k, a.sk, b, h), head(a.v, a.sv, b, h),
+                     BRIDGE ? head(a.kb, a.skb, b, h) : nullptr,
+                     BRIDGE ? head(a.vb, a.svb, b, h) : nullptr};
+  const long long lds[4] = {a.sk.n, a.sv.n, a.skb.n, a.svb.n};
   const uint8_t* flag_kv = a.flag_kv + (long long)b * a.Nk;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D, qi = q0 + r;
-    const bool ok = qi < a.Nq;
-    Qs[r * DP + c] = ok ? to_f32(q[qi * a.sq.n + c]) : 0.f;
-    DOs[r * DP + c] = ok ? to_f32(dout[qi * a.sdo.n + c]) : 0.f;
-  }
+  auto load_keys = [&](int stage, int k0) {
+#pragma unroll
+    for (int o = 0; o < NOPS; ++o)
+      load_tile<BK, DQ_THREADS>(s_kv + (stage * NOPS + o) * KT, ops[o], lds[o], k0, a.Nk,
+                                tid);
+  };
+  load_tile<BQ, DQ_THREADS>(sQ, head(a.q, a.sq, b, h), a.sq.n, q0, a.Nq, tid);
+  load_tile<BQ, DQ_THREADS>(sDO, head(a.dout, a.sdo, b, h), a.sdo.n, q0, a.Nq, tid);
+  load_keys(0, 0);
+  cp_commit();
 
-  bool live[2], rvalid[2];
+  bool rvalid[2], live[2];
   uint8_t rflag[2];
   const float* brow[2];
-  float m[2], l[2], dl[2], acc[2][CPT];
+  float m[2], l[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + 2 * ty + i;
+    const int qi = q0 + 16 * warp + g + 8 * i;
     rvalid[i] = qi < a.Nq;
     const long long st = ((long long)b * a.H + h) * a.Nq + (rvalid[i] ? qi : 0);
     m[i] = a.row_max[st];
@@ -163,293 +182,375 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Args a) {
     live[i] = rvalid[i] && m[i] > BIG_NEG;   // a fully masked row: ds = 0
     rflag[i] = rvalid[i] ? a.flag_q[(long long)b * a.Nq + qi] : 0;
     brow[i] = a.bias + b * a.bias_b + (rvalid[i] ? qi : 0) * a.bias_q;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
-  for (int k0 = 0; k0 < a.Nk; k0 += BK) {
-    __syncthreads();   // the previous tile is fully consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, c = i % D, kj = k0 + j;
-      const bool ok = kj < a.Nk;
-      Ks[j * DP + c] = ok ? to_f32(k[kj * a.sk.n + c]) : 0.f;
-      Vs[j * DP + c] = ok ? to_f32(v[kj * a.sv.n + c]) : 0.f;
-      if (BRIDGE) {
-        KBs[j * DP + c] = ok ? to_f32(kb[kj * a.skb.n + c]) : 0.f;
-        VBs[j * DP + c] = ok ? to_f32(vb[kj * a.svb.n + c]) : 0.f;
+  const int ntiles = (a.Nk + BK - 1) / BK;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK;
+    cp_wait<0>();
+    __syncthreads();   // tile `it` has landed; tile it - 1 is fully consumed
+    if (it + 1 < ntiles) load_keys((it + 1) & 1, k0 + BK);
+    cp_commit();
+    const uint32_t sK = s_kv + (it & 1) * NOPS * KT;
+    const uint32_t sV = sK + KT, sKb = sK + 2 * KT, sVb = sK + 3 * KT;
+
+    // bias of (row g + 8i, key k0 + 8j + 2t + e) at [4j + 2i + e]; the warp
+    // skips the tile when every ds of its rows there is exactly 0
+    float bias[4 * (BK / 8)];
+    bool skip = true;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1, kj = k0 + 8 * j + 2 * t + (c & 1);
+        const float bv = kj < a.Nk ? __ldg(brow[i] + kj) : -INFINITY;
+        bias[4 * j + c] = bv;
+        skip &= !live[i] || (m[i] >= SKIP_MAX && bv <= SKIP_BIAS);
       }
-    }
-    if (tid < BK) fk[tid] = k0 + tid < a.Nk ? flag_kv[k0 + tid] : 0;
-    __syncthreads();
+    if (__all_sync(0xffffffffu, skip)) continue;
 
-    // scores s = q.k, sb = q.kb and dp = dO.v, dpb = dO.vb for 2 rows x 4 keys
-    float s[2][4], sb[2][4], dp[2][4], dpb[2][4];
+    float s[BK / 8][4], sb[BK / 8][4], dp[BK / 8][4], dpb[BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = sb[i][jj] = dp[i][jj] = dpb[i][jj] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float qa = Qs[(2 * ty) * DP + c], qb = Qs[(2 * ty + 1) * DP + c];
-      const float da = DOs[(2 * ty) * DP + c], db = DOs[(2 * ty + 1) * DP + c];
+      for (int c = 0; c < 4; ++c) s[j][c] = sb[j][c] = dp[j][c] = dpb[j][c] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = tx + 8 * jj;
-        const float kv = Ks[j * DP + c], vv = Vs[j * DP + c];
-        s[0][jj] = fmaf(qa, kv, s[0][jj]);
-        s[1][jj] = fmaf(qb, kv, s[1][jj]);
-        dp[0][jj] = fmaf(da, vv, dp[0][jj]);
-        dp[1][jj] = fmaf(db, vv, dp[1][jj]);
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t aq[4], ado[4];
+      load_a<16>(aq, sQ, 16 * warp, kc, lane);
+      load_a<16>(ado, sDO, 16 * warp, kc, lane);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bm[4];
+        load_b_nk<16>(bm, sK, 16 * np, kc, lane);
+        mma16816(s[2 * np], aq, bm[0], bm[1]);
+        mma16816(s[2 * np + 1], aq, bm[2], bm[3]);
+        load_b_nk<16>(bm, sV, 16 * np, kc, lane);
+        mma16816(dp[2 * np], ado, bm[0], bm[1]);
+        mma16816(dp[2 * np + 1], ado, bm[2], bm[3]);
         if (BRIDGE) {
-          const float kbv = KBs[j * DP + c], vbv = VBs[j * DP + c];
-          sb[0][jj] = fmaf(qa, kbv, sb[0][jj]);
-          sb[1][jj] = fmaf(qb, kbv, sb[1][jj]);
-          dpb[0][jj] = fmaf(da, vbv, dpb[0][jj]);
-          dpb[1][jj] = fmaf(db, vbv, dpb[1][jj]);
+          load_b_nk<16>(bm, sKb, 16 * np, kc, lane);
+          mma16816(sb[2 * np], aq, bm[0], bm[1]);
+          mma16816(sb[2 * np + 1], aq, bm[2], bm[3]);
+          load_b_nk<16>(bm, sVb, 16 * np, kc, lane);
+          mma16816(dpb[2 * np], ado, bm[0], bm[1]);
+          mma16816(dpb[2 * np + 1], ado, bm[2], bm[3]);
         }
       }
     }
 
+    // ds (in s) and ds cross (in sb), fp32
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = tx + 8 * jj, kj = k0 + j;
+      for (int c = 0; c < 4; ++c) {
+        const int i = c >> 1, kj = k0 + 8 * j + 2 * t + (c & 1);
+        const bool cx = BRIDGE && kj < a.Nk && flag_kv[kj] != rflag[i];
         float ds = 0.f;
         if (live[i] && kj < a.Nk) {
-          const bool cross = BRIDGE && fk[j] != rflag[i];
-          float x = s[i][jj] * a.scale;
-          if (cross) x += sb[i][jj] * a.scale;
-          x = fmaxf(x + brow[i][kj], BIG_NEG);
+          float x = s[j][c] * a.scale;
+          if (cx) x += sb[j][c] * a.scale;
+          x = fmaxf(x + bias[4 * j + c], BIG_NEG);
           const float p = expf(x - m[i]) / l[i];
-          const float dpt = cross ? dp[i][jj] + dpb[i][jj] : dp[i][jj];
+          const float dpt = cx ? dp[j][c] + dpb[j][c] : dp[j][c];
           ds = p * (dpt - dl[i]);
         }
-        DSs[(2 * ty + i) * SP + j] = ds;
+        s[j][c] = ds;
+        sb[j][c] = cx ? ds : 0.f;
       }
-    }
-    __syncwarp();   // a row's dS entries are written and read by one warp
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float dsa = DSs[(2 * ty) * SP + j];
-      const float dsb = DSs[(2 * ty + 1) * SP + j];
-      const float dsxa = BRIDGE && fk[j] != rflag[0] ? dsa : 0.f;
-      const float dsxb = BRIDGE && fk[j] != rflag[1] ? dsb : 0.f;
+    // dq += bf16(ds) K + bf16(ds cross) Kb, 16 keys at a time
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float kv = Ks[j * DP + tx + 8 * c];
-        acc[0][c] = fmaf(dsa, kv, acc[0][c]);
-        acc[1][c] = fmaf(dsb, kv, acc[1][c]);
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t da[4], dxa[4];
+      pack_a(da, s[2 * kc], s[2 * kc + 1]);
+      if (BRIDGE) pack_a(dxa, sb[2 * kc], sb[2 * kc + 1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bm[4];
+        load_b_kn<16>(bm, sK, 16 * kc, 16 * np, lane);
+        mma16816(acc[2 * np], da, bm[0], bm[1]);
+        mma16816(acc[2 * np + 1], da, bm[2], bm[3]);
         if (BRIDGE) {
-          const float kbv = KBs[j * DP + tx + 8 * c];
-          acc[0][c] = fmaf(dsxa, kbv, acc[0][c]);
-          acc[1][c] = fmaf(dsxb, kbv, acc[1][c]);
+          load_b_kn<16>(bm, sKb, 16 * kc, 16 * np, lane);
+          mma16816(acc[2 * np], dxa, bm[0], bm[1]);
+          mma16816(acc[2 * np + 1], dxa, bm[2], bm[3]);
         }
       }
     }
   }
+  cp_wait<0>();
 
   T* dq = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!rvalid[i]) continue;
-    const int qi = q0 + 2 * ty + i;
+    const int qi = q0 + 16 * warp + g + 8 * i;
     T* row = dq + (((long long)b * a.Nq + qi) * a.H + h) * D;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[tx + 8 * c] = __float2bfloat16(acc[i][c] * a.scale);
+    for (int n = 0; n < D / 8; ++n)
+      store2(row + 8 * n + 2 * t, acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
   }
 }
 
 template <bool BRIDGE>
-constexpr int dkv_smem_floats() {
-  return BK * DP * (BRIDGE ? 4 : 2)         // K, V (+ Kb, Vb) of the block's keys
-         + 2 * BQ2 * DP                     // Q, dO tiles
-         + 2 * BQ2 * (BK + 1);              // P, dS tiles
+constexpr int dkv_smem_bytes() {
+  return (BRIDGE ? 4 : 2) * BKV * ROW     // K, V (+ Kb, Vb) of the block's keys
+         + 2 * 2 * BQ2 * ROW              // Q, dO tiles, two stages
+         + (BRIDGE ? 4 : 2) * PTILE;      // staged P^T, dS^T (+ the cross ones)
 }
 
-// 3. dk/dv/dkb/dvb. Score phase: thread (w = tid / 32, lane) takes key `lane`
-//    and query rows w + 8*i of the tile. Sum phase: thread (kr = tid / 8, tx)
-//    owns key kr and columns tx + 8*c of its four gradients.
+// 3. dk/dv/dkb/dvb. Warp w = 2 kg + hf owns keys 16 kg..16 kg + 15 of the
+//    block. Score phase: it computes those keys against queries
+//    32 hf..32 hf + 31 of the tile, 16 at a time (lane (g, t) holds keys g,
+//    g + 8 and queries 8j + 2t, 8j + 2t + 1); sum phase: it accumulates
+//    gradient columns 64 hf..64 hf + 63 over all 64 queries of the tile.
 template <bool BRIDGE>
-__global__ void __launch_bounds__(THREADS) dkv_kernel(const Args a) {
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * DP;
-  float* KBs = Vs + BK * DP;
-  float* VBs = KBs + (BRIDGE ? BK * DP : 0);
-  float* Qs = VBs + (BRIDGE ? BK * DP : 0);
-  float* DOs = Qs + BQ2 * DP;
-  float* Ps = DOs + BQ2 * DP;
-  float* DSs = Ps + BQ2 * (BK + 1);
-  constexpr int SP = BK + 1;
-  __shared__ uint8_t fk[BK], fq[BQ2];
-  __shared__ float mrow[BQ2], lrow[BQ2], drow[BQ2];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, w = tid >> 5;     // score phase
-  const int kr = tid >> 3, tx = tid & 7;       // sum phase
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+__global__ void __launch_bounds__(DKV_THREADS, 1) dkv_kernel(const Args a) {
+  constexpr int NOPS = BRIDGE ? 4 : 2;
+  constexpr int KT = BKV * ROW;
+  constexpr int QT = BQ2 * ROW;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int skipped[BKV / 16][BQ2 / 16];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp >> 1, hf = warp & 1;
+  const int k0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z;
+  const uint32_t sK = smem_addr(smem), sV = sK + KT, sKb = sK + 2 * KT, sVb = sK + 3 * KT;
+  const uint32_t s_qdo = sK + NOPS * KT;   // stage s: Q at + 2 s QT, dO at + (2 s + 1) QT
+  const uint32_t sP = s_qdo + 4 * QT, sDS = sP + PTILE, sPX = sP + 2 * PTILE,
+                 sDSX = sP + 3 * PTILE;
+  uint8_t* const gP = smem + (sP - sK);   // the same tiles through generic pointers
 
   const T* q = head(a.q, a.sq, b, h);
   const T* dout = head(a.dout, a.sdo, b, h);
-  const T* k = head(a.k, a.sk, b, h);
-  const T* v = head(a.v, a.sv, b, h);
-  const T* kb = BRIDGE ? head(a.kb, a.skb, b, h) : nullptr;
-  const T* vb = BRIDGE ? head(a.vb, a.svb, b, h) : nullptr;
   const uint8_t* flag_q = a.flag_q + (long long)b * a.Nq;
   const float* bias = a.bias + b * a.bias_b;
   const long long st0 = ((long long)b * a.H + h) * a.Nq;
 
-  for (int i = tid; i < BK * D; i += THREADS) {
-    const int j = i / D, c = i % D, kj = k0 + j;
-    const bool ok = kj < a.Nk;
-    Ks[j * DP + c] = ok ? to_f32(k[kj * a.sk.n + c]) : 0.f;
-    Vs[j * DP + c] = ok ? to_f32(v[kj * a.sv.n + c]) : 0.f;
-    if (BRIDGE) {
-      KBs[j * DP + c] = ok ? to_f32(kb[kj * a.skb.n + c]) : 0.f;
-      VBs[j * DP + c] = ok ? to_f32(vb[kj * a.svb.n + c]) : 0.f;
-    }
-  }
-  if (tid < BK) fk[tid] = k0 + tid < a.Nk ? a.flag_kv[(long long)b * a.Nk + k0 + tid] : 0;
-
-  const int kj = k0 + lane;        // this thread's key in the score phase
-  const bool kvalid = kj < a.Nk;
-  float dk[CPT], dv[CPT], dkb[CPT], dvb[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) dk[c] = dv[c] = dkb[c] = dvb[c] = 0.f;
-
-  for (int q0 = 0; q0 < a.Nq; q0 += BQ2) {
-    __syncthreads();   // the previous query tile is fully consumed
-    for (int i = tid; i < BQ2 * D; i += THREADS) {
-      const int r = i / D, c = i % D, qi = q0 + r;
-      const bool ok = qi < a.Nq;
-      Qs[r * DP + c] = ok ? to_f32(q[qi * a.sq.n + c]) : 0.f;
-      DOs[r * DP + c] = ok ? to_f32(dout[qi * a.sdo.n + c]) : 0.f;
-    }
-    if (tid < BQ2) {
-      const int qi = q0 + tid;
-      const bool ok = qi < a.Nq;
-      fq[tid] = ok ? flag_q[qi] : 0;
-      mrow[tid] = ok ? a.row_max[st0 + qi] : 0.f;
-      lrow[tid] = ok ? a.row_sum[st0 + qi] : 1.f;
-      drow[tid] = ok ? a.delta[st0 + qi] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4], sb[4], dp[4], dpb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i] = sb[i] = dp[i] = dpb[i] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float kv = Ks[lane * DP + c], vv = Vs[lane * DP + c];
-      const float kbv = BRIDGE ? KBs[lane * DP + c] : 0.f;
-      const float vbv = BRIDGE ? VBs[lane * DP + c] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = w + 8 * i;
-        const float qa = Qs[r * DP + c], da = DOs[r * DP + c];
-        s[i] = fmaf(qa, kv, s[i]);
-        dp[i] = fmaf(da, vv, dp[i]);
-        if (BRIDGE) {
-          sb[i] = fmaf(qa, kbv, sb[i]);
-          dpb[i] = fmaf(da, vbv, dpb[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = w + 8 * i, qi = q0 + r;
-      float p = 0.f, ds = 0.f;
-      if (kvalid && qi < a.Nq) {
-        const bool cross = BRIDGE && fk[lane] != fq[r];
-        float x = s[i] * a.scale;
-        if (cross) x += sb[i] * a.scale;
-        x = fmaxf(x + bias[qi * a.bias_q + kj], BIG_NEG);
-        p = expf(x - mrow[r]) / lrow[r];
-        if (mrow[r] > BIG_NEG) {   // a fully masked row feeds dV, not dK
-          const float dpt = cross ? dp[i] + dpb[i] : dp[i];
-          ds = p * (dpt - drow[r]);
-        }
-      }
-      Ps[r * SP + lane] = p;
-      DSs[r * SP + lane] = ds;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int r = 0; r < BQ2; ++r) {
-      const float p = Ps[r * SP + kr], ds = DSs[r * SP + kr];
-      const bool cross = BRIDGE && fk[kr] != fq[r];
-      const float px = cross ? p : 0.f, dsx = cross ? ds : 0.f;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float dov = DOs[r * DP + tx + 8 * c], qv = Qs[r * DP + tx + 8 * c];
-        dv[c] = fmaf(p, dov, dv[c]);
-        dk[c] = fmaf(ds, qv, dk[c]);
-        if (BRIDGE) {
-          dvb[c] = fmaf(px, dov, dvb[c]);
-          dkb[c] = fmaf(dsx, qv, dkb[c]);
-        }
-      }
-    }
-  }
-
-  const int key = k0 + kr;
-  if (key >= a.Nk) return;
-  const long long off = (((long long)b * a.Nk + key) * a.H + h) * D;
-  T* gk = static_cast<T*>(a.dk) + off;
-  T* gv = static_cast<T*>(a.dv) + off;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    gk[tx + 8 * c] = __float2bfloat16(dk[c] * a.scale);
-    gv[tx + 8 * c] = __float2bfloat16(dv[c]);
-  }
+  load_tile<BKV, DKV_THREADS>(sK, head(a.k, a.sk, b, h), a.sk.n, k0, a.Nk, tid);
+  load_tile<BKV, DKV_THREADS>(sV, head(a.v, a.sv, b, h), a.sv.n, k0, a.Nk, tid);
   if (BRIDGE) {
-    T* gkb = static_cast<T*>(a.dkb) + off;
-    T* gvb = static_cast<T*>(a.dvb) + off;
+    load_tile<BKV, DKV_THREADS>(sKb, head(a.kb, a.skb, b, h), a.skb.n, k0, a.Nk, tid);
+    load_tile<BKV, DKV_THREADS>(sVb, head(a.vb, a.svb, b, h), a.svb.n, k0, a.Nk, tid);
+  }
+  auto load_queries = [&](int stage, int q0) {
+    load_tile<BQ2, DKV_THREADS>(s_qdo + 2 * stage * QT, q, a.sq.n, q0, a.Nq, tid);
+    load_tile<BQ2, DKV_THREADS>(s_qdo + (2 * stage + 1) * QT, dout, a.sdo.n, q0, a.Nq, tid);
+  };
+  load_queries(0, 0);
+  cp_commit();
+
+  // this lane's keys in the score phase: rows g, g + 8 of the warp's 16
+  int kj[2];
+  bool kok[2];
+  uint8_t kflag[2];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      gkb[tx + 8 * c] = __float2bfloat16(dkb[c] * a.scale);
-      gvb[tx + 8 * c] = __float2bfloat16(dvb[c]);
+  for (int i = 0; i < 2; ++i) {
+    kj[i] = k0 + 16 * kg + g + 8 * i;
+    kok[i] = kj[i] < a.Nk;
+    kflag[i] = kok[i] ? a.flag_kv[(long long)b * a.Nk + kj[i]] : 0;
+  }
+  float dk[8][4], dv[8][4], dkb[8][4], dvb[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = dkb[n][c] = dvb[n][c] = 0.f;
+
+  const int ntiles = (a.Nq + BQ2 - 1) / BQ2;
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = it * BQ2;
+    cp_wait<0>();
+    __syncthreads();   // tile `it` has landed; tile it - 1 is fully consumed
+    if (it + 1 < ntiles) load_queries((it + 1) & 1, q0 + BQ2);
+    cp_commit();
+    const uint32_t sQ = s_qdo + 2 * (it & 1) * QT, sDO = sQ + QT;
+
+    // score phase: 16 keys x 16 queries at a time, queries 32 hf + 16 sp ..
+#pragma unroll
+    for (int sp = 0; sp < 2; ++sp) {
+      const int qb = 32 * hf + 16 * sp;   // within the tile
+      // the four queries of this lane: qb + 8j + 2t + e at [2j + e]
+      float mq[4], lq[4], dq_[4], bv[2][4];
+      uint8_t fq[4];
+      bool qok[4], skip = true;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int qi = q0 + qb + 8 * (x >> 1) + 2 * t + (x & 1);
+        qok[x] = qi < a.Nq;
+        const int qc = qok[x] ? qi : 0;
+        mq[x] = a.row_max[st0 + qc];
+        lq[x] = a.row_sum[st0 + qc];
+        dq_[x] = a.delta[st0 + qc];
+        fq[x] = flag_q[qc];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          bv[i][x] = kok[i] ? __ldg(bias + qc * a.bias_q + kj[i]) : 0.f;
+          skip &= !qok[x] || !kok[i] || (mq[x] >= SKIP_MAX && bv[i][x] <= SKIP_BIAS);
+        }
+      }
+      const bool skip_all = __all_sync(0xffffffffu, skip);
+      if (lane == 0) skipped[kg][2 * hf + sp] = skip_all;
+      if (skip_all) continue;
+
+      float s[2][4], sb[2][4], dp[2][4], dpb[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = sb[j][c] = dp[j][c] = dpb[j][c] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t ak[4], bq[4], bdo[4];
+        load_b_nk<16>(bq, sQ, qb, kc, lane);
+        load_b_nk<16>(bdo, sDO, qb, kc, lane);
+        load_a<16>(ak, sK, 16 * kg, kc, lane);
+        mma16816(s[0], ak, bq[0], bq[1]);
+        mma16816(s[1], ak, bq[2], bq[3]);
+        load_a<16>(ak, sV, 16 * kg, kc, lane);
+        mma16816(dp[0], ak, bdo[0], bdo[1]);
+        mma16816(dp[1], ak, bdo[2], bdo[3]);
+        if (BRIDGE) {
+          load_a<16>(ak, sKb, 16 * kg, kc, lane);
+          mma16816(sb[0], ak, bq[0], bq[1]);
+          mma16816(sb[1], ak, bq[2], bq[3]);
+          load_a<16>(ak, sVb, 16 * kg, kc, lane);
+          mma16816(dpb[0], ak, bdo[0], bdo[1]);
+          mma16816(dpb[1], ak, bdo[2], bdo[3]);
+        }
+      }
+
+      // p and ds of (key row g + 8i, query 8j + 2t + e), element c = 2i + e
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p[4], px[4], ds[4], dsx[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = c >> 1, x = 2 * j + (c & 1);
+          const bool cross = BRIDGE && fq[x] != kflag[i];
+          p[c] = ds[c] = 0.f;
+          if (qok[x] && kok[i]) {
+            float y = s[j][c] * a.scale;
+            if (cross) y += sb[j][c] * a.scale;
+            y = fmaxf(y + bv[i][x], BIG_NEG);
+            p[c] = expf(y - mq[x]) / lq[x];
+            if (mq[x] > BIG_NEG) {   // a fully masked row feeds dV, not dK
+              const float dpt = cross ? dp[j][c] + dpb[j][c] : dp[j][c];
+              ds[c] = p[c] * (dpt - dq_[x]);
+            }
+          }
+          px[c] = cross ? p[c] : 0.f;
+          dsx[c] = cross ? ds[c] : 0.f;
+        }
+        // staged tiles: row = key (16 kg + g + 8i), column = query
+        const int col = qb + 8 * j + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t off = swz<BQ2 / 8>(16 * kg + g + 8 * i, col >> 3) + (col & 7) * 2;
+          *reinterpret_cast<uint32_t*>(gP + off) = pack_bf16(p[2 * i], p[2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(gP + PTILE + off) = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+          if (BRIDGE) {
+            *reinterpret_cast<uint32_t*>(gP + 2 * PTILE + off) =
+                pack_bf16(px[2 * i], px[2 * i + 1]);
+            *reinterpret_cast<uint32_t*>(gP + 3 * PTILE + off) =
+                pack_bf16(dsx[2 * i], dsx[2 * i + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the pair's staged halves and skip flags are written
+
+    // sum phase: this warp's 16 keys x columns 64 hf.., over the tile's queries
+#pragma unroll
+    for (int qc = 0; qc < BQ2 / 16; ++qc) {
+      if (skipped[kg][qc]) continue;
+      uint32_t ap[4], ads[4], apx[4], adsx[4];
+      load_a<BQ2 / 8>(ap, sP, 16 * kg, qc, lane);
+      load_a<BQ2 / 8>(ads, sDS, 16 * kg, qc, lane);
+      if (BRIDGE) {
+        load_a<BQ2 / 8>(apx, sPX, 16 * kg, qc, lane);
+        load_a<BQ2 / 8>(adsx, sDSX, 16 * kg, qc, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int n0 = 64 * hf + 16 * np;
+        uint32_t bdo[4], bq[4];
+        load_b_kn<16>(bdo, sDO, 16 * qc, n0, lane);
+        load_b_kn<16>(bq, sQ, 16 * qc, n0, lane);
+        mma16816(dv[2 * np], ap, bdo[0], bdo[1]);
+        mma16816(dv[2 * np + 1], ap, bdo[2], bdo[3]);
+        mma16816(dk[2 * np], ads, bq[0], bq[1]);
+        mma16816(dk[2 * np + 1], ads, bq[2], bq[3]);
+        if (BRIDGE) {
+          mma16816(dvb[2 * np], apx, bdo[0], bdo[1]);
+          mma16816(dvb[2 * np + 1], apx, bdo[2], bdo[3]);
+          mma16816(dkb[2 * np], adsx, bq[0], bq[1]);
+          mma16816(dkb[2 * np + 1], adsx, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // gradient rows: keys 16 kg + g + 8i, columns 64 hf + 8n + 2t
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + 16 * kg + g + 8 * i;
+    if (key >= a.Nk) continue;
+    const long long off = (((long long)b * a.Nk + key) * a.H + h) * D + 64 * hf + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      store2(static_cast<T*>(a.dk) + off + 8 * n, dk[n][2 * i] * a.scale,
+             dk[n][2 * i + 1] * a.scale);
+      store2(static_cast<T*>(a.dv) + off + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
+      if (BRIDGE) {
+        store2(static_cast<T*>(a.dkb) + off + 8 * n, dkb[n][2 * i] * a.scale,
+               dkb[n][2 * i + 1] * a.scale);
+        store2(static_cast<T*>(a.dvb) + off + 8 * n, dvb[n][2 * i], dvb[n][2 * i + 1]);
+      }
     }
   }
 }
 
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <bool BRIDGE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.Nq * a.H;
-  const int warps = THREADS / 32;
-  delta_kernel<<<(unsigned)((rows + warps - 1) / warps), THREADS, 0, stream>>>(a);
+  const int warps = DELTA_THREADS / 32;
+  delta_kernel<<<(unsigned)((rows + warps - 1) / warps), DELTA_THREADS, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t dq_smem = dq_smem_floats<BRIDGE>() * sizeof(float);
+  constexpr int dq_smem = dq_smem_bytes<BRIDGE>();
   err = allow_smem(dq_kernel<BRIDGE>, dq_smem);
   if (err != cudaSuccess) return err;
-  dq_kernel<BRIDGE><<<dim3((a.Nq + BQ - 1) / BQ, a.H, a.B), THREADS, dq_smem, stream>>>(a);
+  dq_kernel<BRIDGE><<<dim3((a.Nq + BQ - 1) / BQ, a.H, a.B), DQ_THREADS, dq_smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t dkv_smem = dkv_smem_floats<BRIDGE>() * sizeof(float);
+  constexpr int dkv_smem = dkv_smem_bytes<BRIDGE>();
   err = allow_smem(dkv_kernel<BRIDGE>, dkv_smem);
   if (err != cudaSuccess) return err;
-  dkv_kernel<BRIDGE><<<dim3((a.Nk + BK - 1) / BK, a.H, a.B), THREADS, dkv_smem, stream>>>(a);
+  dkv_kernel<BRIDGE><<<dim3((a.Nk + BKV - 1) / BKV, a.H, a.B), DKV_THREADS, dkv_smem,
+                       stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Operands are bfloat16 with head dim 128; the wrapper checks both. kb/vb
-// (and dkb/dvb) are null without the bridge. row_max/row_sum: the forward's
-// fp32 (B, H, Nq) softmax stats; delta: an fp32 (B, H, Nq) scratch buffer.
+// Operands are bfloat16 with head dim 128, 16-byte aligned with b/n/h
+// strides that are multiples of 8 elements; the wrapper checks all three.
+// kb/vb (and dkb/dvb) are null without the bridge. row_max/row_sum: the
+// forward's fp32 (B, H, Nq) softmax stats; delta: an fp32 (B, H, Nq)
+// scratch buffer.
 // strides: 23 element strides, in order
 //   q, k, v, kb, vb, o, dout (b, n, h each), bias (b, q).
 // The gradients are written contiguous (B, N, H, d).

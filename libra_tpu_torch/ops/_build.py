@@ -4,7 +4,9 @@ Each source is compiled on its own with nvcc for sm_90a into
 ``libra_tpu_torch/build/`` (gitignored), named by a hash of the source,
 so an unchanged source is not rebuilt. nvcc's output, with ptxas'
 register, shared-memory and spill report, is kept in a ``.log`` file
-beside the library. Each library exports plain C functions that return
+beside the library. The hash covers the source and the ``csrc`` headers
+it includes (``#include "name.cuh"``, followed recursively), so an edit
+to a shared header rebuilds every source that includes it. Each library exports plain C functions that return
 the CUDA error of their launch; they are bound with ctypes.
 """
 
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -35,11 +38,30 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def tag(source: Path) -> str:
+    """A hash of `source` and of every header it includes with quotes,
+    resolved beside the file that includes it, recursively."""
+    h = hashlib.sha256()
+    seen, todo = set(), [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.is_file():   # a system header
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(text)]
+    return h.hexdigest()[:16]
+
+
 def build(source: Path) -> Path:
     """Compile `source` for sm_90a into BUILD_DIR unless a library of the
-    same source hash is there. Returns the library's path."""
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{source.stem}-{tag}.so"
+    same tag (source and included headers) is there. Returns the library's
+    path."""
+    lib = BUILD_DIR / f"{source.stem}-{tag(source)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -71,12 +71,15 @@ def flash_bridged_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                   flag_q: torch.Tensor, flag_kv: torch.Tensor,
                                   bias: torch.Tensor) -> torch.Tensor:
     """The forward kernel's function in plain torch: scores, softmax and
-    value products in fp32 from the given inputs; output in q's dtype."""
+    value products in fp32 from the given inputs, with the unnormalised
+    probabilities p and p * cross rounded to v's and vb's dtype before the
+    value products, as the TPU kernel does (flash_bridge.py:100-107); the
+    denominator sums the unrounded p. Output in q's dtype."""
     p, _, denom = _probs(q, k, kb, flag_q, flag_kv, bias)   # denom (B, H, Nq, 1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, _f(v))
+    o = torch.einsum("bhqk,bkhd->bqhd", _f(p.to(v.dtype)), _f(v))
     if kb is not None:
-        o = o + torch.einsum("bhqk,bkhd->bqhd", p * _cross(flag_q, flag_kv, p),
-                             _f(vb))
+        px = p * _cross(flag_q, flag_kv, p)
+        o = o + torch.einsum("bhqk,bkhd->bqhd", _f(px.to(vb.dtype)), _f(vb))
     return (o / denom.permute(0, 2, 1, 3)).to(q.dtype)
 
 
@@ -144,10 +147,24 @@ def _check(q, k, v, kb, vb, flag_q, flag_kv, bias):
     for t in (q, k, v, kb, vb, bias):
         if t is not None and t.stride(-1) != 1:
             raise ValueError("the last dim of every operand must be unit-stride")
+    _check_aligned(q, k, v, kb, vb)
     if Nk < 1 or flag_q.shape != (B, Nq) or flag_kv.shape != (B, Nk):
         raise ValueError("flag_q must be (B, Nq) and flag_kv (B, Nk), Nk >= 1")
     if bias.shape != (B, 1, Nq, Nk) or bias.dtype != torch.float32:
         raise ValueError("bias must be a (B, 1, Nq, Nk) float32 tensor")
+
+
+def _check_aligned(*tensors):
+    """The kernels copy operand rows in 16-byte pieces (cp.async): each
+    base must be 16-byte aligned and its b, n and h strides multiples of
+    8 elements."""
+    for t in tensors:
+        if t is not None and (t.data_ptr() % 16
+                              or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError("flash_bridged_attention: the kernels take operands "
+                             "whose base is 16-byte aligned and whose b, n and h "
+                             "strides are multiples of 8 elements; pass a "
+                             "contiguous tensor")
 
 
 def _check_bwd(q, k, v, kb, vb, flag_q, flag_kv, bias, out, do, m, l):
@@ -157,6 +174,7 @@ def _check_bwd(q, k, v, kb, vb, flag_q, flag_kv, bias, out, do, m, l):
             raise TypeError("out and do must be (B, Nq, H, d) in q's dtype")
         if t.stride(-1) != 1:
             raise ValueError("the last dim of out and do must be unit-stride")
+    _check_aligned(out, do)
     B, Nq, H, _ = q.shape
     for t in (m, l):
         if (t is None or t.shape != (B, H, Nq) or t.dtype != torch.float32
@@ -276,7 +294,8 @@ def flash_bridged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     additive fp32. Returns (B, Nq, H, d) in q's dtype.
 
     CPU tensors take the plain versions. CUDA tensors launch the kernels
-    (bfloat16, d == HEAD_DIM, any strides with a unit-stride last dim);
+    (bfloat16, d == HEAD_DIM, a unit-stride last dim, 16-byte aligned
+    bases and b/n/h strides that are multiples of 8 elements);
     each forward launch adds one to `flash_bridged_attention.launches`.
     Differentiable in q, k, v, kb and vb when grad is enabled."""
     operands = (q, k, v, kb, vb)

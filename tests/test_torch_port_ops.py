@@ -21,7 +21,7 @@ from libra_tpu.ops.pallas.flash_bridge import (
 from libra_tpu_torch import config as tcfg
 from libra_tpu_torch.ops import attention as tattn, norm as tnorm, rope as trope
 from libra_tpu_torch.ops import routed as trouted
-from libra_tpu_torch.ops import flash_bridge as tflash
+from libra_tpu_torch.ops import _build, flash_bridge as tflash
 from libra_tpu_torch.params import from_numpy_tree
 
 ATOL = 1e-5
@@ -156,6 +156,28 @@ def test_flash_plain_matches_pallas_interpret(use_bridge, nq, nk):
         assert np.isfinite(got[1, :3].numpy()).all()
 
 
+@pytest.mark.parametrize("use_bridge", [True, False])
+@pytest.mark.parametrize("nq,nk", [(13, 20), (160, 200)])
+def test_flash_plain_matches_pallas_interpret_bf16(use_bridge, nq, nk):
+    """bf16 operands at the kernel's head dim: the plain forward rounds the
+    unnormalised probabilities to bf16 before the value products, as the
+    Pallas kernel does, so at most 0.1% of the outputs differ (fp32 sums in
+    another order flip a rare rounding), each by at most one bf16 ulp of
+    max|ref|. Keeping p in fp32 makes 17-32% of them differ."""
+    args = _attn_case(8, nq=nq, nk=nk, d=128, use_bridge=use_bridge)
+    t = [None if a is None else torch.from_numpy(np.array(a)) for a in args]
+    t[:5] = [None if a is None else a.bfloat16() for a in t[:5]]
+    j = [None if a is None else jnp.asarray(a.float().numpy()) for a in t]
+    j[:5] = [None if a is None else a.astype(jnp.bfloat16) for a in j[:5]]
+    want = np.asarray(jflash(*j, block_q=nq, interpret=True).astype(jnp.float32))
+    got = tflash.flash_bridged_attention_plain(*t).float().numpy()
+    diff = np.abs(got - want)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.isfinite(got).all()
+    assert (diff > 0).mean() <= 1e-3, (diff > 0).mean()
+    assert diff.max() <= ulp, (diff.max(), ulp)
+
+
 def test_flash_wrapper_takes_plain_version_on_cpu():
     args = _to_t(_attn_case(6))
     before = tflash.flash_bridged_attention.launches
@@ -173,7 +195,8 @@ def _kernel_case():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "bias_dtype", "grad",
-                                 "bridge_half", "flag_shape", "strides"])
+                                 "bridge_half", "flag_shape", "strides",
+                                 "alignment"])
 def test_flash_checks_reject(bad):
     """The launch-side checks that guard the CUDA kernel."""
     q, k, v, kb, vb, fq, fk, bias = _kernel_case()
@@ -198,9 +221,34 @@ def test_flash_checks_reject(bad):
         fq = fq[:, :-1]
     elif bad == "strides":
         k = k.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif bad == "alignment":
+        # a base 2 bytes past a 16-byte boundary, then an h stride of 130
+        flat = torch.zeros(v.numel() + 1, dtype=v.dtype)
+        v_off = flat[1:].view(v.shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            tflash._check(q, k, v_off, kb, vb, fq, fk, bias)
+        wide = torch.zeros(*k.shape[:3], 130, dtype=k.dtype)
+        k = wide[..., :128]
     with pytest.raises((TypeError, ValueError, NotImplementedError)):
         tflash._check(q, k, v, kb, vb, fq, fk, bias)
     tflash._check(*_kernel_case())   # a call the kernel takes passes
+
+
+def test_build_tag_follows_included_headers(tmp_path):
+    """An edit to a header that a source includes (directly or through
+    another header) changes the source's build tag; nvcc is not needed."""
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n#include "x.cuh"\n')
+    (tmp_path / "x.cuh").write_text('#pragma once\n#include "y.cuh"\n')
+    (tmp_path / "y.cuh").write_text("// v1\n")
+    (tmp_path / "b.cu").write_text("// includes nothing\n")
+    a0, b0 = _build.tag(tmp_path / "a.cu"), _build.tag(tmp_path / "b.cu")
+    assert a0 == _build.tag(tmp_path / "a.cu")
+    (tmp_path / "y.cuh").write_text("// v2\n")
+    assert _build.tag(tmp_path / "a.cu") != a0
+    assert _build.tag(tmp_path / "b.cu") == b0
+    # the port's two flash sources include the shared header
+    assert "flash_mma.cuh" in tflash.SOURCE.read_text()
+    assert "flash_mma.cuh" in tflash.BWD_SOURCE.read_text()
 
 
 @pytest.mark.parametrize("name", ["LibraConfig", "CLIPVisionConfig",
