@@ -19,11 +19,15 @@ Phases, in order; any failure exits non-zero:
    exactly 0), every gradient against the plain backward on the same bf16
    inputs; also the forward's row max and denominator, and the forward's
    time at this shape.
-4. int8 and int4 matmul kernels vs their plain versions at M = 4 (decode)
-   and M = 160 (the gate's limit) on libra-11b's projection shapes
-   (4096->4096, 4096->11008, 11008->4096, 4096->32000 lm_head), the
-   weight a layer view of a stacked (8, K, F) buffer; int4 in both a8
-   modes.
+4. int8 and int4 matmul kernels vs their plain versions on libra-11b's
+   projection shapes (4096->4096, 4096->11008, 11008->4096, 4096->32000
+   lm_head), the weight a layer view of a stacked (8, K, F) buffer: int8 at
+   M = 4 (decode) and M = 160 (the gate's limit); int4 in both a8 modes at
+   M = 1, 4, 7 (a zero row), 8 and 160, and on 4096->2752 (F not a multiple
+   of the decode template's 128-column tile), each case with the template
+   it ran (decode for M <= 8, chunked above); at M = 4 the chunked template
+   checked and timed beside the decode one, and for weight-only
+   torch._weight_int4pack_mm's time.
 5. int8 decode attention vs its plain version at B=4, H=32, d=128,
    S=674 (610 + 64): N=1 and N=8, bridge on and off, left-padded rows,
    a per-query causal bias for N=8.
@@ -69,6 +73,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import gc
 import importlib
@@ -91,6 +96,11 @@ IMG0, IMG1 = 8, 586                          # image block of the kernel checks
 PAD_LONG = 70                                # a left pad longer than a key tile
 S_DECODE = 674                               # 610 prompt + 64 new tokens
 MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+# int4 (B5) also on an F that is not a multiple of the decode template's
+# 128-column tile (libra-11b's vision-MLP bottleneck), at the decode row
+# counts 1, 4, 7, 8 (the template's MT = 1, 4, 8 and a ragged 7) and 160
+INT4_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
+INT4_M = (1, 4, 7, 8, 160)
 SEED = 0
 MAX_NEW = 64
 PROFILE_ROWS = 8                             # kernels listed per profile
@@ -455,22 +465,30 @@ def check_matmuls(card: str, dev) -> dict:
     """Each case against its plain version on the same inputs, from bf16 x
     in fp32; timed on layer views that rotate over the 8 layers of the
     stacked buffer, so each launch reads its weights from device memory
-    (8 layers exceed the 50 MB L2 at every shape), as a decode step does."""
+    (8 layers exceed the 50 MB L2 at every shape), as a decode step does.
+    int4 at M = 4 also runs the chunked template alone, the one int4_matmul
+    launches for M > 8, checked and timed in the same way."""
     from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
     L = 8
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     report = {"int8_matmul": [], "int4_matmul": []}
-    for K, F in MATMUL_SHAPES:
-        q = torch.randint(-127, 128, (L, K, F), generator=g, device=dev,
-                          dtype=torch.int8)
-        s = torch.rand((L, 1, F), generator=g, device=dev) * 2e-3
+    for K, F in INT4_SHAPES:
+        with_int8 = (K, F) in MATMUL_SHAPES
+        if with_int8:
+            q = torch.randint(-127, 128, (L, K, F), generator=g, device=dev,
+                              dtype=torch.int8)
+            s = torch.rand((L, 1, F), generator=g, device=dev) * 2e-3
         packed = torch.randint(-128, 128, (L, K // 2, F), generator=g, device=dev,
                                dtype=torch.int8)
         s4 = torch.rand((L, K // 128, F), generator=g, device=dev) * 2e-2
-        for M in (4, 160):
+        for M in INT4_M:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            cases = [("int8_matmul", "", I8.int8_matmul, I8.int8_matmul_plain,
-                      lambda l: (q[l], s[l]))]
+            if M == 7:
+                x[3] = 0   # a zero row: its absmax takes the scale 1
+            cases = []
+            if with_int8 and M in (4, 160):
+                cases.append(("int8_matmul", "", I8.int8_matmul, I8.int8_matmul_plain,
+                              lambda l: (q[l], s[l])))
             for a8 in (False, True):
                 cases.append((
                     "int4_matmul", f" a8={a8}",
@@ -478,7 +496,12 @@ def check_matmuls(card: str, dev) -> dict:
                     functools.partial(I4.int4_matmul_plain, group=128, a8=a8),
                     lambda l: (packed[l], s4[l])))
             for name, tag, kernel, plain, layer in cases:
-                label = f"{name}{tag} M={M} {K}->{F}"
+                a8 = "a8=True" in tag
+                template = (int4_template(x, *layer(3), 128) if name == "int4_matmul"
+                            else "")
+                label = f"{name}{tag} M={M} {K}->{F}" + (f" [{template}]" if template else "")
+                if template and (template == "decode") != (M <= 8):
+                    raise AssertionError(f"{label}: M = {M} took the {template} template")
                 got = kernel(x, *layer(3))
                 torch.cuda.synchronize()
                 want = plain(x.float(), *layer(3))
@@ -487,17 +510,59 @@ def check_matmuls(card: str, dev) -> dict:
                 ms = cuda_ms(lambda: kernel(x, *layer(next(turn))))
                 plain_ms = cuda_ms(lambda: plain(x, *layer(next(turn))))
                 bnd = bound(nbytes(x, *layer(3), got), 2 * M * K * F,
-                            "int8" if "a8=True" in tag else "bf16")
-                lib_ms = (int8_library_ms(x, q, s, want, label, card)
-                          if name == "int8_matmul" else None)
-                print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-                      f"library {lib_ms} ms [{card}]")
-                report[name].append(dict(M=M, K=K, F=F, tag=tag, max_abs_err=err,
-                                         ms=ms, plain_ms=plain_ms,
-                                         library_ms=lib_ms, **bnd))
-        del q, s, packed, s4
+                            "int8" if a8 else "bf16")
+                lib_ms = None
+                if name == "int8_matmul":
+                    lib_ms = int8_library_ms(x, q, s, want, label, card)
+                elif M == 4 and not a8:
+                    lib_ms = int4_library_ms(x, packed, s4, 128, card)
+                row = dict(M=M, K=K, F=F, tag=tag, template=template, max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
+                extra = ""
+                if name == "int4_matmul" and M == 4:
+                    chunked = functools.partial(int4_chunked, group=128, a8=a8)
+                    row["chunked_err"] = check(f"{label} chunked template",
+                                               chunked(x, *layer(3)), want, card)
+                    row["chunked_ms"] = cuda_ms(lambda: chunked(x, *layer(next(turn))))
+                    extra = f", chunked template {row['chunked_ms']:.4f} ms"
+                print(f"{label}: kernel {ms:.4f} ms ({bnd['bound_ms'] / ms:.1%} of the "
+                      f"bound){extra}, plain {plain_ms:.4f} ms, bound "
+                      f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms "
+                      f"[{card}]")
+                report[name].append(row)
+        if with_int8:
+            del q, s
+        del packed, s4
+    print("int4_matmul at M = 4 (ms; share of the bound; chunked template; library): "
+          + "; ".join(f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
+                      f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), chunked "
+                      f"{r['chunked_ms']:.4f}, library {r['library_ms']}"
+                      for r in report["int4_matmul"] if r["M"] == 4) + f" [{card}]")
     return report
+
+
+def int4_template(x, packed, scales, group) -> str:
+    """The template int4_matmul launches for x (M, K) and these weights, as
+    the CUDA source's int4_matmul_template decides it."""
+    from libra_tpu_torch.ops import _build, int4_matmul as I4
+    fn = _build.function(I4.SOURCE, "int4_matmul_template",
+                         (ctypes.c_int,) * 4 + (ctypes.c_longlong,) * 3
+                         + (ctypes.c_void_p,) * 3)
+    K = x.shape[-1]
+    return "decode" if fn(x.shape[0], K, packed.shape[1], group, x.stride(0),
+                          packed.stride(0), scales.stride(0), x.data_ptr(),
+                          packed.data_ptr(), scales.data_ptr()) else "chunked"
+
+
+def int4_chunked(x, packed, scales, group, a8):
+    """The chunked template alone on x (M, K): the C function
+    int4_matmul_chunked, with int4_matmul's arguments."""
+    from libra_tpu_torch.ops import _build, int4_matmul as I4
+    out = torch.empty((x.shape[0], packed.shape[1]), dtype=x.dtype, device=x.device)
+    fn = _build.function(I4.SOURCE, "int4_matmul_chunked", I4._ARGTYPES)
+    _build.check_launch(I4._launch(fn, x, packed, scales, out, group, a8,
+                                   _build.stream(x)), "int4_matmul_chunked")
+    return out
 
 
 def int8_library_ms(x, q, s, want, label, card):

@@ -18,20 +18,53 @@
 //     int32, each is multiplied by its group scale in fp32, and the row's
 //     sx multiplies the total (int4_matmul.py:166-182, 232-235).
 //
-// What bounds it on this card: at decode (M = 4) reading the packed weights
-// from device memory (half the int8 bytes); each byte feeds 2 * M
-// multiply-adds plus its unpack.
+// What bounds it on this card: at decode (M <= 8) reading the packed
+// weights from device memory (half the int8 bytes: 22.5 MB at
+// 4096 -> 11008, 6.7 us at 3.35 TB/s); each byte feeds 2 * M
+// multiply-adds plus its unpack, so the unpack and the products must cost
+// a few instructions a byte or they, and not the bytes, set the time.
 //
-// Design (simple first; no tensor cores, no dp4a): the int8 kernel's
-// (csrc/int8_matmul.cu) layout, with byte rows in place of k rows: one block
-// per (32 output columns, MT rows of x), 256 threads = 8 column groups of 4
-// adjacent columns x 32 k-slices; x is staged through shared memory in
-// chunks of 512 k (quantized there in W4A8 mode); each thread owns 8
-// consecutive byte rows of a chunk, loads them all before using any, and
-// folds its per-group partial sums into the accumulator with the group
-// scale whenever its rows cross into the next group. In W4A8 mode each block
-// first takes the absmax of its MT rows of x over all of K (from L2).
+// Two templates; int4_matmul picks one per call (int4_matmul_template):
+//
+// * decode (M <= 8, the decode step of every int4 projection): a lane owns
+//   4 adjacent output columns, so one warp load is one whole 128-byte line
+//   of a byte row, and a block a 128-column tile. K is split into 16-k
+//   units over the 8 blocks of a cluster and over the 8 warps of each
+//   block, each warp a contiguous run of units. The grid holds as many
+//   clusters as fit on the card at once, and each walks over column tiles,
+//   so a block stages its K slice of x in shared memory once for all its
+//   tiles: as fp32 (weight-only) or, W4A8, as int8 words of 4 consecutive
+//   k, after the cluster has taken each row's absmax over its 8 slices
+//   through distributed shared memory. A warp issues its weight loads
+//   (ld.global.nc.L1::no_allocate) in batches of NB byte-row pairs, the
+//   next batch before the current one is used, and the next tile's first
+//   two batches before the current tile's reduction; there is no barrier
+//   in the K loop. W4A8 takes two byte rows (4 k) at a time: two masks
+//   give 16 q of each nibble as a signed byte, a 4x4 byte transpose (8
+//   PRMT) one word per column, and one __dp4a per column and row of x the
+//   exact product sum (the 16 goes into the fp32 group scale as s / 16,
+//   exact). Weight-only turns each nibble into its exact float with a
+//   magic-number subtraction, no I2F. A warp's group sums, times the
+//   group's scale, go into the lane's fp32 sums in shared memory whenever
+//   its rows cross into the next group. At the end of a tile the block
+//   sums its warps in warp order and stores each sum into the receive
+//   buffer of the rank that finishes its column (16 columns a rank); after
+//   one cluster barrier each rank adds the 8 blocks' sums in rank order,
+//   applies sx and writes bf16. One launch, no workspace, no atomics, a
+//   fixed order. It needs 16-byte x loads and scale loads and 4-byte weight
+//   loads (ldx, lds, F, ldp and the bases aligned to them), G % 4 == 0,
+//   K % 16 == 0, and a K slice of x that fits in shared memory.
+// * chunked (every other call: 8 < M <= 160, unaligned operands): one block
+//   per (32 output columns, MT rows of x), 256 threads = 8 column groups
+//   of 4 adjacent columns x 32 k-slices; x is staged through shared memory
+//   in chunks of 512 k (quantized there in W4A8 mode); each thread owns 8
+//   consecutive byte rows of a chunk, loads them all before using any, and
+//   folds its per-group partial sums into the accumulator with the group
+//   scale whenever its rows cross into the next group. In W4A8 mode each
+//   block first takes the absmax of its MT rows of x over all of K (from
+//   L2). Exported on its own as int4_matmul_chunked.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,6 +72,10 @@
 #include <type_traits>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The chunked template (any M <= 160)
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -217,16 +254,374 @@ cudaError_t launch_mt(const Args& a, bool vec, bool a8, cudaStream_t stream) {
   return vec ? launch<MT, true, false>(a, stream) : launch<MT, false, false>(a, stream);
 }
 
-}  // namespace
 
-// x (M, K) bf16, row stride ldx, unit stride in K; packed (K/2, F) int8,
-// row stride ldp; scales (K/G, F) fp32, row stride lds; out (M, F) bf16,
-// row stride ldo. K and G even, K % G == 0 (the wrapper checks). a8: run
-// W4A8. Returns the CUDA error code of the launch (0 = launched).
-extern "C" int int4_matmul(const void* x, long long ldx, const void* packed,
-                           long long ldp, const void* scales, long long lds,
-                           void* out, long long ldo, int M, int K, int F,
-                           int G, int a8, void* stream) {
+// ---------------------------------------------------------------------------
+// The decode template (M <= 8)
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+namespace cg = cooperative_groups;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = 8;
+constexpr int TILE = 128;              // output columns a block: 32 lanes x 4
+constexpr int KSPLIT = 8;              // blocks of a cluster, one K slice each
+constexpr int UNIT_K = 16;             // k of a slicing unit: 4 byte-row pairs
+constexpr int SLICES = KSPLIT * WARPS;
+constexpr int CPR = TILE / KSPLIT;     // output columns each rank finishes
+// A byte b = (q[2r+1] << 4) | (q[2r] + 8), four to a word (one a column):
+// w & NIB_HI holds 16 q[2r+1] and ((w << 4) ^ NIB_FLIP) & NIB_HI holds
+// 16 q[2r], each as a signed byte.
+constexpr uint32_t NIB_HI = 0xF0F0F0F0u;
+constexpr uint32_t NIB_FLIP = 0x80808080u;
+// 4x4 byte transpose: __byte_perm(a, b, SEL_LO) = (a0, b0, a1, b1),
+// SEL_HI = (a2, b2, a3, b3); then SEL_W0 takes the low halves of two
+// words, SEL_W1 the high halves.
+constexpr uint32_t SEL_LO = 0x5140u;
+constexpr uint32_t SEL_HI = 0x7362u;
+constexpr uint32_t SEL_W0 = 0x5410u;
+constexpr uint32_t SEL_W1 = 0x7632u;
+// A nibble n (0..15) as the fp32 2^23 + n, minus 2^23 + 8: n - 8, exact.
+constexpr uint32_t MAGIC = 0x4B000000u;
+constexpr float MAGIC_BIAS = 8388616.f;
+constexpr float DP4A_SCALE = 0.0625f;  // 1/16: the masked bytes hold 16 q
+constexpr int SMEM_MAX = 160 * 1024;   // dynamic shared memory the template takes
+
+__host__ __device__ constexpr int k_stride(int K) {   // k of the largest K slice
+  return UNIT_K * ((K / UNIT_K + KSPLIT - 1) / KSPLIT);
+}
+
+// Dynamic shared memory: the block's x slice as fp32 (MT, k_stride) and,
+// W4A8, as int8 words (MT, k_stride / 4); the warps' fp32 sums (WARPS, MT,
+// TILE), which take the fp32 slice's room in W4A8 (it is dead once x is
+// quantized); two receive buffers of the cluster reduction (2, KSPLIT, MT,
+// CPR), never shared: other blocks write them.
+__host__ __device__ constexpr int sums_offset(int MT, bool a8, int K) {
+  return a8 ? MT * k_stride(K) : MT * k_stride(K) * 4;
+}
+__host__ __device__ constexpr int recv_offset(int MT, bool a8, int K) {
+  return a8 && MT * k_stride(K) * 4 > WARPS * MT * TILE * 4
+             ? MT * k_stride(K) * 5
+             : sums_offset(MT, a8, K) + WARPS * MT * TILE * 4;
+}
+__host__ __device__ constexpr int smem_bytes(int MT, bool a8, int K) {
+  return recv_offset(MT, a8, K) + 2 * KSPLIT * MT * CPR * 4;
+}
+
+__device__ __forceinline__ uint32_t ld_stream(const int8_t* p, bool ok) {
+  uint32_t v;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "mov.b32 %0, 0;\n\t"
+      "@q ld.global.nc.L1::no_allocate.b32 %0, [%1];\n\t}"
+      : "=r"(v)
+      : "l"(p), "r"((int)ok));
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_scale(const float* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float lo_f(uint32_t w, int c) {   // q[2r] of byte c
+  return __int_as_float(MAGIC | ((w >> (8 * c)) & 15u)) - MAGIC_BIAS;
+}
+__device__ __forceinline__ float hi_f(uint32_t w, int c) {   // q[2r+1] of byte c
+  return __int_as_float(MAGIC | (((w >> (8 * c + 4)) & 15u) ^ 8u)) - MAGIC_BIAS;
+}
+
+// the bf16 in the low and in the high half of a word, as fp32
+__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
+
+__device__ __forceinline__ uint32_t q8(float v) {   // an exact int8 value's byte
+  return (uint32_t)__float2int_rn(v) & 255u;
+}
+
+// Each cluster walks over column tiles blockIdx.x, + gridDim.x, ... (the
+// launch starts as many clusters as fit on the card at once), so a block
+// stages and quantizes its K slice of x once for all its tiles, and the
+// next tile's first weight batches are in flight during the current tile's
+// reduction.
+template <int MT, bool A8>
+__global__ void __cluster_dims__(1, KSPLIT, 1) __launch_bounds__(THREADS, 3)
+    int4_decode_kernel(const Args a) {
+  constexpr int NB = A8 && MT <= 4 ? 8 : 4;   // byte-row pairs a load batch
+  constexpr int XR = 2;                        // x loads a thread issues first
+  using Part = typename std::conditional<A8, int, float>::type;
+  extern __shared__ __align__(16) unsigned char dsm[];
+  __shared__ float amax_s[MT], sx_s[MT];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int U = a.K / UNIT_K;
+  const int nks = k_stride(a.K);
+  const int ub = U * rank / KSPLIT;                     // the block's units
+  const int nkb = UNIT_K * (U * (rank + 1) / KSPLIT - ub);
+  const int sl = rank * WARPS + warp;                   // the warp's units
+  const int u0 = U * sl / SLICES;
+  const int np = 4 * (U * (sl + 1) / SLICES - u0);      // its byte-row pairs
+  const int p0 = 4 * u0;                                // its first pair
+  const int lp0 = p0 - 4 * ub;                          // ... in the x slice
+  const int PG = a.G / 4;                               // pairs a group
+  const int g0 = p0 / PG;                               // the group of pair p0
+  const int ntiles = (a.F + TILE - 1) / TILE;
+  int* xq = reinterpret_cast<int*>(dsm);                                // W4A8 (MT, nks / 4)
+  float* xs = reinterpret_cast<float*>(dsm + (A8 ? MT * nks : 0));      // (MT, nks)
+  float* red = reinterpret_cast<float*>(dsm + sums_offset(MT, A8, a.K));  // (WARPS, MT, TILE)
+  float* recv = reinterpret_cast<float*>(dsm + recv_offset(MT, A8, a.K));  // (2, KSPLIT, MT, CPR)
+  float4* acc = reinterpret_cast<float4*>(red) + warp * MT * 32 + lane;  // this lane's sums
+
+  // x first (from L2, 16 bytes a load), then the first tile's weights, then
+  // x into shared memory
+  const __nv_bfloat16* xb = a.x + (long long)UNIT_K * ub;
+  const int nv = nkb / 8;   // loads of x a row
+  uint4 xr[XR];
+#pragma unroll
+  for (int r = 0; r < XR; ++r) {
+    const int i = tid + r * THREADS, m = i / max(nv, 1);
+    xr[r] = i < MT * nv && m < a.M
+                ? __ldg(reinterpret_cast<const uint4*>(xb + (long long)m * a.ldx) + (i - m * nv))
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  int tile = blockIdx.x;
+  int f0 = tile * TILE + lane * 4;
+  bool live = f0 < a.F;
+  const int8_t* wp = a.p + (long long)(2 * p0) * a.ldp + f0;
+  uint32_t wa[2 * NB], wb[2 * NB];
+  auto load = [&](uint32_t(&w)[2 * NB], int b) {
+    if (b * NB >= np) return;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int j = b * NB + i;
+      const int8_t* r = wp + (long long)(2 * j) * a.ldp;
+      w[2 * i] = ld_stream(r, live && j < np);
+      w[2 * i + 1] = ld_stream(r + a.ldp, live && j < np);
+    }
+  };
+  load(wa, 0);
+  load(wb, 1);
+  float4 sc = ld_scale(a.s + (long long)g0 * a.lds + f0, live && np > 0);
+
+  auto put = [&](int i, const uint4& u) {
+    const int m = i / nv, v = i - m * nv;
+    float* d = xs + m * nks + 8 * v;
+    *reinterpret_cast<float4*>(d) = make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+    *reinterpret_cast<float4*>(d + 4) = make_float4(bf_lo(u.z), bf_hi(u.z), bf_lo(u.w), bf_hi(u.w));
+  };
+#pragma unroll
+  for (int r = 0; r < XR; ++r)
+    if (tid + r * THREADS < MT * nv) put(tid + r * THREADS, xr[r]);
+  for (int i = tid + XR * THREADS; i < MT * nv; i += THREADS) {
+    const int m = i / nv;
+    put(i, m < a.M ? __ldg(reinterpret_cast<const uint4*>(xb + (long long)m * a.ldx) + (i - m * nv))
+                   : make_uint4(0u, 0u, 0u, 0u));
+  }
+  __syncthreads();
+  if constexpr (A8) {
+    if (warp < MT) {
+      float v = 0.f;
+      for (int k = lane; k < nkb; k += 32) v = fmaxf(v, fabsf(xs[warp * nks + k]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+      if (lane == 0) amax_s[warp] = v;
+    }
+    cluster.sync();
+    if (tid < MT) {
+      float v = 0.f;
+      for (int q = 0; q < KSPLIT; ++q) v = fmaxf(v, *cluster.map_shared_rank(&amax_s[tid], q));
+      sx_s[tid] = __fdiv_rn(v > 0.f ? v : 1.f, 127.f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float s = sx_s[m];
+      for (int j = tid; j < nkb / 4; j += THREADS) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + m * nks + 4 * j);
+        xq[m * (nks / 4) + j] = (int)(q8(rintf(__fdiv_rn(v.x, s))) |
+                                      q8(rintf(__fdiv_rn(v.y, s))) << 8 |
+                                      q8(rintf(__fdiv_rn(v.z, s))) << 16 |
+                                      q8(rintf(__fdiv_rn(v.w, s))) << 24);
+      }
+    }
+    __syncthreads();
+  }
+
+  Part part[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[m][c] = 0;
+  // a group's sums times its scale, into this lane's sums in shared memory
+  auto flush = [&]() {
+    const float k = A8 ? DP4A_SCALE : 1.f;
+    const float s0 = sc.x * k, s1 = sc.y * k, s2 = sc.z * k, s3 = sc.w * k;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float4 t = acc[m * 32];
+      t.x = fmaf((float)part[m][0], s0, t.x);
+      t.y = fmaf((float)part[m][1], s1, t.y);
+      t.z = fmaf((float)part[m][2], s2, t.z);
+      t.w = fmaf((float)part[m][3], s3, t.w);
+      acc[m * 32] = t;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[m][c] = 0;
+    }
+  };
+
+  for (int buf = 0; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int g = g0, pend = (g0 + 1) * PG;   // the group of the sums; the next group's first pair
+    auto step = [&](const uint32_t(&w)[2 * NB], int b) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int j = b * NB + i;   // np is a multiple of 4, NB too: a batch is whole or past np
+        if (j >= np) break;
+        if (p0 + j >= pend) {   // the pair opens the next group
+          flush();
+          ++g;
+          pend += PG;
+          sc = ld_scale(a.s + (long long)g * a.lds + f0, live);
+        }
+        const uint32_t w0 = w[2 * i], w1 = w[2 * i + 1];
+        if constexpr (A8) {
+          const uint32_t lo0 = ((w0 << 4) ^ NIB_FLIP) & NIB_HI, hi0 = w0 & NIB_HI;
+          const uint32_t lo1 = ((w1 << 4) ^ NIB_FLIP) & NIB_HI, hi1 = w1 & NIB_HI;
+          const uint32_t t0 = __byte_perm(lo0, hi0, SEL_LO), t1 = __byte_perm(lo0, hi0, SEL_HI);
+          const uint32_t t2 = __byte_perm(lo1, hi1, SEL_LO), t3 = __byte_perm(lo1, hi1, SEL_HI);
+          const int col[4] = {(int)__byte_perm(t0, t2, SEL_W0), (int)__byte_perm(t0, t2, SEL_W1),
+                              (int)__byte_perm(t1, t3, SEL_W0), (int)__byte_perm(t1, t3, SEL_W1)};
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const int xv = xq[m * (nks / 4) + lp0 + j];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[m][c] = __dp4a(col[c], xv, part[m][c]);
+          }
+        } else {
+          float q[4][4];   // [column][k - 4p]
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            q[c][0] = lo_f(w0, c);
+            q[c][1] = hi_f(w0, c);
+            q[c][2] = lo_f(w1, c);
+            q[c][3] = hi_f(w1, c);
+          }
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float4 v = *reinterpret_cast<const float4*>(xs + m * nks + 4 * (lp0 + j));
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              part[m][c] = fmaf(v.w, q[c][3], fmaf(v.z, q[c][2],
+                           fmaf(v.y, q[c][1], fmaf(v.x, q[c][0], part[m][c]))));
+          }
+        }
+      }
+    };
+    const int nb = (np + NB - 1) / NB;
+    for (int b = 0; b < nb; b += 2) {
+      step(wa, b);
+      load(wa, b + 2);
+      step(wb, b + 1);
+      load(wb, b + 3);
+    }
+    flush();
+
+    // the next tile's first batches go out before this tile's reduction
+    const int f = tile * TILE;   // this tile's first column
+    if (tile + (int)gridDim.x < ntiles) {
+      f0 += gridDim.x * TILE;
+      live = f0 < a.F;
+      wp += gridDim.x * TILE;
+      load(wa, 0);
+      load(wb, 1);
+      sc = ld_scale(a.s + (long long)g0 * a.lds + f0, live && np > 0);
+    }
+
+    // the block's sums over its warps, in warp order, sent to the rank that
+    // finishes their columns: rank r, columns [CPR r, CPR (r + 1))
+    __syncthreads();
+    for (int i = tid; i < MT * TILE; i += THREADS) {
+      const int m = i / TILE, col = i % TILE;
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) t += red[w * MT * TILE + i];
+      float* dst = cluster.map_shared_rank(recv, col / CPR);
+      dst[((buf * KSPLIT + rank) * MT + m) * CPR + col % CPR] = t;
+    }
+    cluster.sync();
+    // the cluster's sums, in rank order, from this block's receive buffer
+    if (tid < MT * CPR) {
+      const int m = tid / CPR, col = rank * CPR + tid % CPR;
+      float t = 0.f;
+#pragma unroll
+      for (int q = 0; q < KSPLIT; ++q) t += recv[((buf * KSPLIT + q) * MT + m) * CPR + tid % CPR];
+      if (A8) t *= sx_s[m];
+      if (m < a.M && f + col < a.F) a.out[(long long)m * a.ldo + f + col] = __float2bfloat16(t);
+    }
+  }
+  // Nothing reads or writes another block's shared memory after the last
+  // cluster.sync (the receive buffers alternate, and a block writes a
+  // buffer again only after the cluster.sync that follows its last read).
+}
+
+// The clusters that fit on the card at once for this kernel and shared
+// memory, queried once per device and size.
+template <int MT, bool A8>
+cudaError_t resident_clusters(int smem, int* n) {
+  static int cached_smem[16], cached_n[16];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && cached_smem[dev] == smem && cached_n[dev] > 0) {
+    *n = cached_n[dev];
+    return cudaSuccess;
+  }
+  if (smem > 32 * 1024) {   // above the default 48 KB with the static arrays
+    e = cudaFuncSetAttribute(int4_decode_kernel<MT, A8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, KSPLIT);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  e = cudaOccupancyMaxActiveClusters(n, (const void*)int4_decode_kernel<MT, A8>, &cfg);
+  if (e != cudaSuccess) return e;
+  if (*n < 1) return cudaErrorInvalidConfiguration;
+  if (dev < 16) {
+    cached_smem[dev] = smem;
+    cached_n[dev] = *n;
+  }
+  return cudaSuccess;
+}
+
+template <int MT, bool A8>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int smem = smem_bytes(MT, A8, a.K);
+  int n = 0;
+  const cudaError_t e = resident_clusters<MT, A8>(smem, &n);
+  if (e != cudaSuccess) return e;
+  const int ntiles = (a.F + TILE - 1) / TILE;
+  const dim3 grid(ntiles < n ? ntiles : n, KSPLIT);
+  int4_decode_kernel<MT, A8><<<grid, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MT>
+cudaError_t launch_mt(const Args& a, bool a8, cudaStream_t stream) {
+  return a8 ? launch<MT, true>(a, stream) : launch<MT, false>(a, stream);
+}
+
+}  // namespace dec
+
+Args make_args(const void* x, long long ldx, const void* packed, long long ldp,
+               const void* scales, long long lds, void* out, long long ldo,
+               int M, int K, int F, int G) {
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.ldx = ldx;
@@ -240,10 +635,63 @@ extern "C" int int4_matmul(const void* x, long long ldx, const void* packed,
   a.K = K;
   a.F = F;
   a.G = G;
-  const bool vec = F % CPT == 0 && ldp % CPT == 0 &&
-                   reinterpret_cast<uintptr_t>(packed) % CPT == 0;
+  return a;
+}
+
+cudaError_t launch_chunked(const Args& a, bool a8, cudaStream_t st) {
+  const bool vec = a.F % CPT == 0 && a.ldp % CPT == 0 &&
+                   reinterpret_cast<uintptr_t>(a.p) % CPT == 0;
+  if (a.M <= 4) return launch_mt<4>(a, vec, a8, st);
+  if (a.M <= 8) return launch_mt<8>(a, vec, a8, st);
+  return launch_mt<16>(a, vec, a8, st);
+}
+
+}  // namespace
+
+// The template int4_matmul runs for these operands: 1 the decode template,
+// 0 the chunked one. The decode template takes M <= 8 rows of x, 16-byte x
+// loads (ldx a multiple of 8, x's base 16-byte aligned), 4-byte weight
+// loads (F, ldp and the packed base multiples of 4), 16-byte scale loads
+// (lds a multiple of 4, the scales' base 16-byte aligned), whole 16-k
+// units and 4-k pairs inside a group (K % 16 == 0, G % 4 == 0), and a K
+// slice of x within its shared-memory limit in either mode, so the choice
+// does not depend on a8.
+extern "C" int int4_matmul_template(int M, int K, int F, int G, long long ldx,
+                                    long long ldp, long long lds, const void* x,
+                                    const void* packed, const void* scales) {
+  return M >= 1 && M <= 8 && K % dec::UNIT_K == 0 && G % 4 == 0 && F % 4 == 0 &&
+         ldx % 8 == 0 && ldp % 4 == 0 && lds % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(packed) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(scales) % 16 == 0 &&
+         dec::smem_bytes(8, false, K) <= dec::SMEM_MAX &&
+         dec::smem_bytes(8, true, K) <= dec::SMEM_MAX;
+}
+
+// x (M, K) bf16, row stride ldx, unit stride in K; packed (K/2, F) int8,
+// row stride ldp; scales (K/G, F) fp32, row stride lds; out (M, F) bf16,
+// row stride ldo. K and G even, K % G == 0 (the wrapper checks). a8: run
+// W4A8. Launches the template int4_matmul_template names. Returns the CUDA
+// error code of the launch (0 = launched).
+extern "C" int int4_matmul(const void* x, long long ldx, const void* packed,
+                           long long ldp, const void* scales, long long lds,
+                           void* out, long long ldo, int M, int K, int F,
+                           int G, int a8, void* stream) {
+  const Args a = make_args(x, ldx, packed, ldp, scales, lds, out, ldo, M, K, F, G);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 4) return (int)launch_mt<4>(a, vec, a8 != 0, st);
-  if (M <= 8) return (int)launch_mt<8>(a, vec, a8 != 0, st);
-  return (int)launch_mt<16>(a, vec, a8 != 0, st);
+  if (!int4_matmul_template(M, K, F, G, ldx, ldp, lds, x, packed, scales))
+    return (int)launch_chunked(a, a8 != 0, st);
+  if (M <= 1) return (int)dec::launch_mt<1>(a, a8 != 0, st);
+  if (M <= 2) return (int)dec::launch_mt<2>(a, a8 != 0, st);
+  if (M <= 4) return (int)dec::launch_mt<4>(a, a8 != 0, st);
+  return (int)dec::launch_mt<8>(a, a8 != 0, st);
+}
+
+// The chunked template alone, for any M, with int4_matmul's arguments.
+extern "C" int int4_matmul_chunked(const void* x, long long ldx, const void* packed,
+                                   long long ldp, const void* scales, long long lds,
+                                   void* out, long long ldo, int M, int K, int F,
+                                   int G, int a8, void* stream) {
+  const Args a = make_args(x, ldx, packed, ldp, scales, lds, out, ldo, M, K, F, G);
+  return (int)launch_chunked(a, a8 != 0, static_cast<cudaStream_t>(stream));
 }

@@ -16,7 +16,12 @@ fp32 scale per (group of K, output column).
 
 On a CUDA tensor `int4_matmul` launches the hand-written Hopper kernel in
 ``csrc/int4_matmul.cu`` or raises; on a CPU tensor it runs
-`int4_matmul_plain`.
+`int4_matmul_plain`. The kernel has two templates, and the C function
+``int4_matmul_template`` decides between them from the operands: the
+decode template (split-K clusters, ``__dp4a`` for W4A8) for M <= 8 rows
+with aligned operands, every decode step of an int4 tree; the chunked
+template for the rest (8 < M <= MAX_M, unaligned operands), which is
+also exported alone as ``int4_matmul_chunked``.
 """
 
 from __future__ import annotations
