@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles the kernels' seven sources of libra_tpu_torch/csrc at once
    (one nvcc each) and prints ptxas' register, shared-memory and spill
-   lines.
+   lines, and cuobjdump's SASS instruction mix of the int8 matmul's
+   kernels; fails if a kernel of its decode template holds an I2F.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included (one row padded by 70
@@ -21,13 +22,14 @@ Phases, in order; any failure exits non-zero:
    time at this shape.
 4. int8 and int4 matmul kernels vs their plain versions on libra-11b's
    projection shapes (4096->4096, 4096->11008, 11008->4096, 4096->32000
-   lm_head), the weight a layer view of a stacked (8, K, F) buffer: int8 at
-   M = 4 (decode) and M = 160 (the gate's limit); int4 in both a8 modes at
-   M = 1, 4, 7 (a zero row), 8 and 160, and on 4096->2752 (F not a multiple
-   of the decode template's 128-column tile), each case with the template
-   it ran (decode for M <= 8, chunked above); at M = 4 the chunked template
-   checked and timed beside the decode one, and for weight-only
-   torch._weight_int4pack_mm's time.
+   lm_head) and on 4096->2752 (F not a multiple of the decode templates'
+   128-column tile), the weight a layer view of a stacked (8, K, F)
+   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7 (a zero row), 8
+   and 160 (the gate's limit), each case with the template it ran (decode
+   for M <= 8, chunked above); at M = 4 each kernel's chunked template
+   checked and timed beside the decode one, with each one's share of the
+   bound; torch._weight_int8pack_mm timed at M = 4 and 160, and
+   torch._weight_int4pack_mm for int4 weight-only at M = 4.
 5. int8 decode attention vs its plain version at B=4, H=32, d=128,
    S=674 (610 + 64): N=1 and N=8, bridge on and off, left-padded rows,
    a per-query causal bias for N=8.
@@ -80,6 +82,7 @@ import importlib
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -96,11 +99,12 @@ IMG0, IMG1 = 8, 586                          # image block of the kernel checks
 PAD_LONG = 70                                # a left pad longer than a key tile
 S_DECODE = 674                               # 610 prompt + 64 new tokens
 MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
-# int4 (B5) also on an F that is not a multiple of the decode template's
-# 128-column tile (libra-11b's vision-MLP bottleneck), at the decode row
-# counts 1, 4, 7, 8 (the template's MT = 1, 4, 8 and a ragged 7) and 160
-INT4_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
-INT4_M = (1, 4, 7, 8, 160)
+# int8 (B2) and int4 (B5) also on an F that is not a multiple of the
+# decode templates' 128-column tile (libra-11b's vision-MLP bottleneck), at
+# the decode row counts 1, 4, 7, 8 (the templates' MT = 1, 4, 8 and a
+# ragged 7) and 160
+QUANT_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
+QUANT_M = (1, 4, 7, 8, 160)
 SEED = 0
 MAX_NEW = 64
 PROFILE_ROWS = 8                             # kernels listed per profile
@@ -268,6 +272,43 @@ def build(card: str) -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {lib.stem}:", line.strip())
+    # B2's decode template makes its weights' floats without I2F
+    lib = next(l for l in libs if l.stem.startswith("int8_matmul-"))
+    mixes = sass_mix(lib)
+    for name, mix in mixes.items():
+        print(f"  sass {lib.stem}: {name}: " + ", ".join(
+            f"{op} {n}" for op, n in sorted(mix.items())))
+    bad = [n for n, mix in mixes.items() if "int8_decode_kernel" in n and mix["I2F"]]
+    if bad or not any("int8_decode_kernel" in n for n in mixes):
+        raise AssertionError(f"B2's decode kernels missing or converting with I2F: {bad}")
+
+
+SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HMMA", "LDG", "LDS", "LOP3", "BAR")
+
+
+def sass_mix(lib: Path) -> dict:
+    """Per kernel of a built library (its mangled name): the SASS
+    instructions in all and those of SASS_OPS by opcode (I2F counts
+    every I2F* opcode), from cuobjdump -sass."""
+    from libra_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    mix, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            mix[name] = Counter({op: 0 for op in SASS_OPS})
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if name and ins:
+            op = ins.group(1)
+            mix[name]["all"] += 1
+            for want in SASS_OPS:
+                if op == want or (want == "I2F" and op.startswith("I2F")):
+                    mix[name][want] += 1
+    return mix
 
 
 # ---------------------------------------------------------------------------
@@ -466,41 +507,38 @@ def check_matmuls(card: str, dev) -> dict:
     in fp32; timed on layer views that rotate over the 8 layers of the
     stacked buffer, so each launch reads its weights from device memory
     (8 layers exceed the 50 MB L2 at every shape), as a decode step does.
-    int4 at M = 4 also runs the chunked template alone, the one int4_matmul
+    At M = 4 each kernel also runs its chunked template alone, the one it
     launches for M > 8, checked and timed in the same way."""
     from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
     L = 8
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     report = {"int8_matmul": [], "int4_matmul": []}
-    for K, F in INT4_SHAPES:
-        with_int8 = (K, F) in MATMUL_SHAPES
-        if with_int8:
-            q = torch.randint(-127, 128, (L, K, F), generator=g, device=dev,
-                              dtype=torch.int8)
-            s = torch.rand((L, 1, F), generator=g, device=dev) * 2e-3
+    for K, F in QUANT_SHAPES:
+        q = torch.randint(-127, 128, (L, K, F), generator=g, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand((L, 1, F), generator=g, device=dev) * 2e-3
         packed = torch.randint(-128, 128, (L, K // 2, F), generator=g, device=dev,
                                dtype=torch.int8)
         s4 = torch.rand((L, K // 128, F), generator=g, device=dev) * 2e-2
-        for M in INT4_M:
+        for M in QUANT_M:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             if M == 7:
                 x[3] = 0   # a zero row: its absmax takes the scale 1
-            cases = []
-            if with_int8 and M in (4, 160):
-                cases.append(("int8_matmul", "", I8.int8_matmul, I8.int8_matmul_plain,
-                              lambda l: (q[l], s[l])))
+            cases = [("int8_matmul", "", I8.int8_matmul, I8.int8_matmul_plain,
+                      lambda l: (q[l], s[l]), int8_template, int8_chunked)]
             for a8 in (False, True):
                 cases.append((
                     "int4_matmul", f" a8={a8}",
                     functools.partial(I4.int4_matmul, group=128, a8=a8),
                     functools.partial(I4.int4_matmul_plain, group=128, a8=a8),
-                    lambda l: (packed[l], s4[l])))
-            for name, tag, kernel, plain, layer in cases:
+                    lambda l: (packed[l], s4[l]),
+                    functools.partial(int4_template, group=128),
+                    functools.partial(int4_chunked, group=128, a8=a8)))
+            for name, tag, kernel, plain, layer, which, chunked in cases:
                 a8 = "a8=True" in tag
-                template = (int4_template(x, *layer(3), 128) if name == "int4_matmul"
-                            else "")
-                label = f"{name}{tag} M={M} {K}->{F}" + (f" [{template}]" if template else "")
-                if template and (template == "decode") != (M <= 8):
+                template = which(x, *layer(3))
+                label = f"{name}{tag} M={M} {K}->{F} [{template}]"
+                if (template == "decode") != (M <= 8):
                     raise AssertionError(f"{label}: M = {M} took the {template} template")
                 got = kernel(x, *layer(3))
                 torch.cuda.synchronize()
@@ -512,33 +550,59 @@ def check_matmuls(card: str, dev) -> dict:
                 bnd = bound(nbytes(x, *layer(3), got), 2 * M * K * F,
                             "int8" if a8 else "bf16")
                 lib_ms = None
-                if name == "int8_matmul":
+                if name == "int8_matmul" and M in (4, 160):
                     lib_ms = int8_library_ms(x, q, s, want, label, card)
-                elif M == 4 and not a8:
+                elif name == "int4_matmul" and M == 4 and not a8:
                     lib_ms = int4_library_ms(x, packed, s4, 128, card)
                 row = dict(M=M, K=K, F=F, tag=tag, template=template, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
                 extra = ""
-                if name == "int4_matmul" and M == 4:
-                    chunked = functools.partial(int4_chunked, group=128, a8=a8)
+                if M == 4:
                     row["chunked_err"] = check(f"{label} chunked template",
                                                chunked(x, *layer(3)), want, card)
                     row["chunked_ms"] = cuda_ms(lambda: chunked(x, *layer(next(turn))))
-                    extra = f", chunked template {row['chunked_ms']:.4f} ms"
+                    extra = (f", chunked template {row['chunked_ms']:.4f} ms "
+                             f"({bnd['bound_ms'] / row['chunked_ms']:.1%})")
                 print(f"{label}: kernel {ms:.4f} ms ({bnd['bound_ms'] / ms:.1%} of the "
                       f"bound){extra}, plain {plain_ms:.4f} ms, bound "
-                      f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms "
-                      f"[{card}]")
+                      f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms"
+                      + ("" if lib_ms is None else f" ({bnd['bound_ms'] / lib_ms:.1%})")
+                      + f" [{card}]")
                 report[name].append(row)
-        if with_int8:
-            del q, s
-        del packed, s4
-    print("int4_matmul at M = 4 (ms; share of the bound; chunked template; library): "
-          + "; ".join(f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
-                      f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), chunked "
-                      f"{r['chunked_ms']:.4f}, library {r['library_ms']}"
-                      for r in report["int4_matmul"] if r["M"] == 4) + f" [{card}]")
+        del q, s, packed, s4
+    for name, rows in report.items():
+        print(f"{name} at M = 4 (ms, share of the bound: decode template; chunked "
+              "template; library): " + "; ".join(
+                  f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
+                  f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), chunked "
+                  f"{r['chunked_ms']:.4f} ({r['bound_ms'] / r['chunked_ms']:.1%}), "
+                  f"library {r['library_ms']}"
+                  + ("" if r["library_ms"] is None
+                     else f" ({r['bound_ms'] / r['library_ms']:.1%})")
+                  for r in rows if r["M"] == 4) + f" [{card}]")
     return report
+
+
+def int8_template(x, q, _scale) -> str:
+    """The template int8_matmul launches for x (M, K) and the weight q, as
+    the CUDA source's int8_matmul_template decides it."""
+    from libra_tpu_torch.ops import _build, int8_matmul as I8
+    fn = _build.function(I8.SOURCE, "int8_matmul_template",
+                         (ctypes.c_int,) * 3 + (ctypes.c_longlong,) * 2
+                         + (ctypes.c_void_p,) * 2)
+    return "decode" if fn(x.shape[0], x.shape[-1], q.shape[1], x.stride(0),
+                          q.stride(0), x.data_ptr(), q.data_ptr()) else "chunked"
+
+
+def int8_chunked(x, q, scale):
+    """The chunked template alone on x (M, K): the C function
+    int8_matmul_chunked, with int8_matmul's arguments (the parent's kernel)."""
+    from libra_tpu_torch.ops import _build, int8_matmul as I8
+    out = torch.empty((x.shape[0], q.shape[1]), dtype=x.dtype, device=x.device)
+    fn = _build.function(I8.SOURCE, "int8_matmul_chunked", I8._ARGTYPES)
+    _build.check_launch(I8._launch(fn, x, q, scale, out, _build.stream(x)),
+                        "int8_matmul_chunked")
+    return out
 
 
 def int4_template(x, packed, scales, group) -> str:

@@ -8,7 +8,13 @@ accumulator, the result in x's dtype.
 On a CUDA tensor `int8_matmul` launches the hand-written Hopper kernel in
 ``csrc/int8_matmul.cu`` (built with nvcc at first use, bound with ctypes)
 or raises; a layer view ``q[l]`` of a stacked (L, K, F) weight is read in
-place. On a CPU tensor it runs `int8_matmul_plain`.
+place. On a CPU tensor it runs `int8_matmul_plain`. The kernel has two
+templates, and the C function ``int8_matmul_template`` decides between
+them from the operands: the decode template (split-K clusters, exact
+magic-number floats) for M <= 8 rows with aligned operands, every decode
+step of an int8 tree; the chunked template for the rest (8 < M <= MAX_M,
+unaligned operands), which is also exported alone as
+``int8_matmul_chunked``.
 """
 
 from __future__ import annotations

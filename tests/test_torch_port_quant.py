@@ -149,11 +149,12 @@ def test_pack_and_dequant_int4_match_jax():
         np.asarray(ji4.dequant_int4(jnp.asarray(jp), jnp.asarray(js), 64)))
 
 
-@pytest.mark.parametrize("M", [1, 4, 33])
+@pytest.mark.parametrize("M", [1, 4, 7, 8, 33])
 def test_int8_matmul_plain_matches_pallas(M):
     """Plain and stacked (layer idx) forms; the layer view q[l] of the
-    stacked buffer is what the port hands its kernel. Slack: fp32 sums in
-    another order, 1e-5 of max|out|."""
+    stacked buffer is what the port hands its kernel. M = 7 and 8 are the
+    edges of the kernel's decode template (M <= 8), 33 takes the chunked
+    one. Slack: fp32 sums in another order, 1e-5 of max|out|."""
     rs = np.random.RandomState(M)
     L, K, F = 3, 256, 384
     qa = jq.quantize_array(rs.randn(L, K, F).astype(np.float32) * 0.1, axis=-2)
