@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles the kernels' seven sources of libra_tpu_torch/csrc at once
    (one nvcc each) and prints ptxas' register, shared-memory and spill
-   lines, and cuobjdump's SASS instruction mix of the int8 matmul's
-   kernels; fails if a kernel of its decode template holds an I2F.
+   lines, and cuobjdump's SASS instruction mix of the int8 matmul's and
+   the decode attention's kernels; fails if a kernel of either decode
+   template holds an I2F.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included (one row padded by 70
@@ -30,9 +31,15 @@ Phases, in order; any failure exits non-zero:
    checked and timed beside the decode one, with each one's share of the
    bound; torch._weight_int8pack_mm timed at M = 4 and 160, and
    torch._weight_int4pack_mm for int4 weight-only at M = 4.
-5. int8 decode attention vs its plain version at B=4, H=32, d=128,
-   S=674 (610 + 64): N=1 and N=8, bridge on and off, left-padded rows,
-   a per-query causal bias for N=8.
+5. int8 decode attention vs its plain version (on the same bf16 q) at B=4,
+   H=32, d=128, S = 674 (610 + 64), 673, 128 and 2048: N = 1, 2, 4, 7, 8
+   (the decode template) and 16, 64 (the rows template), bridge on and
+   off, left-padded rows, a per-query causal bias, a fully masked row;
+   each case with the template it ran (the script raises if N <= 8 took
+   the rows one); the clusters of the decode template that fit on the
+   card at each S; at S = 674 each N timed, and at N = 1 and 8 the rows
+   template checked and timed beside the decode one, with each one's
+   share of the bound.
 6. full paths, libra-11b at full width and depth with random weights from
    a seeded torch.Generator (bridge B-weights filled with noise) and the
    two-tap CLIP ViT-L/14-336 tokenizer: the bf16 tree, then the tree
@@ -272,15 +279,17 @@ def build(card: str) -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {lib.stem}:", line.strip())
-    # B2's decode template makes its weights' floats without I2F
-    lib = next(l for l in libs if l.stem.startswith("int8_matmul-"))
-    mixes = sass_mix(lib)
-    for name, mix in mixes.items():
-        print(f"  sass {lib.stem}: {name}: " + ", ".join(
-            f"{op} {n}" for op, n in sorted(mix.items())))
-    bad = [n for n, mix in mixes.items() if "int8_decode_kernel" in n and mix["I2F"]]
-    if bad or not any("int8_decode_kernel" in n for n in mixes):
-        raise AssertionError(f"B2's decode kernels missing or converting with I2F: {bad}")
+    # B2's and B3's decode templates make their int8 floats without I2F
+    for stem, kernel in (("int8_matmul-", "int8_decode_kernel"),
+                         ("decode_attention-", "attn_decode_kernel")):
+        lib = next(l for l in libs if l.stem.startswith(stem))
+        mixes = sass_mix(lib)
+        for name, mix in mixes.items():
+            print(f"  sass {lib.stem}: {name}: " + ", ".join(
+                f"{op} {n}" for op, n in sorted(mix.items())))
+        bad = [n for n, mix in mixes.items() if kernel in n and mix["I2F"]]
+        if bad or not any(kernel in n for n in mixes):
+            raise AssertionError(f"{kernel} missing or converting with I2F: {bad}")
 
 
 SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HMMA", "LDG", "LDS", "LOP3", "BAR")
@@ -656,66 +665,149 @@ def int8_library_ms(x, q, s, want, label, card):
     return cuda_ms(call)
 
 
-def check_decode_attention(card: str, dev) -> dict:
-    """Decode steps over the 674-slot int8 cache of a prompt of 610: the
-    query rows sit at slots 610 .. 610 + N - 1 (keys past them masked),
-    rows 2 and 3 left-padded by 3 and 5; N = 8 carries a per-query causal
-    bias, mixed query flags and one fully masked query row (the uniform
-    average of V). Layer views of a stacked (2, ...) cache."""
+DA_N = (1, 2, 4, 7, 8, 16, 64)    # the decode template's N, then the rows template's
+DA_S = (S_DECODE, S_DECODE - 1, 128, 2048)
+
+
+def check_decode_attention(card: str, dev) -> list:
+    """Decode steps over an int8 cache of S slots (S = 674: a prompt of 610
+    and 64 new tokens; 673, a ragged last unit; 128, one pass a rank; 2048,
+    passes): the N query rows sit at the slots min(610, S - N) onward
+    (keys past them masked), rows 2 and 3 left-padded by 3 and 5, batch
+    0's last query row fully masked (the uniform average of V); mixed query
+    flags for N > 1. Layer views of a stacked (2, ...) cache. The decode
+    template against the plain version on the same bf16 q (probabilities
+    rounded to bf16, as the Pallas kernel rounds them), the rows template,
+    whose probabilities stay fp32, against the plain version on q in fp32;
+    at S = 674 timed, the rows template beside the decode one at N = 1
+    and 8."""
     from libra_tpu_torch.ops.decode_attention import (
         int8_decode_attention, int8_decode_attention_plain)
-    S, L = S_DECODE, 2
+    L = 2
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-
-    def buf():
-        q = torch.randint(-127, 128, (L, B, H, S, HD), generator=g, device=dev,
-                          dtype=torch.int8)
-        return q, torch.rand((L, B, H, S), generator=g, device=dev) * 0.03 + 1e-3
-
-    bufs = [buf() for _ in range(4)]
-    flag_kv = torch.zeros((B, S), dtype=torch.bool, device=dev)
-    flag_kv[:, IMG0:IMG1] = True
+    for S in DA_S:
+        print(f"int8_decode_attention S={S}: decode template clusters resident "
+              f"at once: bridge {decode_clusters(S, True)}, no bridge "
+              f"{decode_clusters(S, False)} (of {B * H} a call) [{card}]")
     report = []
-    for N in (1, 8):
-        for bridge in (True, False):
-            q = torch.randn((B, N, H, HD), generator=g, device=dev).to(torch.bfloat16)
-            flag_q = torch.zeros((B, N), dtype=torch.bool, device=dev)
-            slots = torch.arange(S, device=dev)
-            keep = slots[None, None, :] <= (NQ + torch.arange(N, device=dev))[None, :, None]
-            keep = keep.expand(B, N, S).clone()
-            keep[2, :, :3] = False
-            keep[3, :, :5] = False
-            if N > 1:
-                flag_q[:, ::2] = True
+    for S in DA_S:
+        def buf():
+            q = torch.randint(-127, 128, (L, B, H, S, HD), generator=g, device=dev,
+                              dtype=torch.int8)
+            return q, torch.rand((L, B, H, S), generator=g, device=dev) * 0.03 + 1e-3
+
+        bufs = [buf() for _ in range(4)]
+        flag_kv = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        flag_kv[:, IMG0:IMG1] = True
+        for N in DA_N:
+            for bridge in (True, False):
+                q = torch.randn((B, N, H, HD), generator=g, device=dev).to(torch.bfloat16)
+                flag_q = torch.zeros((B, N), dtype=torch.bool, device=dev)
+                slots = torch.arange(S, device=dev)
+                first = min(NQ, S - N)
+                keep = slots[None, None, :] <= (first + torch.arange(N, device=dev))[None, :, None]
+                keep = keep.expand(B, N, S).clone()
+                keep[2, :, :3] = False
+                keep[3, :, :5] = False
                 keep[0, N - 1] = False
-            bias = torch.where(keep, 0.0, -2.0 ** 30).float()
-            fq = flag_q[:, 0] if N == 1 else flag_q
-            bias = bias[:, 0] if N == 1 else bias
+                if N > 1:
+                    flag_q[:, ::2] = True
+                bias = torch.where(keep, 0.0, -2.0 ** 30).float()
+                fq = flag_q[:, 0] if N == 1 else flag_q
+                bias = bias[:, 0] if N == 1 else bias
 
-            def layer(l, bridge=bridge):
-                names = ["kq", "ks", "vq", "vs", "kbq", "kbs", "vbq", "vbs"]
-                ts = [t[l] for pair in bufs[:4 if bridge else 2] for t in pair]
-                return dict(zip(names, ts))
+                def layer(l, bridge=bridge):
+                    names = ["kq", "ks", "vq", "vs", "kbq", "kbs", "vbq", "vbs"]
+                    ts = [t[l] for pair in bufs[:4 if bridge else 2] for t in pair]
+                    return dict(zip(names, ts))
 
-            kw = dict(flag_q=fq, kv_flag=flag_kv, bias=bias)
-            got = int8_decode_attention(q, **layer(1), **kw)
-            torch.cuda.synchronize()
-            label = f"int8_decode_attention N={N} bridge={bridge} S={S}"
-            err = check(label, got, int8_decode_attention_plain(q.float(), **layer(1), **kw),
-                        card)
-            turn = itertools.cycle(range(L))
-            ms = cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw))
-            plain_ms = cuda_ms(lambda: int8_decode_attention_plain(
-                q, **layer(next(turn)), **kw))
-            # score and value products over the S cached keys (x2 with the
-            # bridge); no library call reads an int8 cache
-            bnd = bound(nbytes(q, *layer(1).values(), fq, flag_kv, bias, got),
-                        2 * B * H * N * S * HD * (4 if bridge else 2))
-            print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) [{card}]")
-            report.append(dict(N=N, bridge=bridge, max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms, library_ms=None, **bnd))
+                kw = dict(flag_q=fq, kv_flag=flag_kv, bias=bias)
+                template = decode_template(q, **layer(1))
+                label = f"int8_decode_attention N={N} bridge={bridge} S={S} [{template}]"
+                if (template == "decode") != (N <= 8):
+                    raise AssertionError(f"{label}: N = {N} took the {template} template")
+                got = int8_decode_attention(q, **layer(1), **kw)
+                torch.cuda.synchronize()
+                # the decode template rounds its probabilities to bf16 as the
+                # Pallas kernel does (the plain version on bf16 q); the rows
+                # template keeps them in fp32 (the plain version on fp32 q)
+                want = int8_decode_attention_plain(q, **layer(1), **kw,
+                                                   out_dtype=torch.float32)
+                want32 = int8_decode_attention_plain(q.float(), **layer(1), **kw)
+                err = check(label, got, want if template == "decode" else want32, card)
+                row = dict(N=N, S=S, bridge=bridge, template=template, max_abs_err=err,
+                           library_ms=None)
+                report.append(row)
+                if S != S_DECODE:
+                    continue
+                turn = itertools.cycle(range(L))
+                row["ms"] = cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw))
+                # score and value products over the S cached keys (x2 with the
+                # bridge); no library call reads an int8 cache
+                row.update(bound(nbytes(q, *layer(1).values(), fq, flag_kv, bias, got),
+                                 2 * B * H * N * S * HD * (4 if bridge else 2)))
+                extra = ""
+                if N in (1, 8):
+                    row["plain_ms"] = cuda_ms(lambda: int8_decode_attention_plain(
+                        q, **layer(next(turn)), **kw))
+                    row["rows_err"] = check(f"{label} rows template",
+                                            decode_rows(q, **layer(1), **kw), want32, card)
+                    row["rows_ms"] = cuda_ms(lambda: decode_rows(q, **layer(next(turn)), **kw))
+                    extra = (f", rows template {row['rows_ms']:.4f} ms "
+                             f"({row['bound_ms'] / row['rows_ms']:.1%}), plain "
+                             f"{row['plain_ms']:.4f} ms")
+                print(f"{label}: kernel {row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} "
+                      f"of the bound){extra}, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']}) [{card}]")
+        del bufs
+        torch.cuda.empty_cache()
+    print(f"int8_decode_attention at S={S_DECODE} (ms, share of the bound: the "
+          "template it takes; the rows template): " + "; ".join(
+              f"N={r['N']} bridge={r['bridge']} {r['template']} {r['ms']:.4f} "
+              f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f})"
+              + (f", rows {r['rows_ms']:.4f} ({r['bound_ms'] / r['rows_ms']:.1%})"
+                 if "rows_ms" in r else "")
+              for r in report if r["S"] == S_DECODE) + f" [{card}]")
     return report
+
+
+def decode_template(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None) -> str:
+    """The template int8_decode_attention launches for these operands, as
+    the CUDA source's int8_decode_attention_template decides it."""
+    from libra_tpu_torch.ops import _build, decode_attention as DA
+    fn = _build.function(DA.SOURCE, "int8_decode_attention_template",
+                         (ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong))
+                         + (ctypes.c_void_p,) * 5)
+    zeros = torch.zeros((1, 1), device=q.device)   # the flag and bias strides do not decide
+    strides = DA._strides(q, kq, ks, zeros, zeros, zeros)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return "decode" if fn(q.shape[1], kq.shape[2], (ctypes.c_longlong * DA.N_STRIDES)(*strides),
+                          ptr(q), ptr(kq), ptr(vq), ptr(kbq), ptr(vbq)) else "rows"
+
+
+def decode_rows(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None,
+                flag_q=None, kv_flag=None, bias=None):
+    """The rows template alone: the C function int8_decode_attention_rows,
+    with int8_decode_attention's arguments (the parent's kernel)."""
+    from libra_tpu_torch.ops import _build, decode_attention as DA
+    fq, fk, bias = DA._flags_bias(q, kq.shape[2], flag_q, kv_flag, bias)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = _build.function(DA.SOURCE, "int8_decode_attention_rows", DA._ARGTYPES)
+    _build.check_launch(DA._launch(fn, q, kq, ks, vq, vs, kbq, kbs, vbq, vbs, fq, fk, bias,
+                                   out, _build.stream(q)), "int8_decode_attention_rows")
+    return out
+
+
+def decode_clusters(S: int, bridge: bool) -> int:
+    """The decode template's clusters that fit on the card at once for a
+    cache of S slots (cudaOccupancyMaxActiveClusters)."""
+    from libra_tpu_torch.ops import _build, decode_attention as DA
+    fn = _build.function(DA.SOURCE, "int8_decode_attention_clusters",
+                         (ctypes.c_int, ctypes.c_int))
+    n = fn(S, int(bridge))
+    if n < 1:
+        raise AssertionError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {-n}")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -1347,11 +1439,11 @@ def main() -> int:
     mm = check_matmuls(card, dev)
     da = check_decode_attention(card, dev)
     # the JSON line's times: the decode shapes (M = 4, 4096 -> 11008; N = 1
-    # with the bridge); its error: the largest over every case
+    # with the bridge, S = 674); its error: the largest over every case
     for name, rows, pick in (
             ("int8_matmul", mm["int8_matmul"], dict(M=4, F=11008, tag="")),
             ("int4_matmul", mm["int4_matmul"], dict(M=4, F=11008, tag=" a8=True")),
-            ("int8_decode_attention", da, dict(N=1, bridge=True))):
+            ("int8_decode_attention", da, dict(N=1, bridge=True, S=S_DECODE))):
         row = next(r for r in rows if all(r[k] == v for k, v in pick.items()))
         report[name] = dict(
             {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

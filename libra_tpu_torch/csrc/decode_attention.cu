@@ -7,48 +7,83 @@
 //
 //   s[j]  = (q . k[j]) * ks[j] * scale + cross[n,j] * (q . kb[j]) * kbs[j] * scale
 //   s[j]  = max(s[j] + bias[b,n,j], BIG_NEG)                 BIG_NEG = -2^30
-//   out   = sum_j a[j] * (vs[j] * v[j] + cross[n,j] * vbs[j] * vb[j])
+//   a     = softmax(s) in fp32 over all S cache slots
+//   out   = sum_j bf16(a[j] * vs[j]) * v[j] + bf16(a[j] * cross[n,j] * vbs[j]) * vb[j]
 //
-// with a = softmax(s) in fp32 over all S cache slots, k/v/kb/vb the raw int8
-// rows and ks/vs/kbs/vbs their fp32 per-(token, head) scales, and
-// cross[n,j] = flag_q[b,n] != flag_kv[b,j]. The K scales multiply the
-// scores and the V scales the probabilities, so the cache is read once, as
-// int8. A row whose keys are all masked is the uniform average of V, as the
-// BIG_NEG clamp gives it.
+// with k/v/kb/vb the raw int8 rows and ks/vs/kbs/vbs their fp32 per-(token,
+// head) scales, and cross[n,j] = flag_q[b,n] != flag_kv[b,j]. The K scales
+// multiply the scores and the V scales the probabilities, so the cache is
+// read once, as int8. A row whose keys are all masked is the uniform average
+// of V, as the BIG_NEG clamp gives it.
 //
 // What bounds it on this card: reading the cache. At B=4, H=32, S=674 one
-// layer's four int8 buffers are 44 MB (about 15 us at 3 TB/s); each byte
-// feeds N multiply-adds.
+// layer's four int8 buffers are 44 MB (13.6 us at 3.35 TB/s); each byte
+// feeds N multiply-adds, so every byte must cost a few instructions or
+// they, and not the bytes, set the time.
 //
-// Design (simple first): one block per (head, batch), 256 threads, keys in
-// tiles of 32 with an online softmax over the N <= 64 query rows:
-//   * each warp loads 4 keys of a tile, one 128-byte row of each buffer a
-//     key (4 bytes a lane, all issued before use), takes the N dot products
+// Two templates; int8_decode_attention picks one per call
+// (int8_decode_attention_template):
+//
+// * decode (N <= 8: the decode step and the spec-decode verify pass; 16-byte
+//   aligned cache rows): a cluster of RANKS = 4 blocks per (head, batch),
+//   each block a contiguous run of 16-key units of S (the last unit ragged),
+//   so 512 blocks of 128 threads at B=4, H=32, all resident at once (43 KB
+//   of shared memory at S = 674 with the bridge and at most 102 registers
+//   a thread: 5 blocks an SM). A block streams its run through two stage
+//   buffers of PASS_UNITS units each, with cp.async copies: its K (and Kb) passes
+//   first, the first two at once with its scales and bias, each next pass
+//   as soon as a buffer is consumed, then its V (and Vb) passes the same
+//   way, so V streams in while the last scores and the softmax are taken.
+//   The scores stay in shared memory. Each int8 value becomes its exact
+//   float without I2F (one XOR a word, one PRMT and one FADD a value: B2's
+//   decode conversion), and both products run on the tensor cores
+//   (mma.sync m16n8k8 tf32: int8 values, bf16 q and bf16-rounded
+//   probabilities are exact in tf32; fp32 sums), so a byte costs the same
+//   for every N <= 8:
+//   - scores S^T = K Q^T, 16 keys by the 8 query rows an mma, the K
+//     fragments by ldmatrix from chunk ^ (row % 8) swizzled rows, q held in
+//     registers under the same mapping of d to k slots;
+//   - softmax with the Pallas kernel's rounding: each block takes its rows'
+//     local max, the cluster exchanges the maxima over distributed shared
+//     memory, then the sums of exp(s - M), added in rank order; then
+//     p = bf16((exp(s - M) / L) * vs), and the same with vbs where cross
+//     holds, else 0 (keys past S: exactly 0);
+//   - values out^T = V^T P^T, 16 of warp w's 32 d columns by the 8 rows an
+//     mma, 8 keys deep: a lane reads whole words of two V rows (chunk ^
+//     2 ((row / 2) % 4) swizzled, so the loads are conflict-free) and takes
+//     the A operands from their bytes; P comes from shared memory as B;
+//   - merge: after one cluster barrier, block r adds the RANKS partial
+//     outputs of its 128 / RANKS d columns in rank order and writes
+//     bf16. One launch, no workspace, no atomics: results repeat bit for bit.
+// * rows (every other call: 8 < N <= 64, merged-prefill windows; the only
+//   template before the decode one, exported alone as
+//   int8_decode_attention_rows): one block per (head, batch), 256 threads,
+//   keys in tiles of 32 with an online softmax over the N query rows, its
+//   probabilities kept in fp32:
+//   - each warp loads 4 keys of a tile, one 128-byte row of each buffer a
+//     key (4 bytes a lane, all in flight before use), takes the N dot products
 //     with the query rows from shared memory and reduces them with shuffles;
 //     it also writes the V rows to shared memory as fp32;
-//   * warp w keeps the running max and sum of rows w, w + 8, ..., with lane
+//   - warp w keeps the running max and sum of rows w, w + 8, ..., with lane
 //     j on key j of the tile, and writes p * vs (and p * cross * vbs) to
 //     shared memory, with each row's rescale factor;
-//   * thread t accumulates column t % 128 of every row over the even
+//   - thread t accumulates column t % 128 of every row over the even
 //     (t < 128) or odd (t >= 128) keys of the tile; the halves are added at
 //     the end and divided by the row sum;
-//   * keys past S get probability exactly 0; the running max starts at
+//   - keys past S get probability exactly 0; the running max starts at
 //     BIG_NEG, so exponents never see -inf - -inf.
-// Splitting S over blocks (flash-decoding) is later work: B*H = 128 blocks
-// fill the card's 132 SMs once.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 constexpr int D = 128;          // head dim: libra-11b's, the only one built
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int BS = 32;          // keys per tile (one a lane in the softmax)
-constexpr int KPW = BS / WARPS; // keys per warp per tile: 4
 constexpr float BIG_NEG = -1073741824.0f;
 
 struct Args {
@@ -64,14 +99,37 @@ struct Args {
   const float* kbs;
   const float* vbs;
   long long s_b, s_h;
-  const uint8_t* flag_q;          // (B, N) contiguous, 0/1
-  const uint8_t* flag_kv;         // (B, S) contiguous, 0/1
+  const uint8_t* flag_q;          // (B, N) bytes, 0/1
+  long long fq_b, fq_n;
+  const uint8_t* flag_kv;         // (B, S) bytes, 0/1, unit stride in S
+  long long fk_b;
   const float* bias;              // (B, N, S), unit stride in S
   long long bias_b, bias_n;
   __nv_bfloat16* out;             // (B, N, H, D) contiguous
   int N, S, H;
   float scale;
 };
+
+// Sets the largest dynamic shared memory `kernel` takes, once per device.
+template <class F>
+cudaError_t open_once(F* kernel, bool (&opened)[16], int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && opened[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < 16) opened[dev] = true;
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// The rows template (any N <= 64)
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BS = 32;          // keys per tile (one a lane in the softmax)
+constexpr int KPW = BS / WARPS; // keys per warp per tile: 4
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -118,11 +176,11 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     const int n = i / D, c = i % D;
     Qs[i] = n < N ? __bfloat162float(a.q[b * a.q_b + n * a.q_n + h * a.q_h + c]) : 0.f;
   }
-  if (tid < NMAX) fq[tid] = tid < N ? a.flag_q[(long long)b * N + tid] : 0;
+  if (tid < NMAX) fq[tid] = tid < N ? a.flag_q[b * a.fq_b + tid * a.fq_n] : 0;
 
   const long long cbase = b * a.c_b + h * a.c_h;
   const long long sbase = b * a.s_b + h * a.s_h;
-  const uint8_t* fkv = a.flag_kv + (long long)b * a.S;
+  const uint8_t* fkv = a.flag_kv + b * a.fk_b;
 
   constexpr int RPW = NMAX / WARPS > 0 ? NMAX / WARPS : 1;   // softmax rows a warp
   float m_run[RPW], l_run[RPW];
@@ -250,10 +308,10 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
 
 template <int NMAX, bool BRIDGE>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_floats<NMAX>(BRIDGE) * sizeof(float);
+  constexpr int smem = smem_floats<NMAX>(BRIDGE) * sizeof(float);
   auto kernel = decode_attention_kernel<NMAX, BRIDGE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool opened[16];
+  const cudaError_t err = open_once(kernel, opened, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.H, B), THREADS, smem, stream>>>(a);
   return cudaGetLastError();
@@ -265,23 +323,428 @@ cudaError_t launch_n(const Args& a, int B, cudaStream_t stream) {
                          : launch<NMAX, false>(a, B, stream);
 }
 
-}  // namespace
+cudaError_t launch_rows(const Args& a, int B, cudaStream_t st) {
+  if (a.N <= 8) return launch_n<8>(a, B, st);
+  return launch_n<64>(a, B, st);
+}
 
-// q (B, N, H, 128) bf16; k/v/kb/vb (B, H, S, 128) int8 with one layout,
-// unit stride in the head dim, row stride a multiple of 4 bytes; ks/vs/
-// kbs/vbs (B, H, S) fp32 with one layout, unit stride in S; kb/vb/kbs/vbs
-// null without the bridge; flag_q (B, N) and flag_kv (B, S) uint8
-// contiguous; bias (B, N, S) fp32, unit stride in S; out (B, N, H, 128)
-// bf16 contiguous; N <= 64.
-// strides: 10 element strides, in order
-//   q (b, n, h), cache (b, h, s), scales (b, h), bias (b, n).
-// Returns the CUDA error code of the launch (0 = launched).
-extern "C" int int8_decode_attention(
-    const void* q, const void* k, const void* v, const void* kb,
-    const void* vb, const void* ks, const void* vs, const void* kbs,
-    const void* vbs, const void* flag_q, const void* flag_kv,
-    const void* bias, void* out, const long long* strides, int B, int N,
-    int S, int H, float scale, void* stream) {
+// ---------------------------------------------------------------------------
+// The decode template (N <= 8)
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+namespace cg = cooperative_groups;
+
+constexpr int RANKS = 4;               // blocks of a cluster, one run of S each
+constexpr int THREADS = 128;
+constexpr int BLOCKS_PER_SM = 5;       // at most 102 registers a thread: every cluster at once
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = 8;                // query rows: the mma's n8 tile, N <= 8
+constexpr int UNIT = 16;               // keys of a slicing unit: the score mma's m16 tile
+constexpr int PASS_UNITS = 3;          // units a stage buffer holds
+constexpr int PASS_KEYS = PASS_UNITS * UNIT;
+constexpr int ROW_BYTES = D;           // an int8 cache row
+constexpr int CHUNKS = ROW_BYTES / 16; // 16-byte chunks of a row
+constexpr int OUT_COLS = D / RANKS;    // d columns each rank finishes
+// A word w of 4 int8 values (byte e = value e): w ^ SIGN_FLIP holds each
+// b + 128 (0..255) as an unsigned byte; __byte_perm(that, MAGIC, SELe) is
+// the word 0x4B0000uu with uu the byte of value e, the fp32 2^23 + b + 128;
+// minus MAGIC_BIAS = 2^23 + 128 it is b, exact.
+constexpr uint32_t SIGN_FLIP = 0x80808080u;
+constexpr uint32_t MAGIC = 0x4B000000u;
+constexpr uint32_t SEL0 = 0x7440u;
+constexpr uint32_t SEL1 = 0x7441u;
+constexpr uint32_t SEL2 = 0x7442u;
+constexpr uint32_t SEL3 = 0x7443u;
+constexpr float MAGIC_BIAS = 8388736.f;
+constexpr int SMEM_MAX = 200 * 1024;   // dynamic shared memory the template takes
+
+static_assert(UNIT == 16, "a unit is the m16 tile of the score product");
+static_assert(WARPS * 32 == D, "warp w takes the value product's d columns [32 w, 32 w + 32)");
+static_assert(OUT_COLS % 4 == 0 && (ROWS * OUT_COLS) % THREADS == 0,
+              "a lane sends 4 adjacent columns to one rank; the merge's work splits evenly");
+
+// Shared memory of one block, byte offsets: two stage buffers of (1 or 2)
+// x pk rows; the scores, then the probabilities p * vs (ROWS x pstr fp32),
+// and p * cross * vbs with the bridge; the scales ks, vs (, kbs, vbs) of
+// the block's keys; their flags; the exchanged maxima and sums; the
+// receive buffer of the merge. nkr is the most keys a rank takes, pstr a
+// row stride of 8 mod 16 floats (conflict-free 8-byte loads of P).
+struct Smem {
+  int nkr, pk, pstr, buf, ss, pb, meta, fk, mx, sm, recv, total;
+};
+
+__host__ __device__ inline Smem layout(int S, bool bridge) {
+  Smem m;
+  const int U = (S + UNIT - 1) / UNIT;
+  const int nb = bridge ? 2 : 1;
+  m.nkr = UNIT * ((U + RANKS - 1) / RANKS);
+  m.pk = m.nkr < PASS_KEYS ? m.nkr : PASS_KEYS;
+  m.pstr = m.nkr + 8;
+  m.buf = nb * m.pk * ROW_BYTES;
+  m.ss = 2 * m.buf;
+  m.pb = m.ss + ROWS * m.pstr * 4;
+  m.meta = m.pb + (bridge ? ROWS * m.pstr * 4 : 0);
+  m.fk = m.meta + 2 * nb * m.nkr * 4;
+  m.mx = m.fk + ((m.nkr + 15) & ~15);
+  m.sm = m.mx + RANKS * ROWS * 4;
+  m.recv = m.sm + RANKS * ROWS * 4;
+  m.total = m.recv + RANKS * ROWS * OUT_COLS * 4;
+  return m;
+}
+
+// Byte offset of 16-byte chunk c of row r in a stage buffer: K rows are
+// swizzled by row % 8 (ldmatrix reads 8 rows of one chunk), V rows by
+// 2 ((row / 2) % 4) (a lane reads one word of rows 2t and 2t + 1).
+__device__ __forceinline__ uint32_t swz_k(int r, int c) {
+  return (uint32_t)(r * ROW_BYTES + ((c ^ (r & 7)) << 4));
+}
+__device__ __forceinline__ uint32_t swz_v(int r, int c) {
+  return (uint32_t)(r * ROW_BYTES + ((c ^ (((r >> 1) & 3) << 1)) << 4));
+}
+
+// 4 bytes from global to shared (zero when !pred; src must stay valid).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// The int8 value that sel picks from u = w ^ SIGN_FLIP, as its exact fp32 bits.
+__device__ __forceinline__ uint32_t i8f(uint32_t u, uint32_t sel) {
+  return __float_as_uint(__uint_as_float(__byte_perm(u, MAGIC, sel)) - MAGIC_BIAS);
+}
+
+__device__ __forceinline__ uint32_t bf16_round(float x) {   // fp32 bits of bf16(x)
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
+}
+
+// d += a b on the tensor cores, tf32 operands, fp32 sums: a m16n8k8 tile,
+// A row-major (16 x 8), B column-major (8 x 8). With g = lane / 4,
+// t = lane % 4: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (k t, n g), b1 (k t + 4, n g); d0 (g, 2 t), d1 (g, 2 t + 1),
+// d2 (g + 8, 2 t), d3 (g + 8, 2 t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Scores of one unit (16 keys from row r0 of a K stage buffer) for the 8
+// query rows: in the mma of chunk c and half e, the k slots t and t + 4 of
+// lane (g, t) are d = 16 c + 4 t + 2 e and that + 1, the bytes 2 e, 2 e + 1
+// of word t of chunk c, which ldmatrix gives the lane for key rows g and
+// g + 8; q (held as qf[c][0..3] = q[g][16 c + 4 t + 0..3]) takes the same
+// slots. Any assignment of d to k slots gives the same sums when A and B
+// agree on it, so no data moves between lanes.
+__device__ __forceinline__ void unit_scores(float (&acc)[4], uint32_t buf, int r0,
+                                            const uint32_t (&qf)[CHUNKS][4], int lane) {
+#pragma unroll
+  for (int c2 = 0; c2 < CHUNKS / 2; ++c2) {
+    uint32_t w[4];   // chunk 2 c2 of key rows g, g + 8; chunk 2 c2 + 1 of the same
+    fmma::ldsm_x4(w, buf + swz_k(r0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                 2 * c2 + (lane >> 4)));
+#pragma unroll
+    for (int hc = 0; hc < 2; ++hc) {
+      const int c = 2 * c2 + hc;
+      const uint32_t lo = w[2 * hc] ^ SIGN_FLIP, hi = w[2 * hc + 1] ^ SIGN_FLIP;
+      mma_tf32(acc, i8f(lo, SEL0), i8f(hi, SEL0), i8f(lo, SEL1), i8f(hi, SEL1), qf[c][0],
+               qf[c][1]);
+      mma_tf32(acc, i8f(lo, SEL2), i8f(hi, SEL2), i8f(lo, SEL3), i8f(hi, SEL3), qf[c][2],
+               qf[c][3]);
+    }
+  }
+}
+
+// One mma of the value product: 8 keys (rows 8 s .. 8 s + 7 of a V stage
+// buffer) by warp w's d columns. k slots t and t + 4 of lane (g, t) are the
+// rows 8 s + 2 t and 8 s + 2 t + 1; M row g of tile j is d = 32 w + 4 g + 2 j,
+// row g + 8 is d = 32 w + 4 g + 2 j + 1: bytes 2 j and 2 j + 1 of word 8 w + g
+// of the two rows. P[g][those two keys] is B.
+__device__ __forceinline__ void step_values(float (&acc)[2][4], uint32_t buf, int s,
+                                            const float* P, int lk, int warp, int g, int t) {
+  const int r = 8 * s + 2 * t;
+  const uint32_t off = 4 * (g & 3);
+  const int c = 2 * warp + (g >> 2);
+  uint32_t w0, w1;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(w0) : "r"(buf + swz_v(r, c) + off));
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(w1) : "r"(buf + swz_v(r + 1, c) + off));
+  const float2 p = *reinterpret_cast<const float2*>(P + lk + 2 * t);
+  const uint32_t b0 = __float_as_uint(p.x), b1 = __float_as_uint(p.y);
+  w0 ^= SIGN_FLIP;
+  w1 ^= SIGN_FLIP;
+  mma_tf32(acc[0], i8f(w0, SEL0), i8f(w0, SEL1), i8f(w1, SEL0), i8f(w1, SEL1), b0, b1);
+  mma_tf32(acc[1], i8f(w0, SEL2), i8f(w0, SEL3), i8f(w1, SEL2), i8f(w1, SEL3), b0, b1);
+}
+
+// Block `rank` of the cluster of (h, b) takes units [ub, ue) of S, keys
+// [k0, k0 + nk) with nk <= 16 (ue - ub), in npass passes of up to
+// PASS_UNITS units; stage i < npass is K pass i, stage npass + i is V pass
+// i, in stage buffer i % 2. Stages 0 and 1 go out first (K, then V where
+// one pass holds the run); stage i + 2 goes out once stage i is consumed.
+template <bool BRIDGE>
+__global__ void __cluster_dims__(RANKS, 1, 1) __launch_bounds__(THREADS, BLOCKS_PER_SM)
+    attn_decode_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  __shared__ uint8_t fq_s[ROWS];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int N = a.N, S = a.S;
+  constexpr int NB = BRIDGE ? 2 : 1;
+  const Smem L = layout(S, BRIDGE);
+  const int U = (S + UNIT - 1) / UNIT;
+  const int ub = U * rank / RANKS, nu = U * (rank + 1) / RANKS - ub;
+  const int k0 = UNIT * ub;
+  const int nk = nu > 0 ? min(UNIT * nu, S - k0) : 0;  // the block's live keys
+  const int npass = (nu + PASS_UNITS - 1) / PASS_UNITS;
+
+  const uint32_t base = fmma::smem_addr(dsm);
+  float* Ss = reinterpret_cast<float*>(dsm + L.ss);    // scores, then p * vs
+  float* PB = reinterpret_cast<float*>(dsm + L.pb);    // p * cross * vbs
+  float* ks_s = reinterpret_cast<float*>(dsm + L.meta);
+  float* vs_s = ks_s + L.nkr;
+  float* kbs_s = vs_s + L.nkr;
+  float* vbs_s = kbs_s + L.nkr;
+  uint8_t* fk_s = dsm + L.fk;
+  float* mx = reinterpret_cast<float*>(dsm + L.mx);    // [rank][row]
+  float* sm = reinterpret_cast<float*>(dsm + L.sm);    // [rank][row]
+  float* recv = reinterpret_cast<float*>(dsm + L.recv);   // [rank][row][OUT_COLS]
+  // this block has started: the others may write into its shared memory
+  // once they have waited on this arrival
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const long long cbase = b * a.c_b + h * a.c_h + k0 * a.c_s;
+  auto fetch = [&](int st) {
+    if (st < 2 * npass) {
+      const bool vst = st >= npass;
+      const int p = vst ? st - npass : st;
+      const int row0 = PASS_KEYS * p;
+      const int nup = min(PASS_UNITS, nu - PASS_UNITS * p);
+      const uint32_t dst0 = base + (st & 1) * L.buf;
+#pragma unroll
+      for (int bi = 0; bi < NB; ++bi) {
+        const int8_t* src = (vst ? (bi ? a.vb : a.v) : (bi ? a.kb : a.k)) + cbase;
+        const uint32_t dst = dst0 + bi * L.pk * ROW_BYTES;
+        for (int i = tid; i < UNIT * CHUNKS * nup; i += THREADS) {
+          const int r = i / CHUNKS, c = i % CHUNKS, key = row0 + r;
+          const bool ok = key < nk;
+          fmma::cp_async16(dst + (vst ? swz_v(r, c) : swz_k(r, c)),
+                           src + (ok ? key * a.c_s + 16 * c : 0), ok);
+        }
+      }
+    }
+    fmma::cp_commit();
+  };
+
+  // stage 0 (K) with the scales, bias rows and flags; then stage 1
+  {
+    const int nr = UNIT * nu;
+    const long long sb = b * a.s_b + h * a.s_h + k0;
+    for (int i = tid; i < nr; i += THREADS) {
+      const bool ok = i < nk;
+      const long long o = ok ? sb + i : 0;
+      cp_async4(fmma::smem_addr(ks_s + i), a.ks + o, ok);
+      cp_async4(fmma::smem_addr(vs_s + i), a.vs + o, ok);
+      if (BRIDGE) {
+        cp_async4(fmma::smem_addr(kbs_s + i), a.kbs + o, ok);
+        cp_async4(fmma::smem_addr(vbs_s + i), a.vbs + o, ok);
+      }
+    }
+    for (int n = 0; n < N; ++n) {
+      const float* bs = a.bias + b * a.bias_b + n * a.bias_n + k0;
+      for (int i = tid; i < nr; i += THREADS)
+        cp_async4(fmma::smem_addr(Ss + n * L.pstr + i), bs + (i < nk ? i : 0), i < nk);
+    }
+    fetch(0);
+    fetch(1);
+    for (int i = tid; i < nr; i += THREADS)
+      fk_s[i] = BRIDGE && i < nk ? a.flag_kv[b * a.fk_b + k0 + i] : 0;
+    if (tid < ROWS) fq_s[tid] = BRIDGE && tid < N ? a.flag_q[b * a.fq_b + tid * a.fq_n] : 0;
+  }
+
+  // q row g in registers, qf[c][e] = q[g][16 c + 4 t + e] (0 past N)
+  uint32_t qf[CHUNKS][4];
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c) {
+    uint2 u = make_uint2(0u, 0u);
+    if (g < N)
+      u = __ldg(reinterpret_cast<const uint2*>(a.q + b * a.q_b + g * a.q_n + h * a.q_h +
+                                               16 * c + 4 * t));
+    qf[c][0] = u.x << 16;
+    qf[c][1] = u.x & 0xFFFF0000u;
+    qf[c][2] = u.y << 16;
+    qf[c][3] = u.y & 0xFFFF0000u;
+  }
+
+  // --- scores: warp w takes units w, w + WARPS, ... of each K pass ---
+  for (int p = 0; p < npass; ++p) {
+    fmma::cp_wait<1>();
+    __syncthreads();
+    const uint32_t buf = base + (p & 1) * L.buf;
+    const int nup = min(PASS_UNITS, nu - PASS_UNITS * p);
+    for (int u = warp; u < nup; u += WARPS) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f}, accb[4] = {0.f, 0.f, 0.f, 0.f};
+      unit_scores(acc, buf, UNIT * u, qf, lane);
+      if (BRIDGE) unit_scores(accb, buf + L.pk * ROW_BYTES, UNIT * u, qf, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = 2 * t + (i & 1);
+        const int lk = PASS_KEYS * p + UNIT * u + g + 8 * (i >> 1);
+        float x = -INFINITY;   // past the last key or row: probability 0
+        if (lk < nk && n < N) {
+          x = acc[i] * ks_s[lk] * a.scale;
+          if (BRIDGE && fq_s[n] != fk_s[lk]) x += accb[i] * kbs_s[lk] * a.scale;
+          x = fmaxf(x + Ss[n * L.pstr + lk], BIG_NEG);
+        }
+        Ss[n * L.pstr + lk] = x;
+      }
+    }
+    __syncthreads();   // the buffer is consumed; the pass's scores are in Ss
+    fetch(p + 2);
+  }
+  if (npass == 0) {
+    fmma::cp_wait<0>();
+    __syncthreads();
+  }
+
+  // --- softmax: warp w takes rows 2 w, 2 w + 1; the cluster exchanges each
+  // row's max, then its sums, over distributed shared memory ---
+  const int nr = UNIT * nu;
+  float m2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = 2 * warp + i;
+    float m = BIG_NEG;
+    if (n < N)
+      for (int k = lane; k < nk; k += 32) m = fmaxf(m, Ss[n * L.pstr + k]);
+    m2[i] = warp_max(m);
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // every block has started
+  if (lane < RANKS) {
+    float* dst = cluster.map_shared_rank(mx, lane);
+    dst[rank * ROWS + 2 * warp] = m2[0];
+    dst[rank * ROWS + 2 * warp + 1] = m2[1];
+  }
+  cluster.sync();
+  float e2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = 2 * warp + i;
+    float m = mx[n];
+#pragma unroll
+    for (int r = 1; r < RANKS; ++r) m = fmaxf(m, mx[r * ROWS + n]);
+    m2[i] = m;
+    float part = 0.f;
+    if (n < N)
+      for (int k = lane; k < nk; k += 32) {
+        const float e = expf(Ss[n * L.pstr + k] - m);
+        Ss[n * L.pstr + k] = e;
+        part += e;
+      }
+    e2[i] = warp_sum(part);
+  }
+  if (lane < RANKS) {
+    float* dst = cluster.map_shared_rank(sm, lane);
+    dst[rank * ROWS + 2 * warp] = e2[0];
+    dst[rank * ROWS + 2 * warp + 1] = e2[1];
+  }
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int n = 2 * warp + i;
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < RANKS; ++r) l += sm[r * ROWS + n];
+    for (int k = lane; k < nr; k += 32) {
+      float pv = 0.f, pb = 0.f;
+      if (n < N && k < nk) {
+        const float an = Ss[n * L.pstr + k] / l;
+        pv = __uint_as_float(bf16_round(an * vs_s[k]));
+        if (BRIDGE && fq_s[n] != fk_s[k]) pb = __uint_as_float(bf16_round(an * vbs_s[k]));
+      }
+      Ss[n * L.pstr + k] = pv;
+      if (BRIDGE) PB[n * L.pstr + k] = pb;
+    }
+  }
+
+  // --- values: warp w takes d columns [32 w, 32 w + 32) over every key ---
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int p = 0; p < npass; ++p) {
+    fmma::cp_wait<1>();
+    __syncthreads();   // the pass has landed; the probabilities are written
+    const uint32_t buf = base + ((npass + p) & 1) * L.buf;
+    const int nup = min(PASS_UNITS, nu - PASS_UNITS * p);
+    for (int s = 0; s < 2 * nup; ++s) {
+      const int lk = PASS_KEYS * p + 8 * s;
+      step_values(acc, buf, s, Ss + g * L.pstr, lk, warp, g, t);
+      if (BRIDGE) step_values(acc, buf + L.pk * ROW_BYTES, s, PB + g * L.pstr, lk, warp, g, t);
+    }
+    __syncthreads();
+    fetch(npass + p + 2);
+  }
+
+  // --- merge: this lane holds out[2 t][32 w + 4 g + 0..3] and out[2 t + 1][..];
+  // rank (32 w + 4 g) / OUT_COLS finishes those columns ---
+  {
+    float* dst = cluster.map_shared_rank(recv, (32 * warp + 4 * g) / OUT_COLS);
+    const int o = (32 * warp + 4 * g) % OUT_COLS;
+    if (2 * t < N)
+      *reinterpret_cast<float4*>(dst + (rank * ROWS + 2 * t) * OUT_COLS + o) =
+          make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
+    if (2 * t + 1 < N)
+      *reinterpret_cast<float4*>(dst + (rank * ROWS + 2 * t + 1) * OUT_COLS + o) =
+          make_float4(acc[0][1], acc[0][3], acc[1][1], acc[1][3]);
+  }
+  cluster.sync();
+#pragma unroll
+  for (int i = tid; i < ROWS * OUT_COLS; i += THREADS) {
+    const int n = i / OUT_COLS, c = i % OUT_COLS;
+    if (n < N) {
+      float o = 0.f;
+#pragma unroll
+      for (int r = 0; r < RANKS; ++r) o += recv[(r * ROWS + n) * OUT_COLS + c];
+      a.out[(((long long)b * N + n) * a.H + h) * D + OUT_COLS * rank + c] = __float2bfloat16(o);
+    }
+  }
+  // Every remote write precedes the last cluster.sync; after it a block
+  // reads only its own shared memory.
+}
+
+template <bool BRIDGE>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  static bool opened[16];
+  cudaError_t e = open_once(attn_decode_kernel<BRIDGE>, opened, SMEM_MAX);
+  if (e != cudaSuccess) return e;
+  attn_decode_kernel<BRIDGE>
+      <<<dim3(RANKS, a.H, B), THREADS, layout(a.S, BRIDGE).total, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool BRIDGE>
+cudaError_t clusters(int S, int* n) {
+  static bool opened[16];
+  cudaError_t e = open_once(attn_decode_kernel<BRIDGE>, opened, SMEM_MAX);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(RANKS, 1, 1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = layout(S, BRIDGE).total;
+  return cudaOccupancyMaxActiveClusters(n, (const void*)attn_decode_kernel<BRIDGE>, &cfg);
+}
+
+}  // namespace dec
+
+Args make_args(const void* q, const void* k, const void* v, const void* kb, const void* vb,
+               const void* ks, const void* vs, const void* kbs, const void* vbs,
+               const void* flag_q, const void* flag_kv, const void* bias, void* out,
+               const long long* st, int N, int S, int H, float scale) {
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const int8_t*>(k);
@@ -296,21 +759,90 @@ extern "C" int int8_decode_attention(
   a.flag_kv = static_cast<const uint8_t*>(flag_kv);
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.q_b = strides[0];
-  a.q_n = strides[1];
-  a.q_h = strides[2];
-  a.c_b = strides[3];
-  a.c_h = strides[4];
-  a.c_s = strides[5];
-  a.s_b = strides[6];
-  a.s_h = strides[7];
-  a.bias_b = strides[8];
-  a.bias_n = strides[9];
+  a.q_b = st[0];
+  a.q_n = st[1];
+  a.q_h = st[2];
+  a.c_b = st[3];
+  a.c_h = st[4];
+  a.c_s = st[5];
+  a.s_b = st[6];
+  a.s_h = st[7];
+  a.bias_b = st[8];
+  a.bias_n = st[9];
+  a.fq_b = st[10];
+  a.fq_n = st[11];
+  a.fk_b = st[12];
   a.N = N;
   a.S = S;
   a.H = H;
   a.scale = scale;
+  return a;
+}
+
+}  // namespace
+
+// The template int8_decode_attention runs for these operands: 1 the decode
+// template, 0 the rows one. The decode template takes N <= 8 query rows,
+// 8-byte q loads (q's base, and its b, n and h strides, multiples of 4
+// elements), 16-byte cache copies (the cache bases, and the b, h and s
+// strides, multiples of 16 bytes), and an S whose shared memory fits.
+// strides: as int8_decode_attention's.
+extern "C" int int8_decode_attention_template(int N, int S, const long long* strides,
+                                              const void* q, const void* k, const void* v,
+                                              const void* kb, const void* vb) {
+  bool ok = N >= 1 && N <= dec::ROWS && S >= 1 &&
+            dec::layout(S, kb != nullptr).total <= dec::SMEM_MAX &&
+            reinterpret_cast<uintptr_t>(q) % 8 == 0;
+  for (int i = 0; i < 3; ++i) ok = ok && strides[i] % 4 == 0;
+  for (int i = 3; i < 6; ++i) ok = ok && strides[i] % 16 == 0;
+  const void* cache[4] = {k, v, kb, vb};
+  for (const void* p : cache) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return ok;
+}
+
+// The clusters of the decode template that fit on the card at once for a
+// cache of S slots, with (bridge = 1) or without the bridge; negative: the
+// CUDA error of the query.
+extern "C" int int8_decode_attention_clusters(int S, int bridge) {
+  int n = 0;
+  const cudaError_t e = bridge ? dec::clusters<true>(S, &n) : dec::clusters<false>(S, &n);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// q (B, N, H, 128) bf16; k/v/kb/vb (B, H, S, 128) int8 with one layout,
+// unit stride in the head dim, row stride a multiple of 4 bytes; ks/vs/
+// kbs/vbs (B, H, S) fp32 with one layout, unit stride in S; kb/vb/kbs/vbs
+// null without the bridge; flag_q (B, N) and flag_kv (B, S) bytes, 0/1,
+// flag_kv unit-stride in S; bias (B, N, S) fp32, unit stride in S; out
+// (B, N, H, 128) bf16 contiguous; N <= 64.
+// strides: 13 element strides, in order
+//   q (b, n, h), cache (b, h, s), scales (b, h), bias (b, n),
+//   flag_q (b, n), flag_kv (b).
+// Launches the template int8_decode_attention_template names. Returns the
+// CUDA error code of the launch (0 = launched).
+extern "C" int int8_decode_attention(
+    const void* q, const void* k, const void* v, const void* kb,
+    const void* vb, const void* ks, const void* vs, const void* kbs,
+    const void* vbs, const void* flag_q, const void* flag_kv,
+    const void* bias, void* out, const long long* strides, int B, int N,
+    int S, int H, float scale, void* stream) {
+  const Args a = make_args(q, k, v, kb, vb, ks, vs, kbs, vbs, flag_q, flag_kv, bias, out,
+                           strides, N, S, H, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 8) return (int)launch_n<8>(a, B, st);
-  return (int)launch_n<64>(a, B, st);
+  if (!int8_decode_attention_template(N, S, strides, q, k, v, kb, vb))
+    return (int)launch_rows(a, B, st);
+  return kb != nullptr ? (int)dec::launch<true>(a, B, st) : (int)dec::launch<false>(a, B, st);
+}
+
+// The rows template alone, for any N <= 64, with int8_decode_attention's
+// arguments.
+extern "C" int int8_decode_attention_rows(
+    const void* q, const void* k, const void* v, const void* kb,
+    const void* vb, const void* ks, const void* vs, const void* kbs,
+    const void* vbs, const void* flag_q, const void* flag_kv,
+    const void* bias, void* out, const long long* strides, int B, int N,
+    int S, int H, float scale, void* stream) {
+  const Args a = make_args(q, k, v, kb, vb, ks, vs, kbs, vbs, flag_q, flag_kv, bias, out,
+                           strides, N, S, H, scale);
+  return (int)launch_rows(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -8,14 +8,18 @@ layer:
     s    = (q . k_int) * k_scale / sqrt(d)
          + cross * (q . kb_int) * kb_scale / sqrt(d)
     a    = softmax(max(s + bias, BIG_NEG))                       (fp32)
-    out  = (a * v_scale) . v_int + (a * cross * vb_scale) . vb_int
+    out  = bf16(a * v_scale) . v_int + bf16(a * cross * vb_scale) . vb_int
 
-with ``cross[n, s] = flag_q[b, n] != kv_flag[b, s]``. The cache is the
-layout of ``models/libra.init_cache(quantized=True)``: int8 (B, H, S, d)
-layer views with (B, H, S) fp32 scales.
+with ``cross[n, s] = flag_q[b, n] != kv_flag[b, s]`` and the probabilities
+rounded to q's dtype (bf16 on the card) before the value products, as the
+Pallas kernel's ``_weighted_v`` rounds them (the kernel's rows template,
+for N > 8, keeps them in fp32). The cache is the layout of
+``models/libra.init_cache(quantized=True)``: int8 (B, H, S, d) layer views
+with (B, H, S) fp32 scales.
 
 On a CUDA tensor `int8_decode_attention` launches the hand-written Hopper
-kernel in ``csrc/decode_attention.cu`` or raises; on a CPU tensor it runs
+kernel in ``csrc/decode_attention.cu`` (its decode template for N <= 8,
+its rows template above) or raises; on a CPU tensor it runs
 `int8_decode_attention_plain`.
 """
 
@@ -26,13 +30,14 @@ import ctypes
 import torch
 
 from libra_tpu_torch.ops import _build
-from libra_tpu_torch.ops.flash_bridge import flash_bridged_attention_plain
+from libra_tpu_torch.ops.attention import BIG_NEG
 from libra_tpu_torch.quantization import QuantizedArray
 
 SOURCE = _build.CSRC / "decode_attention.cu"
 HEAD_DIM = 128      # libra-11b's; the kernel is built for it alone
 _ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.POINTER(ctypes.c_longlong),)
              + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_void_p))
+N_STRIDES = 13
 
 
 def decode_kernel_applicable(cache_k, q_len: int, head_dim: int) -> bool:
@@ -58,31 +63,61 @@ def _flags_bias(q, S, flag_q, kv_flag, bias):
 
 def int8_decode_attention_plain(q, kq, ks, vq, vs, kbq=None, kbs=None,
                                 vbq=None, vbs=None, flag_q=None, kv_flag=None,
-                                bias=None) -> torch.Tensor:
-    """The kernel's function in plain torch: dequantize the cache to fp32,
-    then the fp32 bridged softmax of `flash_bridged_attention_plain`."""
-    def deq(qv, s):       # head-major (B, H, S, d) -> (B, S, H, d) fp32
-        return None if qv is None else \
-            (qv.float() * s.float()[..., None]).transpose(1, 2)
-
+                                bias=None, out_dtype=None) -> torch.Tensor:
+    """The kernel's function in plain torch, as the Pallas kernel computes
+    it: fp32 scores from the raw int8 keys, scaled by the K scales; the
+    fp32 softmax a; a * v_scale and a * cross * vb_scale rounded to q's
+    dtype (``_weighted_v``), then multiplied by the raw int8 values with
+    fp32 sums. Output in `out_dtype` (default q's dtype)."""
+    d = q.shape[-1]
     fq, kv_flag, bias = _flags_bias(q, kq.shape[2], flag_q, kv_flag, bias)
-    return flash_bridged_attention_plain(
-        q, deq(kq, ks), deq(vq, vs), deq(kbq, kbs), deq(vbq, vbs),
-        fq, kv_flag, bias.float()[:, None])
+    qf = q.float()
+
+    def scores(k, s):                                     # (B, H, N, S)
+        raw = torch.einsum("bnhd,bhsd->bhns", qf, k.float())
+        return raw * s.float()[:, :, None, :] * (1.0 / d ** 0.5)
+
+    s = scores(kq, ks)
+    cross = None
+    if kbq is not None:
+        cross = (fq[:, :, None] != kv_flag[:, None, :])[:, None]   # (B, 1, N, S)
+        s = s + torch.where(cross, scores(kbq, kbs), 0.0)
+    s = torch.clamp_min(s + bias.float()[:, None], BIG_NEG)
+    a = torch.softmax(s, dim=-1)
+
+    def weighted(p, v):   # p rounded to q's dtype, as the kernels round it
+        return torch.einsum("bhns,bhsd->bnhd", p.to(q.dtype).float(), v.float())
+
+    out = weighted(a * vs.float()[:, :, None, :], vq)
+    if kbq is not None:
+        out = out + weighted(torch.where(cross, a * vbs.float()[:, :, None, :], 0.0),
+                             vbq)
+    return out.to(q.dtype if out_dtype is None else out_dtype)
+
+
+def _strides(q, kq, ks, bias, fq, fk) -> list:
+    """The C functions' 13 element strides: q (b, n, h), cache (b, h, s),
+    scales (b, h), bias (b, n), flag_q (b, n), flag_kv (b)."""
+    return [q.stride(0), q.stride(1), q.stride(2),
+            kq.stride(0), kq.stride(1), kq.stride(2),
+            ks.stride(0), ks.stride(1), bias.stride(0), bias.stride(1),
+            fq.stride(0), fq.stride(1), fk.stride(0)]
 
 
 def _launch(fn, q, kq, ks, vq, vs, kbq, kbs, vbq, vbs, fq, fk, bias, out,
             stream) -> int:
     B, N, H, d = q.shape
-    S = kq.shape[2]
-    strides = [q.stride(0), q.stride(1), q.stride(2),
-               kq.stride(0), kq.stride(1), kq.stride(2),
-               ks.stride(0), ks.stride(1), bias.stride(0), bias.stride(1)]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     return fn(ptr(q), ptr(kq), ptr(vq), ptr(kbq), ptr(vbq), ptr(ks), ptr(vs),
               ptr(kbs), ptr(vbs), ptr(fq), ptr(fk), ptr(bias), ptr(out),
-              (ctypes.c_longlong * 10)(*strides), B, N, S, H,
-              1.0 / (d ** 0.5), stream)
+              (ctypes.c_longlong * N_STRIDES)(*_strides(q, kq, ks, bias, fq, fk)),
+              B, N, kq.shape[2], H, 1.0 / (d ** 0.5), stream)
+
+
+def _flag_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A bool or uint8 flag tensor as it is (its storage is the 0/1 bytes
+    the kernel reads); any other dtype converted to uint8."""
+    return t if t.dtype in (torch.bool, torch.uint8) else t.to(torch.uint8)
 
 
 def _check(q, kq, ks, vq, vs, kbq, kbs, vbq, vbs):
@@ -123,8 +158,9 @@ def int8_decode_attention(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None,
     fp32. Returns (B, N, H, d) in q's dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bfloat16 q, d == HEAD_DIM, N <= 64) and add one to
-    `int8_decode_attention.launches`."""
+    (bfloat16 q, d == HEAD_DIM, N <= 64; the C function picks its decode
+    template for N <= 8 with aligned operands, else its rows template) and
+    add one to `int8_decode_attention.launches`."""
     if q.device.type == "cpu":
         return int8_decode_attention_plain(q, kq, ks, vq, vs, kbq, kbs, vbq,
                                            vbs, flag_q, kv_flag, bias)
@@ -132,8 +168,9 @@ def int8_decode_attention(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None,
         raise ValueError(f"int8_decode_attention: no kernel for {q.device}")
     _check(q, kq, ks, vq, vs, kbq, kbs, vbq, vbs)
     fq, kv_flag, bias = _flags_bias(q, kq.shape[2], flag_q, kv_flag, bias)
-    fq = fq.to(torch.uint8).contiguous()
-    fk = kv_flag.to(torch.uint8).contiguous()
+    fq, fk = _flag_bytes(fq), _flag_bytes(kv_flag)
+    if fk.stride(1) != 1:
+        fk = fk.contiguous()
     if bias.dtype != torch.float32 or bias.stride(2) != 1:
         raise ValueError("bias must be float32 with a unit-stride last dim")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
