@@ -7,9 +7,9 @@ Phases, in order; any failure exits non-zero:
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles the kernels' seven sources of libra_tpu_torch/csrc at once
    (one nvcc each) and prints ptxas' register, shared-memory and spill
-   lines, and cuobjdump's SASS instruction mix of the int8 matmul's and
-   the decode attention's kernels; fails if a kernel of either decode
-   template holds an I2F.
+   lines, and cuobjdump's SASS instruction mix of the int8 matmul's, the
+   decode attention's and the int4 experiment's D and C kernels; fails if
+   a kernel of those three decode templates holds an I2F or no HMMA.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included (one row padded by 70
@@ -36,10 +36,11 @@ Phases, in order; any failure exits non-zero:
    (the decode template) and 16, 64 (the rows template), bridge on and
    off, left-padded rows, a per-query causal bias, a fully masked row;
    each case with the template it ran (the script raises if N <= 8 took
-   the rows one); the clusters of the decode template that fit on the
-   card at each S; at S = 674 each N timed, and at N = 1 and 8 the rows
-   template checked and timed beside the decode one, with each one's
-   share of the bound.
+   the rows one), both templates held to the plain version on the same
+   bf16 q (both round the probabilities as the Pallas kernel does); the
+   clusters of the decode template that fit on the card at each S; at
+   S = 674 each N timed, and at N = 1 and 8 the rows template checked and
+   timed beside the decode one, with each one's share of the bound.
 6. full paths, libra-11b at full width and depth with random weights from
    a seeded torch.Generator (bridge B-weights filled with noise) and the
    two-tap CLIP ViT-L/14-336 tokenizer: the bf16 tree, then the tree
@@ -65,8 +66,11 @@ Phases, in order; any failure exits non-zero:
    O = 11008, L = 8, G = 128, M = 4, Bp = 8): the weight-only kernels D
    (both unpack widths) and C, and the W4A8 kernels in every unpack mode
    (E; H and F, each with and without the int8-domain mask; F at bp = 32),
-   against their plain versions at layers 0 and 7, to 1e-4 of max|ref|,
-   rows >= M exactly 0, timed beside torch._weight_int4pack_mm; then the
+   against their plain versions at layers 0 and 7 (M = 4) and 4 (M = 7, a
+   zero row), to 1e-4 of max|ref|, rows >= M exactly 0, timed beside
+   torch._weight_int4pack_mm; D and C on their decode template (the
+   script raises if they take the other) and on their chunked template
+   alone, each checked, the chunked one timed beside the decode one; then the
    experiment's entry point, libra_tpu_torch.tools.exp_int4.main([]), all
    21 rows.
 
@@ -279,20 +283,27 @@ def build(card: str) -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {lib.stem}:", line.strip())
-    # B2's and B3's decode templates make their int8 floats without I2F
+    # B2's, B3's and the int4 experiment's (C, D) decode templates make
+    # their floats without I2F, and their products on the tensor cores
     for stem, kernel in (("int8_matmul-", "int8_decode_kernel"),
-                         ("decode_attention-", "attn_decode_kernel")):
+                         ("decode_attention-", "attn_decode_kernel"),
+                         ("int4_exp-", "int4_exp_decode_kernel")):
         lib = next(l for l in libs if l.stem.startswith(stem))
         mixes = sass_mix(lib)
         for name, mix in mixes.items():
             print(f"  sass {lib.stem}: {name}: " + ", ".join(
                 f"{op} {n}" for op, n in sorted(mix.items())))
-        bad = [n for n, mix in mixes.items() if kernel in n and mix["I2F"]]
-        if bad or not any(kernel in n for n in mixes):
-            raise AssertionError(f"{kernel} missing or converting with I2F: {bad}")
+        ours = {n: mix for n, mix in mixes.items() if kernel in n}
+        bad = [n for n, mix in ours.items() if mix["I2F"] or not mix["HMMA"]]
+        print(f"  sass {kernel}: " + "; ".join(
+            f"{n}: I2F {mix['I2F']}, HMMA {mix['HMMA']}" for n, mix in ours.items())
+              + f" [{card}]")
+        if bad or not ours:
+            raise AssertionError(f"{kernel} missing, converting with I2F or without "
+                                 f"HMMA: {bad}")
 
 
-SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HMMA", "LDG", "LDS", "LOP3", "BAR")
+SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HFMA2", "HMMA", "LDG", "LDS", "LOP3", "BAR")
 
 
 def sass_mix(lib: Path) -> dict:
@@ -675,12 +686,10 @@ def check_decode_attention(card: str, dev) -> list:
     passes): the N query rows sit at the slots min(610, S - N) onward
     (keys past them masked), rows 2 and 3 left-padded by 3 and 5, batch
     0's last query row fully masked (the uniform average of V); mixed query
-    flags for N > 1. Layer views of a stacked (2, ...) cache. The decode
-    template against the plain version on the same bf16 q (probabilities
-    rounded to bf16, as the Pallas kernel rounds them), the rows template,
-    whose probabilities stay fp32, against the plain version on q in fp32;
-    at S = 674 timed, the rows template beside the decode one at N = 1
-    and 8."""
+    flags for N > 1. Layer views of a stacked (2, ...) cache. Both
+    templates against the plain version on the same bf16 q (probabilities
+    rounded to bf16, as the Pallas kernel rounds them); at S = 674 timed,
+    the rows template beside the decode one at N = 1 and 8."""
     from libra_tpu_torch.ops.decode_attention import (
         int8_decode_attention, int8_decode_attention_plain)
     L = 2
@@ -728,13 +737,11 @@ def check_decode_attention(card: str, dev) -> list:
                     raise AssertionError(f"{label}: N = {N} took the {template} template")
                 got = int8_decode_attention(q, **layer(1), **kw)
                 torch.cuda.synchronize()
-                # the decode template rounds its probabilities to bf16 as the
-                # Pallas kernel does (the plain version on bf16 q); the rows
-                # template keeps them in fp32 (the plain version on fp32 q)
+                # both templates round their probabilities to bf16 as the
+                # Pallas kernel does: the plain version on the same bf16 q
                 want = int8_decode_attention_plain(q, **layer(1), **kw,
                                                    out_dtype=torch.float32)
-                want32 = int8_decode_attention_plain(q.float(), **layer(1), **kw)
-                err = check(label, got, want if template == "decode" else want32, card)
+                err = check(label, got, want, card)
                 row = dict(N=N, S=S, bridge=bridge, template=template, max_abs_err=err,
                            library_ms=None)
                 report.append(row)
@@ -751,7 +758,7 @@ def check_decode_attention(card: str, dev) -> list:
                     row["plain_ms"] = cuda_ms(lambda: int8_decode_attention_plain(
                         q, **layer(next(turn)), **kw))
                     row["rows_err"] = check(f"{label} rows template",
-                                            decode_rows(q, **layer(1), **kw), want32, card)
+                                            decode_rows(q, **layer(1), **kw), want, card)
                     row["rows_ms"] = cuda_ms(lambda: decode_rows(q, **layer(next(turn)), **kw))
                     extra = (f", rows template {row['rows_ms']:.4f} ms "
                              f"({row['bound_ms'] / row['rows_ms']:.1%}), plain "
@@ -1271,22 +1278,33 @@ def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
 # ---------------------------------------------------------------------------
 
 def exp_int4_modes():
-    """Phase 8's cases: (kernel name, tag, kernel, plain version, bp). A
-    kernel's first case gives its times in the report."""
+    """Phase 8's cases: (kernel name, tag, kernel, plain version, bp, the
+    chunked template alone or None). A kernel's first case gives its times
+    in the report."""
     from libra_tpu_torch.ops import int4_exp as E
     P = functools.partial
     modes = [("int4_exp_d", " wdt=int32", P(E.int4_exp_d, wdt=torch.int32),
-              E.int4_exp_d_plain, EXP_BP),
+              E.int4_exp_d_plain, EXP_BP, P(int4_exp_chunked, mode=0, w16=0)),
              ("int4_exp_d", " wdt=int16", P(E.int4_exp_d, wdt=torch.int16),
-              E.int4_exp_d_plain, EXP_BP),
-             ("int4_exp_c", "", E.int4_exp_c, E.int4_exp_c_plain, EXP_BP),
-             ("int4_exp_e", "", E.int4_exp_e, E.int4_exp_a8_plain, EXP_BP)]
+              E.int4_exp_d_plain, EXP_BP, P(int4_exp_chunked, mode=0, w16=1)),
+             ("int4_exp_c", "", E.int4_exp_c, E.int4_exp_c_plain, EXP_BP,
+              P(int4_exp_chunked, mode=1, w16=0)),
+             ("int4_exp_e", "", E.int4_exp_e, E.int4_exp_a8_plain, EXP_BP, None)]
     for body, bp, i8mask in (("h", 8, False), ("h", 8, True), ("f", 8, False),
                              ("f", 8, True), ("f", 32, False)):
         modes.append(("int4_exp_a8", f" body={body} bp={bp} i8mask={i8mask}",
                       P(E.int4_exp_a8, body=body, bp=bp, i8mask=i8mask),
-                      P(E.int4_exp_a8_plain, bp=bp), bp))
+                      P(E.int4_exp_a8_plain, bp=bp), bp, None))
     return modes
+
+
+def int4_exp_chunked(x, packed, scales, li, group, mode, w16):
+    """D (mode 0; w16: the int16 unpack) or C (mode 1) on the chunked
+    template alone: the C function int4_exp_chunked, with int4_exp's
+    arguments (the parent's kernel)."""
+    from libra_tpu_torch.ops import int4_exp as E
+    return E._run("int4_exp_chunked", E.SOURCE, "int4_exp_chunked", E._ARGTYPES, x,
+                  packed, scales, li, group, E.BP, mode, w16)
 
 
 def check_exp_int4(card: str, dev) -> dict:
@@ -1294,9 +1312,13 @@ def check_exp_int4(card: str, dev) -> dict:
     against their plain versions in fp32 (TF32 off) on random bytes and
     scales, at layers 0 and L - 1 of the stacked buffer, and on 7 rows of
     x with an all-zero third row (the kernels' 8-row path) at layer L // 2;
-    rows >= M and the zero row exactly 0. Timed at M = 4 on layers
+    rows >= M and the zero row exactly 0. D and C take their decode
+    template there (the script raises otherwise), and their chunked
+    template is checked alone in the same way. Timed at M = 4 on layers
     rotating over the 8 (8 x 23.9 MB exceed the 50 MB L2), beside the
-    library's weight-only int4 call."""
+    library's weight-only int4 call; D's and C's chunked template timed
+    beside their decode one."""
+    from libra_tpu_torch.ops.int4_exp import int4_exp_template
     torch.backends.cuda.matmul.allow_tf32 = False
     K, O, L, G, M = EXP_K, EXP_O, EXP_L, EXP_G, EXP_M
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1308,27 +1330,37 @@ def check_exp_int4(card: str, dev) -> dict:
     x7[2] = 0
     lib_ms = int4_library_ms(x, packed, scales, G, card)
     report = {}
-    for name, tag, kernel, plain, bp in exp_int4_modes():
+    for name, tag, kernel, plain, bp, chunked in exp_int4_modes():
         errs = []
         for li, xx in ((0, x), (L - 1, x), (L // 2, x7)):
-            got = kernel(xx, packed, scales, li, G)
-            torch.cuda.synchronize()
             want = plain(xx, packed, scales, li, G)
-            err = (got - want).abs().max().item()
             tol = EXP_TOL * want.abs().max().item()
             rows = xx.shape[0]
-            print(f"{name}{tag} layer {li} M={rows} K={K} O={O}: max_abs_err {err:.6g} "
-                  f"(tol {tol:.6g}: 1e-4 of max|ref|, fp32 sums in another order) "
-                  f"[{card}]")
-            zero = got[rows:] if rows == M else torch.cat([got[2:3], got[rows:]])
-            if not (bool(torch.isfinite(got).all()) and err <= tol
-                    and tuple(got.shape) == (bp, O) and bool((zero == 0).all())):
-                raise AssertionError(f"{name}{tag}: the kernel disagrees with its "
-                                     f"plain version")
-            errs.append(err)
+            runs = [(kernel, "")]
+            if chunked is not None:
+                template = int4_exp_template(xx, packed, scales, li, G)
+                if template != "decode":
+                    raise AssertionError(f"{name}{tag} M={rows}: took the {template} "
+                                         f"template")
+                runs = [(kernel, f" [{template}]"), (chunked, " [chunked alone]")]
+            for fn, which in runs:
+                got = fn(xx, packed, scales, li, G)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                print(f"{name}{tag}{which} layer {li} M={rows} K={K} O={O}: max_abs_err "
+                      f"{err:.6g} (tol {tol:.6g}: 1e-4 of max|ref|, fp32 sums in another "
+                      f"order) [{card}]")
+                zero = got[rows:] if rows == M else torch.cat([got[2:3], got[rows:]])
+                if not (bool(torch.isfinite(got).all()) and err <= tol
+                        and tuple(got.shape) == (bp, O) and bool((zero == 0).all())):
+                    raise AssertionError(f"{name}{tag}{which}: the kernel disagrees with "
+                                         f"its plain version")
+                errs.append(err)
         turn = itertools.cycle(range(L))
         ms = cuda_ms(lambda: kernel(x, packed, scales, next(turn), G))
         plain_ms = cuda_ms(lambda: plain(x, packed, scales, next(turn), G))
+        chunked_ms = (None if chunked is None else
+                      cuda_ms(lambda: chunked(x, packed, scales, next(turn), G)))
         # the packed bytes, the scales, x and the (bp, O) fp32 result; the
         # products of the bp rows the function computes (W4A8: int8 ones)
         a8 = name in ("int4_exp_e", "int4_exp_a8")
@@ -1338,9 +1370,12 @@ def check_exp_int4(card: str, dev) -> dict:
         # weight-only one is printed beside it
         lib = (f"no library call computes W4A8; nearest, weight-only "
                f"torch._weight_int4pack_mm {lib_ms} ms" if a8 else f"library {lib_ms} ms")
+        extra = ("" if chunked_ms is None else
+                 f", chunked template {chunked_ms:.4f} ms "
+                 f"({bnd['bound_ms'] / chunked_ms:.1%} of the bound)")
         print(f"{name}{tag}: kernel {ms:.4f} ms "
               f"({nbytes(packed[0]) / ms / 1e6:.0f} GB/s over the packed bytes, "
-              f"{bnd['bound_ms'] / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+              f"{bnd['bound_ms'] / ms:.1%} of the bound){extra}, plain {plain_ms:.4f} ms, "
               f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}; the weights and "
               f"scales alone {nbytes(packed[0], scales[0]) / HBM_BPS * 1e3:.5f} ms), "
               f"{lib} [{card}]")

@@ -58,20 +58,25 @@
 // * rows (every other call: 8 < N <= 64, merged-prefill windows; the only
 //   template before the decode one, exported alone as
 //   int8_decode_attention_rows): one block per (head, batch), 256 threads,
-//   keys in tiles of 32 with an online softmax over the N query rows, its
-//   probabilities kept in fp32:
-//   - each warp loads 4 keys of a tile, one 128-byte row of each buffer a
-//     key (4 bytes a lane, all in flight before use), takes the N dot products
-//     with the query rows from shared memory and reduces them with shuffles;
-//     it also writes the V rows to shared memory as fp32;
-//   - warp w keeps the running max and sum of rows w, w + 8, ..., with lane
-//     j on key j of the tile, and writes p * vs (and p * cross * vbs) to
-//     shared memory, with each row's rescale factor;
+//   keys in tiles of 32, two passes over the tiles so that the
+//   probabilities are rounded as the Pallas kernel rounds them:
+//   - in both passes each warp loads 4 keys of a tile, one 128-byte row of
+//     K (and Kb) a key (4 bytes a lane, all in flight before use), takes
+//     the N dot products with the query rows from shared memory and
+//     reduces them with shuffles;
+//   - pass 1: warp w keeps the running max M and sum L of exp(s - M) of
+//     rows w, w + 8, ..., with lane j on key j of the tile (L rescaled as
+//     M grows);
+//   - pass 2 recomputes the scores, loads the V (and Vb) rows too and
+//     writes them to shared memory as fp32, and writes
+//     p = bf16((exp(s - M) / L) * vs) (and the same with vbs where cross
+//     holds, else 0) to shared memory: the decode template's p;
 //   - thread t accumulates column t % 128 of every row over the even
-//     (t < 128) or odd (t >= 128) keys of the tile; the halves are added at
-//     the end and divided by the row sum;
+//     (t < 128) or odd (t >= 128) keys of each tile; the halves are added
+//     at the end, with no division (p is normalized);
 //   - keys past S get probability exactly 0; the running max starts at
-//     BIG_NEG, so exponents never see -inf - -inf.
+//     BIG_NEG, so exponents never see -inf - -inf, and a fully masked row
+//     is the uniform average.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -79,7 +84,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_mma.cuh"
+#include "split_k.cuh"
 
 namespace {
 
@@ -131,11 +139,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int BS = 32;          // keys per tile (one a lane in the softmax)
 constexpr int KPW = BS / WARPS; // keys per warp per tile: 4
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using splitk::warp_sum;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -147,13 +151,16 @@ __device__ __forceinline__ float byte_f32(uint32_t w, int e) {
   return (float)(int8_t)(uint8_t)(w >> (8 * e));
 }
 
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 template <int NMAX>
 constexpr int smem_floats(bool bridge) {
   return NMAX * D                        // query rows; at the end, half sums
          + BS * D * (bridge ? 2 : 1)     // V (+ Vb) tile
-         + NMAX * BS * (bridge ? 2 : 1)  // p * vs (+ p * cross * vbs)
-         + NMAX * BS                     // scores
-         + NMAX;                         // rescale factors; at the end, sums
+         + NMAX * BS * (bridge ? 2 : 1)  // p (+ the bridge's p)
+         + NMAX * BS;                    // scores
 }
 
 template <int NMAX, bool BRIDGE>
@@ -165,7 +172,6 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
   float* Ps = VBs + (BRIDGE ? BS * D : 0);
   float* PBs = Ps + NMAX * BS;
   float* Ss = PBs + (BRIDGE ? NMAX * BS : 0);
-  float* Al = Ss + NMAX * BS;
   __shared__ uint8_t fq[NMAX];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -182,22 +188,11 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
   const long long sbase = b * a.s_b + h * a.s_h;
   const uint8_t* fkv = a.flag_kv + b * a.fk_b;
 
-  constexpr int RPW = NMAX / WARPS > 0 ? NMAX / WARPS : 1;   // softmax rows a warp
-  float m_run[RPW], l_run[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_run[i] = BIG_NEG;
-    l_run[i] = 0.f;
-  }
-  const int col = tid % D, half = tid / D;
-  float acc[NMAX];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) acc[n] = 0.f;
-
-  for (int s0 = 0; s0 < a.S; s0 += BS) {
-    __syncthreads();   // Q is staged; the previous tile is consumed
-
-    // --- scores and the V tile: warp w takes keys w * KPW .. + KPW - 1 ---
+  // The scores of the tile at s0 into Ss (-inf past the last key); with
+  // WITH_V also its V (and Vb) rows into Vs (VBs) as fp32. Warp w takes
+  // keys w * KPW .. + KPW - 1.
+  auto tile_scores = [&](int s0, auto with_v) {
+    constexpr bool WITH_V = decltype(with_v)::value;
     uint32_t kw[KPW], vw[KPW], kbw[KPW], vbw[KPW];
 #pragma unroll
     for (int jj = 0; jj < KPW; ++jj) {
@@ -205,20 +200,22 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
       const long long off = cbase + sj * a.c_s + lane * 4;
       const bool ok = sj < a.S;
       kw[jj] = ok ? __ldg(reinterpret_cast<const uint32_t*>(a.k + off)) : 0u;
-      vw[jj] = ok ? __ldg(reinterpret_cast<const uint32_t*>(a.v + off)) : 0u;
+      if (WITH_V) vw[jj] = ok ? __ldg(reinterpret_cast<const uint32_t*>(a.v + off)) : 0u;
       if (BRIDGE) {
         kbw[jj] = ok ? __ldg(reinterpret_cast<const uint32_t*>(a.kb + off)) : 0u;
-        vbw[jj] = ok ? __ldg(reinterpret_cast<const uint32_t*>(a.vb + off)) : 0u;
+        if (WITH_V) vbw[jj] = ok ? __ldg(reinterpret_cast<const uint32_t*>(a.vb + off)) : 0u;
       }
     }
 #pragma unroll
     for (int jj = 0; jj < KPW; ++jj) {
       const int j = warp * KPW + jj, sj = s0 + j;
       const bool ok = sj < a.S;
+      if (WITH_V) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        Vs[j * D + lane * 4 + e] = byte_f32(vw[jj], e);
-        if (BRIDGE) VBs[j * D + lane * 4 + e] = byte_f32(vbw[jj], e);
+        for (int e = 0; e < 4; ++e) {
+          Vs[j * D + lane * 4 + e] = byte_f32(vw[jj], e);
+          if (BRIDGE) VBs[j * D + lane * 4 + e] = byte_f32(vbw[jj], e);
+        }
       }
       const float ksc = ok ? a.ks[sbase + sj] : 0.f;
       const float kbsc = (BRIDGE && ok) ? a.kbs[sbase + sj] : 0.f;
@@ -244,33 +241,59 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
         }
       }
     }
-    __syncthreads();
+  };
 
-    // --- online softmax: warp w owns rows w, w + 8, ...; lane j is key j ---
+  // --- pass 1: each row's max M and sum L of exp(s - M); warp w owns rows
+  // w, w + 8, ...; lane j is key j of the tile ---
+  constexpr int RPW = NMAX / WARPS > 0 ? NMAX / WARPS : 1;   // softmax rows a warp
+  float m_run[RPW], l_run[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m_run[i] = BIG_NEG;
+    l_run[i] = 0.f;
+  }
+  for (int s0 = 0; s0 < a.S; s0 += BS) {
+    __syncthreads();   // Q is staged; the previous tile's scores are read
+    tile_scores(s0, std::false_type());
+    __syncthreads();
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int n = warp + WARPS * i;
       if (n >= N) continue;   // the warp's remaining rows are past N too
-      const int sj = s0 + lane;
-      const bool ok = sj < a.S;
       const float x = Ss[n * BS + lane];
       const float m_new = fmaxf(m_run[i], warp_max(x));
-      const float alpha = expf(m_run[i] - m_new);   // both finite
-      const float p = expf(x - m_new);              // 0 past the last key
-      l_run[i] = l_run[i] * alpha + warp_sum(p);
+      // both exponents finite but x past the last key (exp(-inf) = 0)
+      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + warp_sum(expf(x - m_new));
       m_run[i] = m_new;
-      Ps[n * BS + lane] = ok ? p * a.vs[sbase + sj] : 0.f;
+    }
+  }
+
+  // --- pass 2: the scores again, p = bf16((exp(s - M) / L) * vs), then
+  // the values: column `col` of every row, keys of this thread's half ---
+  const int col = tid % D, half = tid / D;
+  float acc[NMAX];
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) acc[n] = 0.f;
+  for (int s0 = 0; s0 < a.S; s0 += BS) {
+    __syncthreads();   // the previous tile's V and p are read
+    tile_scores(s0, std::true_type());
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int n = warp + WARPS * i;
+      if (n >= N) continue;
+      const int sj = s0 + lane;
+      const bool ok = sj < a.S;
+      const float an = expf(Ss[n * BS + lane] - m_run[i]) / l_run[i];
+      Ps[n * BS + lane] = ok ? bf16_rn(an * a.vs[sbase + sj]) : 0.f;
       if (BRIDGE)
-        PBs[n * BS + lane] = (ok && fq[n] != fkv[sj]) ? p * a.vbs[sbase + sj] : 0.f;
-      if (lane == 0) Al[n] = alpha;
+        PBs[n * BS + lane] = (ok && fq[n] != fkv[sj]) ? bf16_rn(an * a.vbs[sbase + sj]) : 0.f;
     }
     __syncthreads();
-
-    // --- values: column `col` of every row, keys of this thread's half ---
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
       if (n < N) {
-        float t = acc[n] * Al[n];
+        float t = acc[n];
 #pragma unroll 4
         for (int j = half; j < BS; j += 2) {
           t = fmaf(Ps[n * BS + j], Vs[j * D + col], t);
@@ -281,14 +304,9 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
     }
   }
 
-  // --- add the two halves, divide by the row sums, store bf16 ---
+  // --- add the two halves, store bf16 ---
   __syncthreads();   // Q and the last tile are no longer read
   float* Hs = Qs;    // odd-key half sums, NMAX x D
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int n = warp + WARPS * i;
-    if (n < N && lane == 0) Al[n] = l_run[i];
-  }
   if (half == 1) {
 #pragma unroll
     for (int n = 0; n < NMAX; ++n)
@@ -299,7 +317,7 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(const Args a)
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
       if (n < N) {
-        const float o = (acc[n] + Hs[n * D + col]) / Al[n];
+        const float o = acc[n] + Hs[n * D + col];
         a.out[(((long long)b * N + n) * a.H + h) * D + col] = __float2bfloat16(o);
       }
     }

@@ -18,30 +18,84 @@
 // D's weights are its TPU kernel's bf16 products. Everything else is fp32.
 // The TPU kernel's host-side prep (x padded to 8 rows, split into even and
 // odd columns, the group sums) is done here, from x and M. The W16 flag is
-// the experiment's int16 unpack (build_d's wdt): the nibbles are taken from
-// int16_t values. The card's integer registers are 32 bits wide, so nvcc
-// may emit the same instructions; the result is the same.
+// the experiment's int16 unpack (build_d's wdt): the chunked template takes
+// the nibbles from int16_t values, the decode template ignores it. The
+// card's integer registers are 32 bits wide, so nvcc may emit the same
+// instructions for both widths; the result is the same.
 //
 // What bounds it on this card: reading the packed weights (K/2 bytes a
 // column) and the fp32 scales from device memory, 23.95 MB at K = 4096,
 // F = 11008, G = 128 (7.15 us at 3.35 TB/s). Each byte feeds 2 * M
-// multiply-adds plus its unpack (and in D two bf16 roundings).
+// multiply-adds plus its unpack (and in D two bf16 roundings), so these
+// must cost a few instructions a byte or they, and not the bytes, set the
+// time.
 //
-// Design (simple first; no tensor cores): the layout of csrc/int4_matmul.cu.
-// One block per 32 output columns (344 blocks at F = 11008), 256 threads =
-// 8 column groups of 4 adjacent columns x 32 k-slices. Each block first sums
-// the groups of x's even columns into shared memory (one warp per row and
-// group), then stages x through shared memory in chunks of 512 k as fp32,
-// so the 8 x 4096 bf16 rows never have to fit at once; each thread loads
-// its 8 consecutive byte rows of the chunk (4 bytes, 4 columns, a row)
-// before using any. The warps' partial sums meet in shared memory, and the
-// thread that writes an output adds its bias correction over the groups.
+// Two templates; int4_exp picks one per call (int4_exp_template):
+//
+// * decode (M <= 8, G % 32 == 0, aligned operands: every call of the
+//   experiment): the int8 matmul's decode template (csrc/int8_matmul.cu)
+//   on the packed bytes. A block takes a 128-column tile, and K is split
+//   into units of 16 byte rows (32 k) over the 8 blocks of a cluster and
+//   over 4 pairs of warps of each block (the two warps of a pair take the
+//   two 64-column halves of the tile), each pair a contiguous run of units
+//   (one group each at K = 4096, G = 128). The grid holds as many clusters
+//   as fit on the card at once (2 blocks an SM, at most 128 registers a
+//   thread, no spills), and each walks over column tiles, so a block
+//   stages its K slice of x in shared memory as bf16 once for all its
+//   tiles, its x loads issued before its first weight loads. A warp loads
+//   a unit (16 byte rows of its 64 columns, 1 KB) and the unit's group
+//   scales as a batch, ld.global.nc.L1::no_allocate for the bytes, each
+//   lane the words of 4 adjacent columns of 4 byte rows in each 32-column
+//   group; NBUF batches in flight (the next one issued as one is used),
+//   and the next tile's first NBUF batches before the current tile's
+//   reduction; there is no barrier in the K loop. A byte holds the two k of one
+//   column that one bf16x2 register of an mma.sync m16n8k16 A fragment
+//   holds, and a word of x as stored holds the two k of its B register, so
+//   no data moves between lanes. Each byte becomes its bf16 pair without
+//   I2F: one XOR a word turns the high nibble into q1 + 8, one mask and
+//   one shift-and-mask a word split the nibbles, one PRMT a byte puts its
+//   two nibbles under the two halves (a sign-replicating selector on a
+//   nibble byte gives 0x00), one OR makes them the bf16 values 128 + n,
+//   and one bf16x2 add takes {128, 136} off: {u0, q1} for D, {q0, q1} for
+//   C (its +8 bias folded, so C needs no group sums of x). D multiplies the
+//   pair by {sh, sh} with one bf16x2 multiply that rounds once (the
+//   products are exact before it), its TPU kernel's weights bit for bit.
+//   The products run on the tensor cores (bf16 x bf16, exact in fp32; fp32
+//   sums). C multiplies a group's fp32 sums by the fp32 s[g, o] as the
+//   warp's rows leave the group; D adds -8 * bf16(cg) * sh in fp32 in the
+//   warp that holds the group's first unit, with the block's cg taken from
+//   x in its prologue. At the end of a tile the block sums its warps in
+//   warp order and stores each sum into the receive buffer of the rank that
+//   finishes its column (16 columns a rank); after one cluster barrier each
+//   rank adds the 8 blocks' sums in rank order and writes fp32. One launch,
+//   no workspace, no atomics, a fixed order, so results repeat bit for bit.
+//   It needs 16-byte x and scale loads and 4-byte weight loads (ldx, lds,
+//   F, ldp and the bases aligned to them), G % 32 == 0, and a K slice of x
+//   that fits in shared memory.
+// * chunked (every other call; the only template before the decode one,
+//   exported alone as int4_exp_chunked): no tensor cores. One block per
+//   32 output columns (344 blocks at F = 11008), 256 threads = 8 column
+//   groups of 4 adjacent columns x 32 k-slices. Each block first sums the
+//   groups of x's even columns into shared memory (one warp per row and
+//   group), then stages x through shared memory in chunks of 512 k as
+//   fp32, so the 8 x 4096 bf16 rows never have to fit at once; each thread
+//   loads its 8 consecutive byte rows of the chunk (4 bytes, 4 columns, a
+//   row) before using any. The warps' partial sums meet in shared memory,
+//   and the thread that writes an output adds its bias correction over the
+//   groups.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_k.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// The chunked template (any G, M <= 8)
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -65,6 +119,7 @@ struct Args {
   float* out;
   long long ldo;
   int M, K, F, G;
+  unsigned long long gmagic;   // the decode template: ceil(2^32 / (G / 32))
 };
 
 __device__ __forceinline__ float bf16_rn(float v) {
@@ -229,17 +284,373 @@ cudaError_t launch(const Args& a, int mode, bool w16, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// The decode template (M <= 8, G % 32 == 0, aligned operands)
+// ---------------------------------------------------------------------------
 
-// x (M, K) bf16, row stride ldx, unit stride in K, M <= 8; packed (K/2, F)
-// int8 (one layer), row stride ldp, 4-byte aligned, F % 4 == 0; scales
-// (K/G, F) fp32, row stride lds; out (8, F) fp32, row stride ldo. G even,
-// K % G == 0, K / G <= 256 (the wrapper checks). mode 0 runs D (w16: the
-// int16 unpack), mode 1 runs C. Returns the CUDA error code of the launch
-// (0 = launched).
-extern "C" int int4_exp(const void* x, long long ldx, const void* packed, long long ldp,
-                        const void* scales, long long lds, void* out, long long ldo,
-                        int M, int K, int F, int G, int mode, int w16, void* stream) {
+namespace dec {
+
+namespace cg = cooperative_groups;
+using splitk::ld_stream;
+using splitk::prmt;
+using splitk::warp_sum;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = 8;
+constexpr int KWARPS = 4;              // warps of a block along K, each pair on both column halves
+constexpr int BLOCKS_PER_SM = 2;       // the register cap: 128 a thread (at 3, 80 spills)
+constexpr int NBUF = 2;                // load batches in flight a warp
+constexpr int TILE = 128;              // output columns a block
+constexpr int WCOLS = 64;              // output columns a warp: half the tile
+constexpr int KSPLIT = 8;              // blocks of a cluster, one K slice each
+constexpr int UNIT_ROWS = 16;          // byte rows of a slicing unit and of a load batch
+constexpr int UNIT_K = 2 * UNIT_ROWS;  // k of a unit
+constexpr int SLICES = KSPLIT * KWARPS;
+constexpr int CPR = TILE / KSPLIT;     // output columns each rank finishes
+constexpr int GROUPS = WCOLS / 32;     // column groups of a warp, 32 columns each
+// A load batch: in each column group, the lane of mma group g and thread
+// t (lane = 4 g + t) loads the 4 columns 4 g .. 4 g + 3 of the byte rows
+// 4 t .. 4 t + 3 of the unit, so one warp load is 4 rows x 32 bytes and a
+// batch 1 KB a warp, with the two float4 scales of its columns' group.
+//
+// A word w of 4 packed bytes (byte c = column c): u = w ^ SIGN_FLIP holds
+// q1 + 8 (0..15) in each high nibble and u0 in each low one; lo = u &
+// NIB_MASK and hi = (u >> 4) & NIB_MASK are the nibbles as bytes. The
+// selector SELc puts lo's byte c under the low half and hi's byte c under
+// the high half of a word, with 0x00 above each (bit 3 replicates the
+// sign of a nibble byte: 0); OR BF16_128 makes the halves the bf16
+// 128 + n; a bf16x2 add of OFFSET_D = {-128, -136} (low half first) gives
+// {u0, q1}, of OFFSET_C = {-136, -136} {q0, q1}, all exact.
+constexpr uint32_t SIGN_FLIP = 0x80808080u;
+constexpr uint32_t NIB_MASK = 0x0F0F0F0Fu;
+constexpr uint32_t SEL0 = 0xC480u;
+constexpr uint32_t SEL1 = 0xD591u;
+constexpr uint32_t SEL2 = 0xE6A2u;
+constexpr uint32_t SEL3 = 0xF7B3u;
+constexpr uint32_t BF16_128 = 0x43004300u;
+constexpr uint32_t OFFSET_D = 0xC308C300u;
+constexpr uint32_t OFFSET_C = 0xC308C308u;
+constexpr uint32_t BF16_ONE = 0x3F803F80u;     // {1, 1}
+constexpr uint32_t BF16_NEG_ZERO = 0x80008000u;
+constexpr int SMEM_MAX = 160 * 1024;   // dynamic shared memory the template takes
+
+static_assert(UNIT_ROWS == 16, "a batch is 4 byte rows for each of the 4 threads of an mma group");
+static_assert(WARPS == 2 * KWARPS && 2 * WCOLS == TILE && GROUPS * 32 == WCOLS,
+              "two warps of each K slice split the tile's columns in whole groups");
+
+__host__ __device__ constexpr int k_stride(int K) {   // k of the largest K slice
+  return UNIT_K * ((K / UNIT_K + KSPLIT - 1) / KSPLIT);
+}
+// The row stride of the staged x in bf16: k_stride, an odd multiple of 32
+// (64 bytes mod 128), so the 16-byte loads of lanes of two rows of x take
+// different banks.
+__host__ __device__ constexpr int x_stride(int K) { return k_stride(K) | 32; }
+
+// Dynamic shared memory: the block's x slice as bf16 (MT, x_stride); D's
+// bf16-rounded group sums of x of the groups that start in the block (at
+// most a group a unit, MT each); the warps' fp32 sums (KWARPS, MT, TILE);
+// two receive buffers of the cluster reduction (2, KSPLIT, MT, CPR), never
+// shared: other blocks write them.
+__host__ __device__ constexpr int cg_offset(int MT, int K) { return MT * x_stride(K) * 2; }
+__host__ __device__ constexpr int sums_offset(int MT, int K) {   // 16-byte aligned
+  return cg_offset(MT, K) + MT * ((k_stride(K) / UNIT_K + 3) & ~3) * 4;
+}
+__host__ __device__ constexpr int recv_offset(int MT, int K) {
+  return sums_offset(MT, K) + KWARPS * MT * TILE * 4;
+}
+__host__ __device__ constexpr int smem_bytes(int MT, int K) {
+  return recv_offset(MT, K) + 2 * KSPLIT * MT * CPR * 4;
+}
+
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_dup(float s) {   // {bf16(s), bf16(s)}
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %1;\n" : "=r"(d) : "f"(s));
+  return d;
+}
+
+// byte c (selector sel) of a word's nibbles lo, hi as a bf16 pair, minus off
+__device__ __forceinline__ uint32_t nib_pair(uint32_t lo, uint32_t hi, uint32_t sel,
+                                             uint32_t off) {
+  return fma_bf16x2(prmt(lo, hi, sel) | BF16_128, BF16_ONE, off);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// d += a b on the tensor cores, bf16 operands, fp32 sums: a m16n8k16 tile,
+// A row-major (16 x 16), B column-major (16 x 8).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Each cluster walks over column tiles blockIdx.x, + gridDim.x, ... (the
+// launch starts as many clusters as fit on the card at once), so a block
+// stages its K slice of x once for all its tiles, and the next tile's
+// first weight batches are in flight during the current tile's reduction.
+//
+// The products run on the tensor cores, out = W^T x^T a tile of 16 columns
+// by the 8 rows of x (MT of them live) at a time. In the mma of column
+// group j, column pair p and byte-row pair h, A row g is column 32 j + 4 g
+// + 2 p of the warp's half of the tile, A row g + 8 the column after it;
+// thread t's k slots 2 t, 2 t + 1 are the two k of byte row 4 t + 2 h (its
+// low and its high nibble) and its slots 2 t + 8, 2 t + 9 those of byte
+// row 4 t + 2 h + 1: so A comes from the bytes of the lane's own words (a0,
+// a1: bytes 2 p, 2 p + 1 of row 4 t + 2 h; a2, a3: of the row after), and
+// B from its own words of x (x row g at the k pairs of those two byte
+// rows). Any assignment of k to slots gives the same sum when A and B
+// agree on it, so no data moves between lanes.
+template <int MT, bool C>
+__global__ void __cluster_dims__(1, KSPLIT, 1) __launch_bounds__(THREADS, BLOCKS_PER_SM)
+    int4_exp_decode_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;                 // mma group, thread in it
+  const int half = warp / KWARPS, kw = warp % KWARPS;   // column half, K slice
+  const int U = a.K / UNIT_K;
+  const int GU = a.G / UNIT_K;                          // units a group
+  // u / GU without a division by a runtime count (the kernel has no I2F):
+  // exact for u, GU < 2^16 (the host checks)
+  auto group_of = [&](int u) { return (int)(((unsigned long long)u * a.gmagic) >> 32); };
+  const int xstr = x_stride(a.K);
+  const int ub = U * rank / KSPLIT;                     // the block's units
+  const int nub = U * (rank + 1) / KSPLIT - ub;
+  const int sl = rank * KWARPS + kw;                    // the warp's units
+  const int u0 = U * sl / SLICES;
+  const int nb = U * (sl + 1) / SLICES - u0;            // its batches
+  const int gfirst = group_of(ub + GU - 1);             // the first group that starts in the block
+  const int ntiles = (a.F + TILE - 1) / TILE;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dsm);               // (MT, xstr)
+  float* cgs = reinterpret_cast<float*>(dsm + cg_offset(MT, a.K));         // (groups, MT)
+  float* red = reinterpret_cast<float*>(dsm + sums_offset(MT, a.K));       // (KWARPS, MT, TILE)
+  float* recv = reinterpret_cast<float*>(dsm + recv_offset(MT, a.K));      // (2, KSPLIT, MT, CPR)
+  // this block has started: the others may write into its receive buffers
+  // once they have waited on this arrival
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // x first (from L2, 16 bytes a load: a thread's first of each row), then
+  // the first tile's weights, then x into shared memory
+  const __nv_bfloat16* xb = a.x + (long long)UNIT_K * ub;
+  const int nv = UNIT_K * nub / 8;   // loads of x a row
+  auto xload = [&](int m, int v) {
+    return m < a.M ? __ldg(reinterpret_cast<const uint4*>(xb + (long long)m * a.ldx) + v)
+                   : make_uint4(0u, 0u, 0u, 0u);
+  };
+  uint4 xr[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) xr[m] = tid < nv ? xload(m, tid) : make_uint4(0u, 0u, 0u, 0u);
+
+  int tile = blockIdx.x;
+  int fl = tile * TILE + WCOLS * half + 4 * g;   // the lane's first column in column group 0
+  const int8_t* wp = a.p + ((long long)UNIT_ROWS * u0 + 4 * t) * a.ldp + fl;
+  uint32_t wq[NBUF][GROUPS][4];   // [batch % NBUF][column group][byte row 4 t + r]
+  float4 sq[NBUF][GROUPS];         // [batch % NBUF][column group]: the batch's group scales
+  auto load = [&](uint32_t(&w)[GROUPS][4], float4(&s)[GROUPS], int b) {
+    if (b >= nb) return;
+    const float* sp = a.s + (long long)group_of(u0 + b) * a.lds + fl;
+#pragma unroll
+    for (int j = 0; j < GROUPS; ++j) {
+      const bool live = fl + 32 * j < a.F;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        w[j][r] = ld_stream(wp + (long long)(UNIT_ROWS * b + r) * a.ldp + 32 * j, live);
+      s[j] = live ? __ldg(reinterpret_cast<const float4*>(sp + 32 * j))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NBUF; ++i) load(wq[i], sq[i], i);
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    uint4* d = reinterpret_cast<uint4*>(xs + m * xstr);
+    if (tid < nv) d[tid] = xr[m];
+    for (int v = tid + THREADS; v < nv; v += THREADS) d[v] = xload(m, v);
+  }
+  if (!C) {
+    // D: bf16(cg[m, g]) of the groups that start in this block (a group
+    // may reach past the block's slice of x: from L2), one warp a group
+    const int ng = group_of(ub + nub + GU - 1) - gfirst;
+    for (int gl = warp; gl < ng; gl += WARPS) {
+      const __nv_bfloat16* xg = a.x + (long long)(gfirst + gl) * a.G;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float s = 0.f;
+        if (m < a.M)
+          for (int i = lane; i < a.G / 2; i += 32) s += __bfloat162float(xg[m * a.ldx + 2 * i]);
+        s = warp_sum(s);
+        if (lane == 0) cgs[gl * MT + m] = __bfloat162float(__float2bfloat16_rn(s));
+      }
+    }
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");   // every block has started
+
+  // this thread's x: row g, k 8 t of the warp's first unit
+  const __nv_bfloat16* xw = xs + g * xstr + UNIT_K * (u0 - ub) + 8 * t;
+  for (int buf = 0; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    // [column group][column pair][mma C fragment]: C the finished groups'
+    // scaled sums, D the sums
+    float acc[GROUPS][2][4];
+    float part[GROUPS][2][4];   // C: the current group's sums
+#pragma unroll
+    for (int j = 0; j < GROUPS; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][p][c] = part[j][p][c] = 0.f;
+    auto step = [&](const uint32_t(&w)[GROUPS][4], const float4(&s)[GROUPS], int b) {
+      uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+      if (g < MT) xv = *reinterpret_cast<const uint4*>(xw + UNIT_K * b);
+      const int u = u0 + b, grp = group_of(u);
+#pragma unroll
+      for (int j = 0; j < GROUPS; ++j) {
+        uint32_t sh[4];   // D: {bf16(s), bf16(s)} of column 4 g + c
+        if (!C) {
+          sh[0] = bf16x2_dup(s[j].x);
+          sh[1] = bf16x2_dup(s[j].y);
+          sh[2] = bf16x2_dup(s[j].z);
+          sh[3] = bf16x2_dup(s[j].w);
+        }
+        uint32_t q[4][4];   // [byte row 4 t + r][column 4 g + c]: bf16 pairs
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t uw = w[j][r] ^ SIGN_FLIP;
+          const uint32_t lo = uw & NIB_MASK, hi = (uw >> 4) & NIB_MASK;
+          const uint32_t off = C ? OFFSET_C : OFFSET_D;
+          q[r][0] = nib_pair(lo, hi, SEL0, off);
+          q[r][1] = nib_pair(lo, hi, SEL1, off);
+          q[r][2] = nib_pair(lo, hi, SEL2, off);
+          q[r][3] = nib_pair(lo, hi, SEL3, off);
+          if (!C) {   // D's weights: bf16(u0 sh), bf16(q1 sh), one rounding
+#pragma unroll
+            for (int c = 0; c < 4; ++c) q[r][c] = fma_bf16x2(q[r][c], sh[c], BF16_NEG_ZERO);
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float(&d)[4] = *(C ? &part[j][p] : &acc[j][p]);
+          mma_bf16(d, q[0][2 * p], q[0][2 * p + 1], q[1][2 * p], q[1][2 * p + 1], xv.x, xv.y);
+          mma_bf16(d, q[2][2 * p], q[2][2 * p + 1], q[3][2 * p], q[3][2 * p + 1], xv.z, xv.w);
+        }
+        if (C && (u + 1 == (grp + 1) * GU || b + 1 == nb)) {
+          // the warp's rows leave the group: its sums times the scales
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[j][p][c] = fmaf(part[j][p][c], comp(s[j], 2 * p + c / 2), acc[j][p][c]);
+              part[j][p][c] = 0.f;
+            }
+        }
+        if (!C && u == grp * GU) {
+          // D: the group starts here; its bias correction, C columns 2 t
+          // and 2 t + 1 are rows of x
+          const float* cv = cgs + (grp - gfirst) * MT;
+          const float c0 = 2 * t < MT ? -8.f * cv[2 * t] : 0.f;
+          const float c1 = 2 * t + 1 < MT ? -8.f * cv[2 * t + 1] : 0.f;
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float sv = __uint_as_float(sh[2 * p + c / 2] << 16);
+              acc[j][p][c] = fmaf(c % 2 ? c1 : c0, sv, acc[j][p][c]);
+            }
+        }
+      }
+    };
+    for (int b0 = 0; b0 < nb; b0 += NBUF) {
+#pragma unroll
+      for (int i = 0; i < NBUF; ++i)
+        if (b0 + i < nb) {
+          step(wq[i], sq[i], b0 + i);
+          load(wq[i], sq[i], b0 + i + NBUF);
+        }
+    }
+    // this lane's sums into shared memory (the last tile's reads of them
+    // ended before its cluster barrier): C row g is column 32 j + 4 g + 2 p
+    // of the warp's half, row g + 8 the next; C columns 2 t and 2 t + 1 are
+    // rows of x
+#pragma unroll
+    for (int j = 0; j < GROUPS; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float* d = red + (kw * MT + 2 * t) * TILE + WCOLS * half + 32 * j + 4 * g + 2 * p;
+        if (2 * t < MT) *reinterpret_cast<float2*>(d) = make_float2(acc[j][p][0], acc[j][p][2]);
+        if (2 * t + 1 < MT)
+          *reinterpret_cast<float2*>(d + TILE) = make_float2(acc[j][p][1], acc[j][p][3]);
+      }
+
+    // the next tile's first batches go out before this tile's reduction
+    const int f = tile * TILE;   // this tile's first column
+    if (tile + (int)gridDim.x < ntiles) {
+      fl += gridDim.x * TILE;
+      wp += gridDim.x * TILE;
+#pragma unroll
+      for (int i = 0; i < NBUF; ++i) load(wq[i], sq[i], i);
+    }
+
+    // the block's sums over its K slices, in warp order, sent to the rank
+    // that finishes their columns: rank r, columns [CPR r, CPR (r + 1))
+    __syncthreads();
+    for (int i = tid; i < MT * TILE; i += THREADS) {
+      const int m = i / TILE, c = i % TILE;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < KWARPS; ++w) s += red[w * MT * TILE + i];
+      float* dst = cluster.map_shared_rank(recv, c / CPR);
+      dst[((buf * KSPLIT + rank) * MT + m) * CPR + c % CPR] = s;
+    }
+    cluster.sync();
+    // the cluster's sums, in rank order, from this block's receive buffer;
+    // every row of the (8, F) result, rows >= M exactly 0
+    if (tid < BP * CPR) {
+      const int m = tid / CPR, col = rank * CPR + tid % CPR;
+      float s = 0.f;
+      if (m < MT) {
+#pragma unroll
+        for (int r = 0; r < KSPLIT; ++r) s += recv[((buf * KSPLIT + r) * MT + m) * CPR + tid % CPR];
+      }
+      if (f + col < a.F) a.out[(long long)m * a.ldo + f + col] = m < a.M ? s : 0.f;
+    }
+  }
+  // Nothing reads or writes another block's shared memory after the last
+  // cluster.sync (the receive buffers alternate, and a block writes a
+  // buffer again only after the cluster.sync that follows its last read).
+}
+
+template <int MT, bool C>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  return splitk::launch_persistent<&int4_exp_decode_kernel<MT, C>, KSPLIT, THREADS, SMEM_MAX>(
+      a, (a.F + TILE - 1) / TILE, smem_bytes(MT, a.K), stream);
+}
+
+template <bool C>
+cudaError_t launch_m(const Args& a, cudaStream_t st) {
+  if (a.M <= 1) return launch<1, C>(a, st);
+  if (a.M <= 2) return launch<2, C>(a, st);
+  if (a.M <= 4) return launch<4, C>(a, st);
+  return launch<8, C>(a, st);
+}
+
+}  // namespace dec
+
+Args make_args(const void* x, long long ldx, const void* packed, long long ldp,
+               const void* scales, long long lds, void* out, long long ldo, int M, int K,
+               int F, int G) {
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.ldx = ldx;
@@ -253,7 +664,57 @@ extern "C" int int4_exp(const void* x, long long ldx, const void* packed, long l
   a.K = K;
   a.F = F;
   a.G = G;
+  const unsigned long long gu = G >= dec::UNIT_K ? G / dec::UNIT_K : 1;
+  a.gmagic = ((1ull << 32) + gu - 1) / gu;
+  return a;
+}
+
+cudaError_t launch_chunked(const Args& a, int mode, bool w16, cudaStream_t st) {
+  if (a.M <= 4) return launch<4>(a, mode, w16, st);
+  return launch<BP>(a, mode, w16, st);
+}
+
+}  // namespace
+
+// The template int4_exp runs for these operands: 1 the decode template, 0
+// the chunked one. The decode template takes M <= 8 rows of x, whole
+// 32-k units in a group (G % 32 == 0), 16-byte x loads (ldx a multiple of
+// 8, x's base 16-byte aligned), 16-byte scale loads (lds a multiple of 4,
+// the scales' base 16-byte aligned), 4-byte weight loads (F, ldp and the
+// packed base multiples of 4), fewer than 2^16 units, and a K slice of x
+// within its shared-memory limit.
+extern "C" int int4_exp_template(const void* x, long long ldx, const void* packed,
+                                 long long ldp, const void* scales, long long lds, int M,
+                                 int K, int F, int G) {
+  return M >= 1 && M <= 8 && G > 0 && G % dec::UNIT_K == 0 && K % G == 0 &&
+         K / dec::UNIT_K < 65536 && F % 4 == 0 && ldx % 8 == 0 && lds % 4 == 0 &&
+         ldp % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(scales) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(packed) % 4 == 0 &&
+         dec::smem_bytes(8, K) <= dec::SMEM_MAX;
+}
+
+// x (M, K) bf16, row stride ldx, unit stride in K, M <= 8; packed (K/2, F)
+// int8 (one layer), row stride ldp, 4-byte aligned, F % 4 == 0; scales
+// (K/G, F) fp32, row stride lds; out (8, F) fp32, row stride ldo. G even,
+// K % G == 0, K / G <= 256 (the wrapper checks). mode 0 runs D (w16: the
+// int16 unpack), mode 1 runs C. Launches the template int4_exp_template
+// names. Returns the CUDA error code of the launch (0 = launched).
+extern "C" int int4_exp(const void* x, long long ldx, const void* packed, long long ldp,
+                        const void* scales, long long lds, void* out, long long ldo,
+                        int M, int K, int F, int G, int mode, int w16, void* stream) {
+  const Args a = make_args(x, ldx, packed, ldp, scales, lds, out, ldo, M, K, F, G);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 4) return (int)launch<4>(a, mode, w16 != 0, st);
-  return (int)launch<BP>(a, mode, w16 != 0, st);
+  if (!int4_exp_template(x, ldx, packed, ldp, scales, lds, M, K, F, G))
+    return (int)launch_chunked(a, mode, w16 != 0, st);
+  return mode == 1 ? (int)dec::launch_m<true>(a, st) : (int)dec::launch_m<false>(a, st);
+}
+
+// The chunked template alone, with int4_exp's arguments.
+extern "C" int int4_exp_chunked(const void* x, long long ldx, const void* packed,
+                                long long ldp, const void* scales, long long lds, void* out,
+                                long long ldo, int M, int K, int F, int G, int mode, int w16,
+                                void* stream) {
+  const Args a = make_args(x, ldx, packed, ldp, scales, lds, out, ldo, M, K, F, G);
+  return (int)launch_chunked(a, mode, w16 != 0, static_cast<cudaStream_t>(stream));
 }

@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_k.cuh"
+
 #include <type_traits>
 
 namespace {
@@ -262,6 +264,7 @@ cudaError_t launch_mt(const Args& a, bool vec, bool a8, cudaStream_t stream) {
 namespace dec {
 
 namespace cg = cooperative_groups;
+using splitk::ld_stream;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = 8;
@@ -307,18 +310,6 @@ __host__ __device__ constexpr int recv_offset(int MT, bool a8, int K) {
 }
 __host__ __device__ constexpr int smem_bytes(int MT, bool a8, int K) {
   return recv_offset(MT, a8, K) + 2 * KSPLIT * MT * CPR * 4;
-}
-
-__device__ __forceinline__ uint32_t ld_stream(const int8_t* p, bool ok) {
-  uint32_t v;
-  asm volatile(
-      "{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %2, 0;\n\t"
-      "mov.b32 %0, 0;\n\t"
-      "@q ld.global.nc.L1::no_allocate.b32 %0, [%1];\n\t}"
-      : "=r"(v)
-      : "l"(p), "r"((int)ok));
-  return v;
 }
 
 __device__ __forceinline__ float4 ld_scale(const float* p, bool ok) {
@@ -569,47 +560,10 @@ __global__ void __cluster_dims__(1, KSPLIT, 1) __launch_bounds__(THREADS, 3)
   // buffer again only after the cluster.sync that follows its last read).
 }
 
-// The clusters that fit on the card at once for this kernel and shared
-// memory, queried once per device and size.
-template <int MT, bool A8>
-cudaError_t resident_clusters(int smem, int* n) {
-  static int cached_smem[16], cached_n[16];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 16 && cached_smem[dev] == smem && cached_n[dev] > 0) {
-    *n = cached_n[dev];
-    return cudaSuccess;
-  }
-  if (smem > 32 * 1024) {   // above the default 48 KB with the static arrays
-    e = cudaFuncSetAttribute(int4_decode_kernel<MT, A8>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, KSPLIT);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  e = cudaOccupancyMaxActiveClusters(n, (const void*)int4_decode_kernel<MT, A8>, &cfg);
-  if (e != cudaSuccess) return e;
-  if (*n < 1) return cudaErrorInvalidConfiguration;
-  if (dev < 16) {
-    cached_smem[dev] = smem;
-    cached_n[dev] = *n;
-  }
-  return cudaSuccess;
-}
-
 template <int MT, bool A8>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int smem = smem_bytes(MT, A8, a.K);
-  int n = 0;
-  const cudaError_t e = resident_clusters<MT, A8>(smem, &n);
-  if (e != cudaSuccess) return e;
-  const int ntiles = (a.F + TILE - 1) / TILE;
-  const dim3 grid(ntiles < n ? ntiles : n, KSPLIT);
-  int4_decode_kernel<MT, A8><<<grid, THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+  return splitk::launch_persistent<&int4_decode_kernel<MT, A8>, KSPLIT, THREADS, SMEM_MAX>(
+      a, (a.F + TILE - 1) / TILE, smem_bytes(MT, A8, a.K), stream);
 }
 
 template <int MT>

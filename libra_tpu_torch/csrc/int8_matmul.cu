@@ -66,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_k.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -197,6 +199,7 @@ cudaError_t launch_mt(const Args& a, bool vec, cudaStream_t stream) {
 namespace dec {
 
 namespace cg = cooperative_groups;
+using splitk::ld_stream;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = 8;
@@ -248,18 +251,6 @@ __host__ __device__ constexpr int recv_offset(int MT, int K) {
 }
 __host__ __device__ constexpr int smem_bytes(int MT, int K) {
   return recv_offset(MT, K) + 2 * KSPLIT * MT * CPR * 4;
-}
-
-__device__ __forceinline__ uint32_t ld_stream(const int8_t* p, bool ok) {
-  uint32_t v;
-  asm volatile(
-      "{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %2, 0;\n\t"
-      "mov.b32 %0, 0;\n\t"
-      "@q ld.global.nc.L1::no_allocate.b32 %0, [%1];\n\t}"
-      : "=r"(v)
-      : "l"(p), "r"((int)ok));
-  return v;
 }
 
 // the bf16 in the low and in the high half of a word, as fp32
@@ -457,56 +448,10 @@ __global__ void __cluster_dims__(1, KSPLIT, 1) __launch_bounds__(THREADS, 3)
   // buffer again only after the cluster.sync that follows its last read).
 }
 
-// The clusters that fit on the card at once for this kernel and shared
-// memory, queried once per device and size (a decode step alternates K =
-// 4096 and 11008, so a few sizes are kept).
-template <int MT>
-cudaError_t resident_clusters(int smem, int* n) {
-  constexpr int DEVS = 16, WAYS = 4;
-  static bool opened[DEVS];
-  static int cached_smem[DEVS][WAYS], cached_n[DEVS][WAYS], next_way[DEVS];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const bool keep = dev < DEVS;
-  if (keep)
-    for (int w = 0; w < WAYS; ++w)
-      if (cached_n[dev][w] > 0 && cached_smem[dev][w] == smem) {
-        *n = cached_n[dev][w];
-        return cudaSuccess;
-      }
-  if (!keep || !opened[dev]) {   // every size the template takes
-    e = cudaFuncSetAttribute(int8_decode_kernel<MT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return e;
-    if (keep) opened[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, KSPLIT);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  e = cudaOccupancyMaxActiveClusters(n, (const void*)int8_decode_kernel<MT>, &cfg);
-  if (e != cudaSuccess) return e;
-  if (*n < 1) return cudaErrorInvalidConfiguration;
-  if (keep) {
-    const int w = next_way[dev];
-    cached_smem[dev][w] = smem;
-    cached_n[dev][w] = *n;
-    next_way[dev] = (w + 1) % WAYS;
-  }
-  return cudaSuccess;
-}
-
 template <int MT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int smem = smem_bytes(MT, a.K);
-  int n = 0;
-  const cudaError_t e = resident_clusters<MT>(smem, &n);
-  if (e != cudaSuccess) return e;
-  const int ntiles = (a.F + TILE - 1) / TILE;
-  const dim3 grid(ntiles < n ? ntiles : n, KSPLIT);
-  int8_decode_kernel<MT><<<grid, THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+  return splitk::launch_persistent<&int8_decode_kernel<MT>, KSPLIT, THREADS, SMEM_MAX>(
+      a, (a.F + TILE - 1) / TILE, smem_bytes(MT, a.K), stream);
 }
 
 }  // namespace dec

@@ -12,8 +12,9 @@ layer:
 
 with ``cross[n, s] = flag_q[b, n] != kv_flag[b, s]`` and the probabilities
 rounded to q's dtype (bf16 on the card) before the value products, as the
-Pallas kernel's ``_weighted_v`` rounds them (the kernel's rows template,
-for N > 8, keeps them in fp32). The cache is the layout of
+Pallas kernel's ``_weighted_v`` rounds them: both of the kernel's
+templates round the normalized softmax so (the rows template, for N > 8,
+in a second pass over the keys). The cache is the layout of
 ``models/libra.init_cache(quantized=True)``: int8 (B, H, S, d) layer views
 with (B, H, S) fp32 scales.
 

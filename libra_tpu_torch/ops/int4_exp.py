@@ -24,7 +24,14 @@ u0 = q[2r] + 8 in its low nibble and q[2r + 1] in its high nibble
 On a CUDA tensor `int4_exp_d` and `int4_exp_c` launch the hand-written
 Hopper kernels of ``csrc/int4_exp.cu``, `int4_exp_e` and `int4_exp_a8`
 those of ``csrc/int4_exp_a8.cu``, or raise; on a CPU tensor they run
-`int4_exp_d_plain`, `int4_exp_c_plain` and `int4_exp_a8_plain`.
+`int4_exp_d_plain`, `int4_exp_c_plain` and `int4_exp_a8_plain`. D's and
+C's kernel has two templates, and the C function ``int4_exp_template``
+decides between them from the operands (`int4_exp_template` names its
+choice): the decode template (split-K clusters, bf16 pairs of nibbles on
+the tensor cores) for G % 32 == 0 with aligned operands, every call of the
+experiment; the chunked template for the rest, which is also exported
+alone as ``int4_exp_chunked``. It is a choice by shape: a build or launch
+failure raises.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ MAX_GROUPS = 256    # K / group: the kernel keeps the group sums of x on chip
 _TENSORS = (ctypes.c_void_p, ctypes.c_longlong) * 4 + (ctypes.c_int,) * 4
 _ARGTYPES = _TENSORS + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)      # mode, w16
 _ARGTYPES_A8 = _TENSORS + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)   # bp, i8mask, low_only
+# x, packed, scales (pointer, row stride); M, K, F, G
+_TEMPLATE_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong) * 3 + (ctypes.c_int,) * 4
 WDTS = (torch.int32, torch.int16)
 BODIES = ("h", "f")
 
@@ -163,6 +172,19 @@ def _run(name, source, entry, argtypes, x, packed, scales, li, group, bp, *flags
                 x.shape[0], x.shape[1], O, group, *flags, _build.stream(x))
     _build.check_launch(status, name)
     return out
+
+
+def int4_exp_template(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                      li: int, group: int = 128) -> str:
+    """The template `int4_exp_d` and `int4_exp_c` launch on these CUDA
+    operands, as the C function ``int4_exp_template`` decides it: "decode"
+    or "chunked"."""
+    _check("int4_exp_template", x, packed, scales, li, group)
+    p, s = packed[li], scales[li]
+    fn = _build.function(SOURCE, "int4_exp_template", _TEMPLATE_ARGTYPES)
+    return "decode" if fn(x.data_ptr(), x.stride(0), p.data_ptr(), p.stride(0),
+                          s.data_ptr(), s.stride(0), x.shape[0], x.shape[1],
+                          p.shape[1], group) else "chunked"
 
 
 def int4_exp_d(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,

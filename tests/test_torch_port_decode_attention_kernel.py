@@ -21,16 +21,28 @@ ranks, the 16-key unit, the pass length):
 * a change to a selector, the magic bias or the unit in the source text
   fails these checks.
 
+The rows template (8 < N <= 64) is emulated too: its two passes over the
+key tiles (each row's max and sum of exponentials first, then the
+normalized probabilities rounded to bf16 with their V scales, then the
+values), held against libra_tpu's Pallas kernel in interpret mode on
+bf16 q; the one-pass order with fp32 probabilities, which it replaced,
+fails the same check. The emulation proves the order, not the kernel:
+the rows kernel's source is held to that order (two loops over the key
+tiles, bf16 probabilities from exp(s - M) / L, no division after the
+loops), and edits back toward the one-pass order fail that check.
+
 The kernel itself is held against ``int8_decode_attention_plain`` on the
 card by ``chip_smoke.py`` phase 5.
 """
 
 import re
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from libra_tpu.ops.pallas import decode_attention as jda
 from libra_tpu_torch.ops import decode_attention as tda
 
 SOURCE = tda.SOURCE.read_text()
@@ -473,3 +485,194 @@ def test_variant_sources_apply(name, tmp_path, monkeypatch):
     assert (c["RANKS"], c["PASS_UNITS"], c["BLOCKS_PER_SM"]) == want
     assert text.count("TS(") == (10 if "trace" in name else 0)
     assert ("cp_wait<1>" in text) == (base != "vlate")
+
+
+# ---------------------------------------------------------------------------
+# The rows template (8 < N <= 64)
+# ---------------------------------------------------------------------------
+
+ROWS_BS = int(re.search(r"constexpr int BS = (\d+);", SOURCE).group(1))   # keys a tile
+
+
+def fma32(a, b, c) -> np.ndarray:
+    """fmaf: the exact product plus c, rounded to fp32 once."""
+    return f32(np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64))
+
+
+def f32(x) -> np.ndarray:
+    return np.asarray(x, np.float64).astype(np.float32)
+
+
+def rows_scores(q, kq, ks, kbq, kbs, cross, bias) -> np.ndarray:
+    """The rows template's scores (B, H, N, S): lane l's fmaf chain over d =
+    4 l .. 4 l + 3, the xor tree over the 32 lanes, the K scales, the
+    bridge term where cross holds, the bias and the BIG_NEG clamp."""
+    scale = np.float32(1.0 / D ** 0.5)
+    qf = q.transpose(0, 2, 1, 3)[:, :, :, None].reshape(q.shape[0], q.shape[2], q.shape[1],
+                                                        1, 32, 4)
+
+    def dots(k):
+        kf = k.astype(np.float32)[:, :, None].reshape(k.shape[0], k.shape[1], 1,
+                                                       k.shape[2], 32, 4)
+        d = np.zeros(np.broadcast_shapes(qf.shape, kf.shape)[:-1], np.float32)
+        for e in range(4):
+            d = fma32(qf[..., e], kf[..., e], d)
+        return warp_sum(d)
+
+    x = f32(f32(dots(kq) * ks[:, :, None]) * scale)
+    if kbq is not None:
+        xb = f32(f32(dots(kbq) * kbs[:, :, None]) * scale)
+        x = np.where(cross[:, None], f32(x + xb), x)
+    return np.maximum(f32(x + bias[:, None]), BIG_NEG)
+
+
+def emulate_rows(q, kq, ks, vq, vs, kbq, kbs, vbq, vbs, fq, fk, bias,
+                 two_pass: bool = True) -> np.ndarray:
+    """The rows template for every (b, h) at once: (B, N, H, 128) as bf16
+    values in fp32. `two_pass`: pass 1 keeps each row's max M and sum L of
+    exp(s - M) over the tiles of 32 keys (lane j on key j; L rescaled as M
+    grows); pass 2 writes p = bf16((exp(s - M) / L) * vs) (and with vbs
+    where cross holds); the values add p * v in fmaf chains over the even
+    and the odd keys of each tile, the halves added at the end. Otherwise
+    the one-pass order it replaced: an online softmax with fp32 p * vs,
+    divided by L at the end."""
+    B, N, H, _ = q.shape
+    S = kq.shape[2]
+    cross = fq[:, :, None] != fk[:, None, :]                          # (B, N, S)
+    x = rows_scores(q, kq, ks, kbq, kbs, cross, bias)                 # (B, H, N, S)
+    nt = -(-S // ROWS_BS)
+    xp = np.full(x.shape[:-1] + (nt * ROWS_BS,), -np.inf, np.float32)
+    xp[..., :S] = x
+    m = np.full(x.shape[:-1], BIG_NEG, np.float32)
+    ell = np.zeros_like(m)
+    acc = np.zeros((2, B, H, N, D), np.float32)                       # even, odd keys
+    vf = vq.astype(np.float32)
+    vbf = vbq.astype(np.float32) if vbq is not None else None
+
+    def values(p, pb, s0, alpha=None):
+        for hf in range(2):
+            if alpha is not None:
+                acc[hf] = f32(acc[hf] * alpha[..., None])
+            for j in range(hf, ROWS_BS, 2):
+                k = s0 + j
+                if k >= S:
+                    break
+                acc[hf] = fma32(p[..., j, None], vf[:, :, None, k], acc[hf])
+                if pb is not None:
+                    acc[hf] = fma32(pb[..., j, None], vbf[:, :, None, k], acc[hf])
+
+    def probs(e, s0):
+        j = np.minimum(s0 + np.arange(ROWS_BS), S - 1)
+        live = (s0 + np.arange(ROWS_BS)) < S
+        p = np.where(live, e * vs[:, :, None, j], 0)
+        pb = None
+        if kbq is not None:
+            cr = np.zeros((B, 1, N, ROWS_BS), bool)
+            cr[:, 0] = cross[:, :, j] & live
+            pb = np.where(cr, e * vbs[:, :, None, j], 0)
+        return p, pb
+
+    for s0 in range(0, nt * ROWS_BS, ROWS_BS):
+        xt = xp[..., s0:s0 + ROWS_BS]
+        m_new = np.maximum(m, xt.max(-1))
+        alpha = np.exp(f32(m - m_new)).astype(np.float32)
+        e = np.exp(f32(xt - m_new[..., None])).astype(np.float32)
+        ell = f32(ell * alpha + warp_sum(e))
+        m = m_new
+        if not two_pass:
+            p, pb = probs(e, s0)
+            values(f32(p), None if pb is None else f32(pb), s0, alpha)
+    if not two_pass:
+        return bf16(f32(f32(acc[0] + acc[1]) / ell[..., None])).transpose(0, 2, 1, 3)
+    for s0 in range(0, nt * ROWS_BS, ROWS_BS):
+        xt = xp[..., s0:s0 + ROWS_BS]
+        an = f32(np.exp(f32(xt - m[..., None])).astype(np.float32) / ell[..., None])
+        p, pb = probs(an, s0)
+        values(bf16(p), None if pb is None else bf16(pb), s0)
+    return bf16(f32(acc[0] + acc[1])).transpose(0, 2, 1, 3)
+
+
+def check_rows(N: int, bridge: bool, two_pass: bool) -> None:
+    """The emulation against the Pallas kernel in interpret mode on the
+    same bf16 q, bf16 outputs compared (S = 128, the Pallas kernel's
+    128-slot tiling): the same probabilities rounded at the same place,
+    sums in another order, exp in another library, so a probability's or
+    an output's bf16 rounding may flip where the two land on either side
+    of a tie: at most 0.1% of outputs differ, each by at most 2^-12 of
+    max|V| (a flipped probability) or one bf16 ulp of itself (a flipped
+    output rounding; a row with few live keys has outputs near max|V|).
+    fp32 probabilities make ~40% of outputs differ."""
+    q, kw, fq, fk, bias = case(N, 128, bridge, seed=N + bridge)
+    want = np.asarray(jda.int8_decode_attention(
+        jnp.asarray(q).astype(jnp.bfloat16), **{n: jnp.asarray(a) for n, a in kw.items()},
+        flag_q=jnp.asarray(fq), kv_flag=jnp.asarray(fk), bias=jnp.asarray(bias),
+        interpret=True), np.float32)
+    got = emulate_rows(q, kw["kq"], kw["ks"], kw["vq"], kw["vs"], kw.get("kbq"),
+                       kw.get("kbs"), kw.get("vbq"), kw.get("vbs"), fq, fk, bias, two_pass)
+    vmax = 128 * kw["vs"].max()
+    diff = np.abs(got - want)
+    ulp = np.spacing(np.abs(want).astype(np.float32)) * 2.0 ** 16      # bf16's, for normal values
+    assert (diff > 0).mean() <= 1e-3, f"{(diff > 0).mean():.2%} of outputs differ"
+    assert (diff <= np.maximum(2.0 ** -12 * vmax, ulp)).all(), diff.max() / vmax
+
+
+def rows_kernel(text: str) -> str:
+    """The body of the rows template's kernel in the source text."""
+    start = text.index("decode_attention_kernel(const Args a) {")
+    return text[start:text.index("cudaError_t launch(", start)]
+
+
+def check_rows_source(text: str) -> None:
+    """The rows kernel in `text` runs the order `emulate_rows` models with
+    `two_pass`: two loops over the key tiles; in the second, each live
+    key's probability exp(s - M) / L times its V scale (and the bridge's
+    V scale) rounded to bf16; after the loops no division by L."""
+    body = rows_kernel(text)
+    loop = "for (int s0 = 0; s0 < a.S; s0 += BS)"
+    assert body.count(loop) == 2, "not two passes over the key tiles"
+    second = body[body.rindex(loop):]
+    assert re.search(r"an = expf\(Ss\[n \* BS \+ lane\] - m_run\[i\]\) / l_run\[i\];",
+                     second), "p is not exp(s - M) / L"
+    assert "bf16_rn(an * a.vs[sbase + sj])" in second, "p * vs is not rounded to bf16"
+    assert "bf16_rn(an * a.vbs[sbase + sj])" in second, "the bridge's p is not rounded to bf16"
+    tail = second[second.index("// --- add the two halves"):]
+    assert "/" not in tail.replace("//", ""), "a division after the loops"
+
+
+@pytest.mark.parametrize("bridge", [True, False])
+@pytest.mark.parametrize("N", [16, 64])
+def test_emulated_rows_template_matches_pallas(N, bridge):
+    """N = 16 and 64 (the rows template's merged-prefill windows), batch 0's
+    last query row fully masked (the uniform average of V), batch 1
+    left-padded, a causal bias. The emulation proves the order; the source
+    is held to that order first, so a rows kernel that no longer runs it
+    fails here. The kernel itself is held to the plain version on the
+    card by ``chip_smoke.py`` phase 5."""
+    check_rows_source(SOURCE)
+    check_rows(N, bridge, two_pass=True)
+
+
+@pytest.mark.parametrize("old,new", [
+    ("bf16_rn(an * a.vs[sbase + sj])", "an * a.vs[sbase + sj]"),
+    ("bf16_rn(an * a.vbs[sbase + sj])", "an * a.vbs[sbase + sj]"),
+    ("- m_run[i]) / l_run[i];", "- m_run[i]);"),
+    ("const float o = acc[n] + Hs[n * D + col];",
+     "const float o = (acc[n] + Hs[n * D + col]) / Al[n];"),
+    ("for (int s0 = 0; s0 < a.S; s0 += BS) {\n    __syncthreads();   // Q is staged",
+     "for (int s0 = 0; s0 < 0; s0 += BS) {\n    __syncthreads();   // Q is staged"),
+])
+def test_rows_source_mutation_fails_the_order_check(old, new):
+    """Each edit back toward the one-pass order (fp32 probabilities, no
+    normalization in the loop, a final division by L, one loop) fails
+    `check_rows_source`."""
+    assert old in rows_kernel(SOURCE)
+    with pytest.raises(AssertionError):
+        check_rows_source(SOURCE.replace(old, new, 1))
+
+
+@pytest.mark.parametrize("bridge", [True, False])
+def test_one_pass_rows_order_fails_against_pallas(bridge):
+    """The order the rows template had before its repair: fp32
+    probabilities, the division by the row sum at the end."""
+    with pytest.raises(AssertionError):
+        check_rows(16, bridge, two_pass=False)

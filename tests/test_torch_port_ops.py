@@ -7,6 +7,7 @@ tests/test_pallas_kernels.py runs it.
 """
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -249,6 +250,24 @@ def test_build_tag_follows_included_headers(tmp_path):
     # the port's two flash sources include the shared header
     assert "flash_mma.cuh" in tflash.SOURCE.read_text()
     assert "flash_mma.cuh" in tflash.BWD_SOURCE.read_text()
+
+
+@pytest.mark.parametrize("source,helpers", [
+    ("int8_matmul.cu", ("ld_stream", "resident_clusters")),
+    ("int4_matmul.cu", ("ld_stream", "resident_clusters")),
+    ("int4_exp.cu", ("ld_stream", "prmt", "warp_sum", "resident_clusters")),
+    ("decode_attention.cu", ("warp_sum",)),
+])
+def test_split_k_helpers_have_one_copy(source, helpers):
+    """The split-K decode templates take their shared helpers from
+    ``split_k.cuh`` (so a source's build tag follows it) and define none
+    of them again."""
+    text = (_build.CSRC / source).read_text()
+    header = (_build.CSRC / "split_k.cuh").read_text()
+    assert re.search(r'^#include "split_k\.cuh"$', text, re.MULTILINE)
+    for name in helpers:
+        assert re.search(rf"\b{name}\(", header), name
+        assert not re.search(rf"^\S.*\b{name}\([^;]*\)\s*\{{", text, re.MULTILINE), name
 
 
 @pytest.mark.parametrize("name", ["LibraConfig", "CLIPVisionConfig",
