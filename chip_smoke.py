@@ -5,11 +5,13 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
-2. build: compiles the kernels' seven sources of libra_tpu_torch/csrc at once
+2. build: compiles the kernels' six sources of libra_tpu_torch/csrc at once
    (one nvcc each) and prints ptxas' register, shared-memory and spill
    lines, and cuobjdump's SASS instruction mix of the int8 matmul's, the
-   decode attention's and the int4 experiment's D and C kernels; fails if
-   a kernel of those three decode templates holds an I2F or no HMMA.
+   decode attention's and the int4 experiment's kernels; fails if a kernel
+   of those three decode templates holds an I2F, or if its products are
+   not on the tensor cores of their type: HMMA (bf16, tf32) for B2, B3 and
+   the experiment's D and C, IMMA (int8) and no HMMA for its W4A8 mode.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included (one row padded by 70
@@ -66,13 +68,15 @@ Phases, in order; any failure exits non-zero:
    O = 11008, L = 8, G = 128, M = 4, Bp = 8): the weight-only kernels D
    (both unpack widths) and C, and the W4A8 kernels in every unpack mode
    (E; H and F, each with and without the int8-domain mask; F at bp = 32),
-   against their plain versions at layers 0 and 7 (M = 4) and 4 (M = 7, a
-   zero row), to 1e-4 of max|ref|, rows >= M exactly 0, timed beside
-   torch._weight_int4pack_mm; D and C on their decode template (the
-   script raises if they take the other) and on their chunked template
-   alone, each checked, the chunked one timed beside the decode one; then the
-   experiment's entry point, libra_tpu_torch.tools.exp_int4.main([]), all
-   21 rows.
+   against their plain versions at layers 0 and 7 (M = 4), 4 (M = 7, a
+   zero row), 1 and 6 (M = 1 and 2: every row count the templates
+   instantiate), to 1e-4 of max|ref|, rows >= M exactly 0, timed beside
+   torch._weight_int4pack_mm; every one on its decode template (the script
+   raises if it takes the other) and on its chunked template alone, each
+   checked, the chunked one timed beside the decode one; B5's W4A8 decode
+   template (the same function, bf16 out) checked and timed at the same
+   shape; then the experiment's entry point,
+   libra_tpu_torch.tools.exp_int4.main([]), all 21 rows.
 
 Each phase-6, phase-7 and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
@@ -164,6 +168,9 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 0.02
 # phase 8, the experiment's shape (tools/exp_int4.py:46-50)
 EXP_K, EXP_O, EXP_L, EXP_G, EXP_M, EXP_BP = 4096, 11008, 8, 128, 4, 8
+# K = 2816 and 11008 give each block of a cluster 11 and 43 units of 32 k:
+# the decode template's shared memory past an odd count of units a slice
+EXP_ODD_K, EXP_ODD_O = (2816, 11008), 1024
 # D and C against their plain versions: the same products, summed in fp32
 # in another order over K = 4096 (each term's rounding is 2^-24 of it;
 # ~1e-6 of max|ref| in all); a lost bf16 rounding of D's weights moves the
@@ -193,9 +200,9 @@ KERNELS = [
     dict(name="int4_exp_c", module="libra_tpu_torch.ops.int4_exp",
          source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:213"),
     dict(name="int4_exp_e", module="libra_tpu_torch.ops.int4_exp",
-         source="libra_tpu_torch/csrc/int4_exp_a8.cu", replaces="tools/exp_int4.py:291"),
+         source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:291"),
     dict(name="int4_exp_a8", module="libra_tpu_torch.ops.int4_exp",
-         source="libra_tpu_torch/csrc/int4_exp_a8.cu", replaces="tools/exp_int4.py:420"),
+         source="libra_tpu_torch/csrc/int4_exp.cu", replaces="tools/exp_int4.py:420"),
 ]
 MATMUL_KERNEL = {"bf16": None, "int8": "int8_matmul", "int4": "int4_matmul"}
 
@@ -283,8 +290,9 @@ def build(card: str) -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {lib.stem}:", line.strip())
-    # B2's, B3's and the int4 experiment's (C, D) decode templates make
-    # their floats without I2F, and their products on the tensor cores
+    # B2's, B3's and the int4 experiment's decode templates make their
+    # floats without I2F, and their products on the tensor cores of their
+    # type
     for stem, kernel in (("int8_matmul-", "int8_decode_kernel"),
                          ("decode_attention-", "attn_decode_kernel"),
                          ("int4_exp-", "int4_exp_decode_kernel")):
@@ -294,16 +302,25 @@ def build(card: str) -> None:
             print(f"  sass {lib.stem}: {name}: " + ", ".join(
                 f"{op} {n}" for op, n in sorted(mix.items())))
         ours = {n: mix for n, mix in mixes.items() if kernel in n}
-        bad = [n for n, mix in ours.items() if mix["I2F"] or not mix["HMMA"]]
+        bad = [n for n, mix in ours.items() if mix["I2F"] or not mix[mma_op(n)]
+               or (mma_op(n) == "IMMA" and mix["HMMA"])]
         print(f"  sass {kernel}: " + "; ".join(
-            f"{n}: I2F {mix['I2F']}, HMMA {mix['HMMA']}" for n, mix in ours.items())
-              + f" [{card}]")
+            f"{n}: I2F {mix['I2F']}, HMMA {mix['HMMA']}, IMMA {mix['IMMA']}"
+            for n, mix in ours.items()) + f" [{card}]")
         if bad or not ours:
             raise AssertionError(f"{kernel} missing, converting with I2F or without "
-                                 f"HMMA: {bad}")
+                                 f"its tensor-core products: {bad}")
 
 
-SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HFMA2", "HMMA", "LDG", "LDS", "LOP3", "BAR")
+SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HFMA2", "HMMA", "IMMA", "LDG", "LDS", "LOP3",
+            "BAR")
+
+
+def mma_op(kernel: str) -> str:
+    """The tensor-core opcode a decode kernel (its mangled name) must use:
+    IMMA for the int4 experiment's W4A8 mode (template argument MODE_A8 =
+    2), HMMA for the others."""
+    return "IMMA" if re.search(r"int4_exp_decode_kernelILi\d+ELi2E", kernel) else "HMMA"
 
 
 def sass_mix(lib: Path) -> dict:
@@ -1279,22 +1296,28 @@ def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
 
 def exp_int4_modes():
     """Phase 8's cases: (kernel name, tag, kernel, plain version, bp, the
-    chunked template alone or None). A kernel's first case gives its times
-    in the report."""
+    template it takes, its chunked template alone). A kernel's first case
+    gives its times in the report."""
     from libra_tpu_torch.ops import int4_exp as E
     P = functools.partial
     modes = [("int4_exp_d", " wdt=int32", P(E.int4_exp_d, wdt=torch.int32),
-              E.int4_exp_d_plain, EXP_BP, P(int4_exp_chunked, mode=0, w16=0)),
+              E.int4_exp_d_plain, EXP_BP, E.int4_exp_template,
+              P(int4_exp_chunked, mode=0, w16=0)),
              ("int4_exp_d", " wdt=int16", P(E.int4_exp_d, wdt=torch.int16),
-              E.int4_exp_d_plain, EXP_BP, P(int4_exp_chunked, mode=0, w16=1)),
+              E.int4_exp_d_plain, EXP_BP, E.int4_exp_template,
+              P(int4_exp_chunked, mode=0, w16=1)),
              ("int4_exp_c", "", E.int4_exp_c, E.int4_exp_c_plain, EXP_BP,
-              P(int4_exp_chunked, mode=1, w16=0)),
-             ("int4_exp_e", "", E.int4_exp_e, E.int4_exp_a8_plain, EXP_BP, None)]
+              E.int4_exp_template, P(int4_exp_chunked, mode=1, w16=0)),
+             ("int4_exp_e", "", E.int4_exp_e, E.int4_exp_a8_plain, EXP_BP,
+              E.int4_exp_a8_template, P(int4_exp_a8_chunked, bp=EXP_BP, i8mask=1,
+                                        low_only=0))]
     for body, bp, i8mask in (("h", 8, False), ("h", 8, True), ("f", 8, False),
                              ("f", 8, True), ("f", 32, False)):
         modes.append(("int4_exp_a8", f" body={body} bp={bp} i8mask={i8mask}",
                       P(E.int4_exp_a8, body=body, bp=bp, i8mask=i8mask),
-                      P(E.int4_exp_a8_plain, bp=bp), bp, None))
+                      P(E.int4_exp_a8_plain, bp=bp), bp, P(E.int4_exp_a8_template, bp=bp),
+                      P(int4_exp_a8_chunked, bp=bp, i8mask=int(i8mask),
+                        low_only=int(body == "f"))))
     return modes
 
 
@@ -1307,18 +1330,30 @@ def int4_exp_chunked(x, packed, scales, li, group, mode, w16):
                   packed, scales, li, group, E.BP, mode, w16)
 
 
+def int4_exp_a8_chunked(x, packed, scales, li, group, bp, i8mask, low_only):
+    """The W4A8 function on the chunked template alone (i8mask: the unpack
+    on whole words; low_only: F's low-nibble sums): the C function
+    int4_exp_a8_chunked, with int4_exp_a8's arguments (the parent's
+    kernel)."""
+    from libra_tpu_torch.ops import int4_exp as E
+    return E._run("int4_exp_a8_chunked", E.SOURCE, "int4_exp_a8_chunked", E._ARGTYPES_A8,
+                  x, packed, scales, li, group, bp, bp, i8mask, low_only)
+
+
 def check_exp_int4(card: str, dev) -> dict:
     """D (both unpack widths), C and the W4A8 kernels (every unpack mode)
     against their plain versions in fp32 (TF32 off) on random bytes and
-    scales, at layers 0 and L - 1 of the stacked buffer, and on 7 rows of
-    x with an all-zero third row (the kernels' 8-row path) at layer L // 2;
-    rows >= M and the zero row exactly 0. D and C take their decode
-    template there (the script raises otherwise), and their chunked
-    template is checked alone in the same way. Timed at M = 4 on layers
-    rotating over the 8 (8 x 23.9 MB exceed the 50 MB L2), beside the
-    library's weight-only int4 call; D's and C's chunked template timed
-    beside their decode one."""
-    from libra_tpu_torch.ops.int4_exp import int4_exp_template
+    scales, at layers 0 and L - 1 of the stacked buffer, on 7 rows of x
+    with an all-zero third row (the kernels' 8-row path) at layer L // 2,
+    and on its first 1 and 2 rows at layers 1 and L - 2, then at M = 1 and
+    2 on K = 2816 and 11008 (an odd count of units a block's K slice); rows
+    >= M and the zero row exactly 0. Every kernel takes its decode
+    template there (the script raises otherwise), and its chunked template
+    is checked alone in the same way. Timed at M = 4 on layers rotating
+    over the 8 (8 x 23.9 MB exceed the 50 MB L2), beside the library's
+    weight-only int4 call; each chunked template timed beside its decode
+    one; B5's W4A8 decode template at the same shape beside the W4A8
+    rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     K, O, L, G, M = EXP_K, EXP_O, EXP_L, EXP_G, EXP_M
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1328,39 +1363,45 @@ def check_exp_int4(card: str, dev) -> dict:
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
     x7 = torch.randn((7, K), generator=g, device=dev).to(torch.bfloat16)
     x7[2] = 0
+    cases = [(packed, scales, li, xx, zero_rows)
+             for li, xx, zero_rows in ((0, x, []), (L - 1, x, []), (L // 2, x7, [2]),
+                                       (1, x[:1], []), (L - 2, x[:2], []))]
+    for k in EXP_ODD_K:   # an odd count of units a K slice, at M = 1 and 2
+        po = torch.randint(-128, 128, (1, k // 2, EXP_ODD_O), generator=g, device=dev,
+                           dtype=torch.int8)
+        so = torch.rand((1, k // G, EXP_ODD_O), generator=g, device=dev) * 2e-2
+        xo = torch.randn((2, k), generator=g, device=dev).to(torch.bfloat16)
+        cases += [(po, so, 0, xo[:1], []), (po, so, 0, xo, [])]
     lib_ms = int4_library_ms(x, packed, scales, G, card)
     report = {}
-    for name, tag, kernel, plain, bp, chunked in exp_int4_modes():
+    b5_ms = b5_w4a8(x, packed, scales, card)
+    for name, tag, kernel, plain, bp, template_of, chunked in exp_int4_modes():
         errs = []
-        for li, xx in ((0, x), (L - 1, x), (L // 2, x7)):
-            want = plain(xx, packed, scales, li, G)
+        for pk, sc, li, xx, zero_rows in cases:
+            want = plain(xx, pk, sc, li, G)
             tol = EXP_TOL * want.abs().max().item()
-            rows = xx.shape[0]
-            runs = [(kernel, "")]
-            if chunked is not None:
-                template = int4_exp_template(xx, packed, scales, li, G)
-                if template != "decode":
-                    raise AssertionError(f"{name}{tag} M={rows}: took the {template} "
-                                         f"template")
-                runs = [(kernel, f" [{template}]"), (chunked, " [chunked alone]")]
-            for fn, which in runs:
-                got = fn(xx, packed, scales, li, G)
+            rows, k, o = xx.shape[0], xx.shape[1], pk.shape[2]
+            template = template_of(xx, pk, sc, li, G)
+            if template != "decode":
+                raise AssertionError(f"{name}{tag} M={rows} K={k}: took the {template} "
+                                     f"template")
+            for fn, which in ((kernel, f" [{template}]"), (chunked, " [chunked alone]")):
+                got = fn(xx, pk, sc, li, G)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
-                print(f"{name}{tag}{which} layer {li} M={rows} K={K} O={O}: max_abs_err "
+                print(f"{name}{tag}{which} layer {li} M={rows} K={k} O={o}: max_abs_err "
                       f"{err:.6g} (tol {tol:.6g}: 1e-4 of max|ref|, fp32 sums in another "
                       f"order) [{card}]")
-                zero = got[rows:] if rows == M else torch.cat([got[2:3], got[rows:]])
+                zero = got[[*zero_rows, *range(rows, bp)]]
                 if not (bool(torch.isfinite(got).all()) and err <= tol
-                        and tuple(got.shape) == (bp, O) and bool((zero == 0).all())):
+                        and tuple(got.shape) == (bp, o) and bool((zero == 0).all())):
                     raise AssertionError(f"{name}{tag}{which}: the kernel disagrees with "
                                          f"its plain version")
                 errs.append(err)
         turn = itertools.cycle(range(L))
         ms = cuda_ms(lambda: kernel(x, packed, scales, next(turn), G))
         plain_ms = cuda_ms(lambda: plain(x, packed, scales, next(turn), G))
-        chunked_ms = (None if chunked is None else
-                      cuda_ms(lambda: chunked(x, packed, scales, next(turn), G)))
+        chunked_ms = cuda_ms(lambda: chunked(x, packed, scales, next(turn), G))
         # the packed bytes, the scales, x and the (bp, O) fp32 result; the
         # products of the bp rows the function computes (W4A8: int8 ones)
         a8 = name in ("int4_exp_e", "int4_exp_a8")
@@ -1369,9 +1410,9 @@ def check_exp_int4(card: str, dev) -> dict:
         # no library call computes W4A8 with group scales; the nearest,
         # weight-only one is printed beside it
         lib = (f"no library call computes W4A8; nearest, weight-only "
-               f"torch._weight_int4pack_mm {lib_ms} ms" if a8 else f"library {lib_ms} ms")
-        extra = ("" if chunked_ms is None else
-                 f", chunked template {chunked_ms:.4f} ms "
+               f"torch._weight_int4pack_mm {lib_ms} ms; B5's W4A8 decode template "
+               f"{b5_ms:.4f} ms" if a8 else f"library {lib_ms} ms")
+        extra = (f", chunked template {chunked_ms:.4f} ms "
                  f"({bnd['bound_ms'] / chunked_ms:.1%} of the bound)")
         print(f"{name}{tag}: kernel {ms:.4f} ms "
               f"({nbytes(packed[0]) / ms / 1e6:.0f} GB/s over the packed bytes, "
@@ -1386,6 +1427,33 @@ def check_exp_int4(card: str, dev) -> dict:
                                                      row["max_abs_err"]))
         report[name] = row
     return report
+
+
+def b5_w4a8(x, packed, scales, card) -> float:
+    """B5 (int4_matmul, a8=True) on the experiment's weights, which share
+    its byte layout: the same W4A8 function with a bf16 result, on its
+    decode template (the script raises otherwise), held to
+    int4_exp_a8_plain's live rows within bf16 rounding, and timed on the
+    layers rotated as the experiment's kernels are."""
+    from libra_tpu_torch.ops.int4_exp import int4_exp_a8_plain
+    from libra_tpu_torch.ops.int4_matmul import int4_matmul
+    L, G, M = packed.shape[0], EXP_G, x.shape[0]
+    template = int4_template(x, packed[0], scales[0], G)
+    if template != "decode":
+        raise AssertionError(f"int4_matmul a8 M={M}: took the {template} template")
+    got = int4_matmul(x, packed[0], scales[0], group=G, a8=True)
+    torch.cuda.synchronize()
+    check(f"int4_matmul a8=True [{template}] at the experiment's shape, M={M}", got,
+          int4_exp_a8_plain(x, packed, scales, 0, G)[:M], card)
+    turn = itertools.cycle(range(L))
+
+    def call():
+        i = next(turn)
+        return int4_matmul(x, packed[i], scales[i], group=G, a8=True)
+    ms = cuda_ms(call)
+    print(f"int4_matmul a8=True (B5's W4A8 decode template) at K={EXP_K} O={EXP_O} "
+          f"M={M}: {ms:.4f} ms [{card}]")
+    return ms
 
 
 def int4_library_ms(x, packed, scales, group, card):

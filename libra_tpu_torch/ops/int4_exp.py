@@ -21,17 +21,27 @@ The byte layout is `int4_matmul.pack_int4`'s: byte r of a column holds
 u0 = q[2r] + 8 in its low nibble and q[2r + 1] in its high nibble
 (arithmetic shift of the signed byte).
 
-On a CUDA tensor `int4_exp_d` and `int4_exp_c` launch the hand-written
-Hopper kernels of ``csrc/int4_exp.cu``, `int4_exp_e` and `int4_exp_a8`
-those of ``csrc/int4_exp_a8.cu``, or raise; on a CPU tensor they run
-`int4_exp_d_plain`, `int4_exp_c_plain` and `int4_exp_a8_plain`. D's and
-C's kernel has two templates, and the C function ``int4_exp_template``
-decides between them from the operands (`int4_exp_template` names its
-choice): the decode template (split-K clusters, bf16 pairs of nibbles on
-the tensor cores) for G % 32 == 0 with aligned operands, every call of the
-experiment; the chunked template for the rest, which is also exported
-alone as ``int4_exp_chunked``. It is a choice by shape: a build or launch
-failure raises.
+On a CUDA tensor the four wrappers launch the hand-written Hopper kernels
+of ``csrc/int4_exp.cu``, or raise; on a CPU tensor they run
+`int4_exp_d_plain`, `int4_exp_c_plain` and `int4_exp_a8_plain`. Each of
+the two functions (D and C; the W4A8 function of E, H and F) has two
+templates, and a C function decides between them from the operands
+(``int4_exp_template``, ``int4_exp_a8_template``; `int4_exp_template` and
+`int4_exp_a8_template` name the choice): the decode template (split-K
+clusters on the tensor cores: D and C as bf16 pairs of nibbles on
+``mma.sync`` m16n8k16, W4A8 as u8 nibbles against the int8 x on
+m16n8k32) for G % 32 == 0 with aligned operands (W4A8 also G <= 4096),
+every call of the experiment; the chunked template for the rest, which
+is also exported alone (``int4_exp_chunked``, ``int4_exp_a8_chunked``).
+It is a choice by shape: a build or launch failure raises.
+
+The W4A8 rows' options `i8mask` and `body` (and D's `wdt`) pick the
+chunked template's unpack and select nothing on the decode template. The
+card's integer registers are 32 bits wide, so the int8-domain and the
+int32-widened unpack are the same word operations there; F's saving,
+never unpacking the high nibble, buys nothing where the high nibble costs
+one LOP3 a word, and F's raw byte would need a third product. The result
+does not depend on them.
 """
 
 from __future__ import annotations
@@ -43,7 +53,6 @@ import torch
 from libra_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC / "int4_exp.cu"
-SOURCE_A8 = _build.CSRC / "int4_exp_a8.cu"
 BP = 8              # rows of the result: x padded to 8, as the TPU blocks are
 BPS = (BP, 32)      # the W4A8 rows' padded row counts (F32R: 32)
 MAX_GROUPS = 256    # K / group: the kernel keeps the group sums of x on chip
@@ -53,6 +62,7 @@ _ARGTYPES = _TENSORS + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)      # mode, w16
 _ARGTYPES_A8 = _TENSORS + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)   # bp, i8mask, low_only
 # x, packed, scales (pointer, row stride); M, K, F, G
 _TEMPLATE_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong) * 3 + (ctypes.c_int,) * 4
+_TEMPLATE_ARGTYPES_A8 = _TEMPLATE_ARGTYPES + (ctypes.c_int,)         # bp
 WDTS = (torch.int32, torch.int16)
 BODIES = ("h", "f")
 
@@ -101,18 +111,25 @@ def int4_exp_c_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     return (sums * s[:, None, :]).sum(dim=0) - 8.0 * (cg @ s)
 
 
-def int4_exp_a8_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                      li: int, group: int = 128, bp: int = BP) -> torch.Tensor:
-    """The W4A8 function of E, H and F in plain torch on layer `li`:
-    (bp, O) fp32. x padded to bp rows is quantized to exact integers in
-    fp32 (xq, rounding half to even) with the row scales xs; each group's
-    sum of products of integers is then exact in fp32 (|d| <= group / 2 *
-    127 * 23 < 2^24 for group < 11,000)."""
+def quantize_rows(x: torch.Tensor, bp: int = BP):
+    """x padded to bp rows and quantized per row as the W4A8 kernels do:
+    (xq, the exact integers clip(rint(x / xs), -127, 127) in fp32, rounding
+    half to even; xs (bp, 1), the row's absmax / 127, or 1 for a zero row)."""
     xp = torch.zeros((bp, x.shape[-1]), dtype=torch.float32, device=x.device)
     xp[:x.shape[0]] = x.float()
     amax = xp.abs().amax(dim=1, keepdim=True)
     xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    xq = torch.clamp(torch.round(xp / xs), -127, 127)
+    return torch.clamp(torch.round(xp / xs), -127, 127), xs
+
+
+def int4_exp_a8_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                      li: int, group: int = 128, bp: int = BP) -> torch.Tensor:
+    """The W4A8 function of E, H and F in plain torch on layer `li`:
+    (bp, O) fp32. x padded to bp rows is quantized to exact integers in
+    fp32 (`quantize_rows`); each group's sum of products of integers is
+    then exact in fp32 (|d| <= group / 2 * 127 * 23 < 2^24 for group <
+    11,000)."""
+    xq, xs = quantize_rows(x, bp)
     xe, xo = xq[:, 0::2], xq[:, 1::2]
     w = packed[li].to(torch.int32)                 # sign-extends the byte
     s = scales[li].float()
@@ -174,17 +191,31 @@ def _run(name, source, entry, argtypes, x, packed, scales, li, group, bp, *flags
     return out
 
 
+def _template(name, entry, argtypes, x, packed, scales, li, group, bp, *extra) -> str:
+    _check(name, x, packed, scales, li, group, bp)
+    p, s = packed[li], scales[li]
+    fn = _build.function(SOURCE, entry, argtypes)
+    return "decode" if fn(x.data_ptr(), x.stride(0), p.data_ptr(), p.stride(0),
+                          s.data_ptr(), s.stride(0), x.shape[0], x.shape[1],
+                          p.shape[1], group, *extra) else "chunked"
+
+
 def int4_exp_template(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                       li: int, group: int = 128) -> str:
     """The template `int4_exp_d` and `int4_exp_c` launch on these CUDA
     operands, as the C function ``int4_exp_template`` decides it: "decode"
     or "chunked"."""
-    _check("int4_exp_template", x, packed, scales, li, group)
-    p, s = packed[li], scales[li]
-    fn = _build.function(SOURCE, "int4_exp_template", _TEMPLATE_ARGTYPES)
-    return "decode" if fn(x.data_ptr(), x.stride(0), p.data_ptr(), p.stride(0),
-                          s.data_ptr(), s.stride(0), x.shape[0], x.shape[1],
-                          p.shape[1], group) else "chunked"
+    return _template("int4_exp_template", "int4_exp_template", _TEMPLATE_ARGTYPES, x,
+                     packed, scales, li, group, BP)
+
+
+def int4_exp_a8_template(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                         li: int, group: int = 128, bp: int = BP) -> str:
+    """The template `int4_exp_e` and `int4_exp_a8` launch on these CUDA
+    operands with `bp` result rows, as the C function
+    ``int4_exp_a8_template`` decides it: "decode" or "chunked"."""
+    return _template("int4_exp_a8_template", "int4_exp_a8_template", _TEMPLATE_ARGTYPES_A8,
+                     x, packed, scales, li, group, bp, bp)
 
 
 def int4_exp_d(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -231,7 +262,7 @@ def int4_exp_e(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return int4_exp_a8_plain(x, packed, scales, li, group)
     if x.device.type != "cuda":
         raise ValueError(f"int4_exp_e: no kernel for {x.device}")
-    out = _run("int4_exp_e", SOURCE_A8, "int4_exp_a8", _ARGTYPES_A8, x, packed, scales,
+    out = _run("int4_exp_e", SOURCE, "int4_exp_a8", _ARGTYPES_A8, x, packed, scales,
                li, group, BP, BP, 1, 0)
     int4_exp_e.launches += 1
     return out
@@ -243,8 +274,10 @@ def int4_exp_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """``_a8_fn`` on layer `li` with the body ``build_h`` ("h": both
     nibbles, from bytes widened to int32) or ``build_f`` ("f": the low
     nibble only), x padded to `bp` (8 or 32) rows; `i8mask` unpacks on
-    the int8 bytes instead. x (M <= 8, K) -> (bp, O) fp32, rows >= M zero;
-    the result depends on none of the three options but bp. CPU tensors
+    the int8 bytes instead. `body` and `i8mask` pick the chunked
+    template's unpack; the decode template takes neither. x (M <= 8, K) ->
+    (bp, O) fp32, rows >= M zero; the result depends on none of the three
+    options but bp. CPU tensors
     take the plain version. CUDA tensors launch the kernel and add one to
     `int4_exp_a8.launches`."""
     if body not in BODIES:
@@ -255,7 +288,7 @@ def int4_exp_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return int4_exp_a8_plain(x, packed, scales, li, group, bp)
     if x.device.type != "cuda":
         raise ValueError(f"int4_exp_a8: no kernel for {x.device}")
-    out = _run("int4_exp_a8", SOURCE_A8, "int4_exp_a8", _ARGTYPES_A8, x, packed, scales,
+    out = _run("int4_exp_a8", SOURCE, "int4_exp_a8", _ARGTYPES_A8, x, packed, scales,
                li, group, bp, bp, int(i8mask), int(body == "f"))
     int4_exp_a8.launches += 1
     return out

@@ -19,8 +19,8 @@ reads its cache from device memory (two bridged layers exceed the 50 MB L2).
            block (thread 0): the median time of each phase, when blocks
            start and end, and how many are alive over the kernel's span
 
-Timing: device time between CUDA events over 20 calls queued behind a
-sleep on the device, median of 5. Run on the card:
+Timing: ``variants.cuda_ms`` (20 calls behind a sleep on the device,
+median of 5). Run on the card:
 
     python -m libra_tpu_torch.tools.decode_attention_variants [variants]
 """
@@ -29,9 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import itertools
-import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,6 +36,8 @@ import torch
 
 from libra_tpu_torch.ops import _build
 from libra_tpu_torch.ops import decode_attention as DA
+from libra_tpu_torch.tools import variants as V
+from libra_tpu_torch.tools.variants import cuda_ms, sub
 
 OUT = _build.BUILD_DIR / "variants"
 HBM_BPS = 3.35e12        # H100 SXM, NVIDIA's data sheet
@@ -47,26 +46,11 @@ DEFAULT = ["kept", "first", "r4", "p3", "vlate", "r4p3", "kept+trace"]
 PHASES = ["K landed", "scores", "max exchange", "sums and P", "V landed", "values",
           "merge send + sync", "merge"]
 
-TRACE_DECL = r'''
-__device__ unsigned long long* g_trace;
-extern "C" int set_trace(void* p) { return (int)cudaMemcpyToSymbol(g_trace, &p, sizeof(p)); }
-#define TS(i) do { if (threadIdx.x == 0) { unsigned long long t_; \
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \
-  const size_t b_ = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; \
-  g_trace[b_ * 9 + (i)] = t_; } } while (0)
-'''
-
-
-def _sub(s: str, old: str, new: str) -> str:
-    if old not in s:
-        raise ValueError(f"the source has no {old!r}")
-    return s.replace(old, new, 1)
-
 
 def _consts(s: str, ranks: int, units: int, cap: int) -> str:
-    s = re.sub(r"constexpr int RANKS = \d+;", f"constexpr int RANKS = {ranks};", s)
-    s = re.sub(r"constexpr int PASS_UNITS = \d+;", f"constexpr int PASS_UNITS = {units};", s)
-    return re.sub(r"constexpr int BLOCKS_PER_SM = \d+;", f"constexpr int BLOCKS_PER_SM = {cap};", s)
+    s = V.set_const(s, "RANKS", ranks)
+    s = V.set_const(s, "PASS_UNITS", units)
+    return V.set_const(s, "BLOCKS_PER_SM", cap)
 
 
 def _edit(s: str, name: str) -> str:
@@ -76,60 +60,35 @@ def _edit(s: str, name: str) -> str:
         return _consts(s, 4 if name.startswith("r4") else 8, 3 if name.endswith("p3") else 6, 1)
     if name == "vlate":
         s = _consts(s, 8, 6, 1)
-        s = _sub(s, "m.ss = 2 * m.buf;", "m.ss = m.buf;")
+        s = sub(s, "m.ss = 2 * m.buf;", "m.ss = m.buf;")
         for old in ("base + (st & 1) * L.buf", "base + (p & 1) * L.buf",
                     "base + ((npass + p) & 1) * L.buf"):
-            s = _sub(s, old, "base")
-        s = _sub(s, "    fetch(0);\n    fetch(1);\n", "    fetch(0);\n")
-        s = _sub(s, "fetch(p + 2);", "fetch(p + 1);")
-        s = _sub(s, "fetch(npass + p + 2);", "fetch(npass + p + 1);")
+            s = sub(s, old, "base")
+        s = sub(s, "    fetch(0);\n    fetch(1);\n", "    fetch(0);\n")
+        s = sub(s, "fetch(p + 2);", "fetch(p + 1);")
+        s = sub(s, "fetch(npass + p + 2);", "fetch(npass + p + 1);")
         return s.replace("fmma::cp_wait<1>();", "fmma::cp_wait<0>();")
     if name == "trace":
-        s = _sub(s, '#include "flash_mma.cuh"\n', '#include "flash_mma.cuh"\n' + TRACE_DECL)
-        for anchor, stamp in [
-                ('asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: "memory");\n\n',
-                 "TS(0);\n"),
-                ("    const uint32_t buf = base + (p & 1) * L.buf;\n", "if (p == 0) TS(1);\n"),
-                ("  // --- softmax:", "TS(2);\n"),
-                ("  float e2[2];", "TS(3);\n"),
-                ("  // --- values: warp w", "TS(4);\n"),
-                ("    const uint32_t buf = base + ((npass + p) & 1) * L.buf;\n",
-                 "if (p == 0) TS(5);\n"),
-                ("  // --- merge:", "TS(6);\n"),
-                ("#pragma unroll\n  for (int i = tid; i < ROWS * OUT_COLS;", "TS(7);\n"),
-                ("  // Every remote write precedes", "TS(8);\n")]:
-            s = _sub(s, anchor, anchor + stamp if anchor.endswith("\n") else stamp + anchor)
-        return s
+        marks = [
+            ('asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: "memory");\n\n',
+             "TS(0);\n"),
+            ("    const uint32_t buf = base + (p & 1) * L.buf;\n", "if (p == 0) TS(1);\n"),
+            ("  // --- softmax:", "TS(2);\n"),
+            ("  float e2[2];", "TS(3);\n"),
+            ("  // --- values: warp w", "TS(4);\n"),
+            ("    const uint32_t buf = base + ((npass + p) & 1) * L.buf;\n",
+             "if (p == 0) TS(5);\n"),
+            ("  // --- merge:", "TS(6);\n"),
+            ("#pragma unroll\n  for (int i = tid; i < ROWS * OUT_COLS;", "TS(7);\n"),
+            ("  // Every remote write precedes", "TS(8);\n")]
+        return V.add_trace(s, '#include "flash_mma.cuh"\n', 9,
+                           [(a, st, a.endswith("\n")) for a, st in marks])
     raise ValueError(f"unknown variant {name!r}")
 
 
 def source(name: str) -> Path:
-    """Write variant `name` ('+'-joined edits) beside a copy of the header."""
-    text = DA.SOURCE.read_text()
-    for part in name.split("+"):
-        text = _edit(text, part)
-    d = OUT / name.replace("+", "_")
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "flash_mma.cuh").write_text((_build.CSRC / "flash_mma.cuh").read_text())
-    path = d / "decode_attention.cu"
-    path.write_text(text)
-    return path
-
-
-def cuda_ms(fn, n: int = 20, reps: int = 5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(20_000_000)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
+    """Write variant `name` ('+'-joined edits) beside its headers."""
+    return V.source(DA.SOURCE, name, _edit, OUT / "decode_attention")
 
 
 def inputs(N: int, bridge: bool, g: torch.Generator, dev):
@@ -164,44 +123,22 @@ def launch(fn, q, layer: dict, masks: dict) -> torch.Tensor:
 
 
 def trace(path: Path, fn, q, layers, masks, label: str) -> None:
-    """Stamps of the last of 6 calls: each phase's median over the blocks,
-    when blocks start and end, and how many are alive over the span."""
-    lib = ctypes.CDLL(str(_build.build(path)))
-    lib.set_trace.argtypes, lib.set_trace.restype = [ctypes.c_void_p], ctypes.c_int
-    stamps = torch.zeros((8 * H * B, 9), dtype=torch.int64, device=q.device)
-    if lib.set_trace(stamps.data_ptr()) != 0:
-        raise RuntimeError("set_trace failed")
+    """Stamps of the last of 6 calls (``variants.report``)."""
+    st = V.stamps(path, 8 * H * B, 9, q.device)
     for _ in range(3):
         for layer in layers:
             launch(fn, q, layer, masks)
     torch.cuda.synchronize()
-    st = stamps.cpu()
-    st = st[st[:, 0] > 0]
-    t = (st - st[:, 0].min()).double() / 1e3                     # us
-    med = [statistics.median((t[:, i + 1] - t[:, i]).tolist()) for i in range(8)]
-    span = t[:, 8].max().item()
-
-    def quant(x):
-        x = sorted(x.tolist())
-        return " ".join(f"{x[min(len(x) - 1, int(f * len(x)))]:.2f}" for f in (0, .25, .5, .75, 1))
-
-    alive = [int(((t[:, 0] <= p) & (t[:, 8] >= p)).sum()) for p in (span * k / 10 for k in range(11))]
-    print(f"  {label} trace: span {span:.2f} us, {len(st)} blocks; median us: "
-          + ", ".join(f"{p} {m:.2f}" for p, m in zip(PHASES, med)))
-    print(f"    starts (0 .25 .5 .75 1): {quant(t[:, 0])}; ends: {quant(t[:, 8])}; "
-          f"alive at 0, 10, ..., 100% of the span: {alive}")
+    V.report(st, PHASES, label)
 
 
 def main(names) -> dict:
     names = list(names) or DEFAULT
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = V.card()
     dev = torch.device("cuda", 0)
     paths = {n: source(n) for n in names}
     for n, lib in zip(names, _build.build_all(paths.values())):
-        entries = lib.with_suffix(".log").read_text().split("Compiling entry function")
-        regs = [re.search(r"Used (\d+) registers", e).group(1) for e in entries
-                if "attn_decode_kernel" in e.splitlines()[0]]
+        regs = [r for _, r, _ in V.ptxas(lib, "attn_decode_kernel")]
         clusters = _build.function(paths[n], "int8_decode_attention_clusters",
                                    (ctypes.c_int, ctypes.c_int))
         print(f"{n}: registers (no bridge, bridge) {regs}; clusters at once at S={S}: "

@@ -477,7 +477,10 @@ def test_variant_sources_apply(name, tmp_path, monkeypatch):
     constants are the ones it names (the kept one's are the source's)."""
     from libra_tpu_torch.tools import decode_attention_variants as V
     monkeypatch.setattr(V, "OUT", tmp_path)
-    text = V.source(name).read_text()
+    path = V.source(name)
+    text = path.read_text()
+    # every header it includes is beside it (split_k.cuh was missing once)
+    assert all((path.parent / h).exists() for h in ("flash_mma.cuh", "split_k.cuh"))
     c = constants(text)
     base = name.split("+")[0]
     want = {"kept": (C["RANKS"], C["PASS_UNITS"], C["BLOCKS_PER_SM"]), "first": (8, 6, 1),
