@@ -27,12 +27,17 @@ Phases, in order; any failure exits non-zero:
    projection shapes (4096->4096, 4096->11008, 11008->4096, 4096->32000
    lm_head) and on 4096->2752 (F not a multiple of the decode templates'
    128-column tile), the weight a layer view of a stacked (8, K, F)
-   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7 (a zero row), 8
-   and 160 (the gate's limit), each case with the template it ran (decode
-   for M <= 8, chunked above); at M = 4 each kernel's chunked template
-   checked and timed beside the decode one, with each one's share of the
-   bound; torch._weight_int8pack_mm timed at M = 4 and 160, and
-   torch._weight_int4pack_mm for int4 weight-only at M = 4.
+   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7 (a zero row), 8,
+   128 (the split prompt pass's text rows) and 160 (the gate's limit), each
+   case with the template it ran (decode for M <= 8, chunked above); at
+   M = 4 each kernel's chunked template checked and timed beside the
+   decode one, with each one's share of the bound;
+   torch._weight_int8pack_mm timed at M = 4, 128 and 160, and
+   torch._weight_int4pack_mm for int4 weight-only at M = 4 and 128; at
+   M = 128 on the four projection shapes also _a8_dot (torch._int_mm) on
+   the same rows and the route the dense prompt pass takes for the
+   projection at M = 2440 (_a8_dot for int8, the dequantized bf16 matmul
+   for int4), each with its share of the bound.
 5. int8 decode attention vs its plain version (on the same bf16 q) at B=4,
    H=32, d=128, S = 674 (610 + 64), 673, 128 and 2048: N = 1, 2, 4, 7, 8
    (the decode template) and 16, 64 (the rows template), bridge on and
@@ -53,8 +58,19 @@ Phases, in order; any failure exits non-zero:
    kernel launches of each run checked against counts derived from the
    config, two greedy runs held equal, and on two layers at full width
    the logits with the kernels held against those with every kernel's
-   plain version patched in; last, torch.profiler's split of one prompt
-   pass and of 4 decode steps by kernel.
+   plain version patched in; torch.profiler's split of one prompt pass and
+   of 4 decode steps by kernel. Then each tree's fused-pixels path
+   (bench.py:523-556's shape: 32 random text ids and the 578-token image
+   block at img_start = 8, the four seeded uint8 images, B = 4): the fused
+   image ids against ImageTokenizer's on the same pixels; on two layers at
+   full width the prompt pass's and one decode step's logits against the
+   plain versions and split_prefill on against off; TTFT and decode tok/s
+   with split on and off, best of 2 each in turns after a warm-up, two
+   greedy runs equal, launch counts derived from the config (each split
+   prompt pass of a quantized tree adds 7 matmul launches a layer, its
+   B * 32 = 128 text rows being under the kernels' MAX_M); torch.profiler's
+   split of one fused prompt pass by kernel, split on and off, with the
+   device time of CLIP + LFQ.
 7. the training path: the fused pretrain step (CLIP + LFQ tokenizing inside
    the step, frozen-language AdamW, remat), libra-11b at full width cut to
    4 layers, B=8, N=120+578=698 (bench.py's train-step proxy), for remat
@@ -91,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import gc
 import importlib
@@ -117,9 +134,14 @@ MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 # int8 (B2) and int4 (B5) also on an F that is not a multiple of the
 # decode templates' 128-column tile (libra-11b's vision-MLP bottleneck), at
 # the decode row counts 1, 4, 7, 8 (the templates' MT = 1, 4, 8 and a
-# ragged 7) and 160
+# ragged 7), 128 (the split prompt pass's text rows, B * 32) and 160
 QUANT_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
-QUANT_M = (1, 4, 7, 8, 160)
+QUANT_M = (1, 4, 7, 8, 128, 160)
+M_SPLIT = 128                                # B * (NQ - 578) text rows
+M_DENSE = B * NQ                             # the dense prompt pass's rows
+LAYERS_11B = 32
+# a layer's language projections by shape: q, k, v, o; gate, up; down
+PROJECTIONS = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
 SEED = 0
 MAX_NEW = 64
 PROFILE_ROWS = 8                             # kernels listed per profile
@@ -545,7 +567,13 @@ def check_matmuls(card: str, dev) -> dict:
     stacked buffer, so each launch reads its weights from device memory
     (8 layers exceed the 50 MB L2 at every shape), as a decode step does.
     At M = 4 each kernel also runs its chunked template alone, the one it
-    launches for M > 8, checked and timed in the same way."""
+    launches for M > 8, checked and timed in the same way. At M = 128 (the
+    split prompt pass's language projections, chunked template) each case
+    is timed beside the library calls for its rows (weight-only:
+    torch._weight_int8pack_mm / _weight_int4pack_mm; int8: _a8_dot on
+    torch._int_mm) and beside the route the dense prompt pass takes for
+    the same projection at M = 2440 (qdot: _a8_dot for int8 weights, the
+    dequantized bf16 matmul for int4), the cost the split removes."""
     from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
     L = 8
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -587,12 +615,15 @@ def check_matmuls(card: str, dev) -> dict:
                 bnd = bound(nbytes(x, *layer(3), got), 2 * M * K * F,
                             "int8" if a8 else "bf16")
                 lib_ms = None
-                if name == "int8_matmul" and M in (4, 160):
+                if name == "int8_matmul" and M in (4, M_SPLIT, 160):
                     lib_ms = int8_library_ms(x, q, s, want, label, card)
-                elif name == "int4_matmul" and M == 4 and not a8:
+                elif name == "int4_matmul" and M in (4, M_SPLIT) and not a8:
                     lib_ms = int4_library_ms(x, packed, s4, 128, card)
                 row = dict(M=M, K=K, F=F, tag=tag, template=template, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
+                if M == M_SPLIT and (K, F) in MATMUL_SHAPES:
+                    row.update(prompt_routes(name, a8, x, q, s, packed, s4, want,
+                                             label, card))
                 extra = ""
                 if M == 4:
                     row["chunked_err"] = check(f"{label} chunked template",
@@ -617,7 +648,69 @@ def check_matmuls(card: str, dev) -> dict:
                   + ("" if r["library_ms"] is None
                      else f" ({r['bound_ms'] / r['library_ms']:.1%})")
                   for r in rows if r["M"] == 4) + f" [{card}]")
+        print(f"{name} at M = {M_SPLIT}, the split prompt pass's rows (ms, share of "
+              f"the bound): " + "; ".join(
+                  f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
+                  f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), library "
+                  + ("none" if r["library_ms"] is None else
+                     f"{r['library_ms']:.4f} ({r['bound_ms'] / r['library_ms']:.1%})")
+                  + ("" if r.get("a8_ms") is None else
+                     f", _a8_dot {r['a8_ms']:.4f} ({r['bound_ms'] / r['a8_ms']:.1%})")
+                  + f", dense route at M = {M_DENSE} {r['dense_ms']:.4f} "
+                  f"({r['dense_bound_ms'] / r['dense_ms']:.1%} of "
+                  f"{r['dense_bound_ms']:.4f})"
+                  for r in rows if r["M"] == M_SPLIT and "dense_ms" in r)
+              + f" [{card}]")
+        for tag in sorted({r["tag"] for r in rows}):
+            split = {(r["K"], r["F"]): r for r in rows
+                     if r["M"] == M_SPLIT and r["tag"] == tag and "dense_ms" in r}
+            per_pass = {key: LAYERS_11B * sum(n * split[kf][key]
+                                              for kf, n in PROJECTIONS.items())
+                        for key in ("ms", "dense_ms")}
+            print(f"{name}{tag} per prompt pass of libra-11b ({LAYERS_11B} layers x "
+                  f"q, k, v, o, gate, up, down): the split's {7 * LAYERS_11B} launches "
+                  f"at M = {M_SPLIT} {per_pass['ms']:.3f} ms against the dense "
+                  f"route at M = {M_DENSE} {per_pass['dense_ms']:.3f} ms [{card}]")
     return report
+
+
+def prompt_routes(name, a8, x, q, s, packed, s4, want, label, card) -> dict:
+    """Beside a kernel at M = M_SPLIT: _a8_dot on its rows (int8 weights,
+    checked against the plain version to the w8a8 error), and qdot's route
+    for the dense prompt pass's M_DENSE rows of the same projection under
+    a8_enabled (_a8_dot for int8 weights; for int4 the dequantized weight
+    and a bf16 matmul), each timed on the rotating layers, the dense route
+    with its own bound."""
+    from libra_tpu_torch.ops.qlinear import _a8_dot, a8_enabled, qdot
+    from libra_tpu_torch.quantization import Quantized4Array, QuantizedArray
+    L, K = q.shape[0], x.shape[-1]
+    turn = itertools.cycle(range(L))
+    out = {}
+    if name == "int8_matmul":
+        got = _a8_dot(x, q[3], s[3])
+        rel = ((got.float() - want).norm() / want.norm()).item()
+        print(f"{label} _a8_dot: relative L2 {rel:.4g} against the plain version "
+              f"(tol {E2E_TOL_QUANT}: activations rounded to int8) [{card}]")
+        if not rel < E2E_TOL_QUANT:
+            raise AssertionError(f"{label}: _a8_dot disagrees with the plain version")
+
+        def a8_call():
+            l = next(turn)
+            return _a8_dot(x, q[l], s[l])
+        out["a8_ms"] = cuda_ms(a8_call)
+        weights = [QuantizedArray(q[l], s[l]) for l in range(L)]
+        w_bytes, kind = nbytes(q[0], s[0]), "int8"
+    else:
+        weights = [Quantized4Array(packed[l], s4[l], 128, a8=a8) for l in range(L)]
+        w_bytes, kind = nbytes(packed[0], s4[0]), "bf16"
+    xd = torch.randn((M_DENSE, K), generator=torch.Generator(device=x.device)
+                     .manual_seed(SEED + 3), device=x.device).to(x.dtype)
+    with a8_enabled(True):
+        y = qdot(xd, weights[0])
+        out["dense_ms"] = cuda_ms(lambda: qdot(xd, weights[next(turn)]))
+    dense = bound(nbytes(xd, y) + w_bytes, 2 * M_DENSE * K * y.shape[-1], kind)
+    out.update(dense_bound_ms=dense["bound_ms"], dense_bound_by=dense["bound_by"])
+    return out
 
 
 def int8_template(x, q, _scale) -> str:
@@ -857,19 +950,26 @@ def decoder_params(cfg, dev, mode: str = "bf16"):
 
 
 def expected_counts(cfg, mode: str, kv_quant: bool, prefills: int,
-                    steps: int) -> Counter:
+                    steps: int, split_prefills: int = 0,
+                    text_rows: int = 0) -> Counter:
     """Kernel launches of `prefills` prompt passes and `steps` text-only
     decode steps: the flash kernel once per layer in a prompt pass; in a
-    quantized tree one matmul launch per weight matmul at M <= 160 (the
+    quantized tree one matmul launch per weight matmul at M <= MAX_M (the
     prompt pass's lm_head at the last position, and in each decode step
     the 7 projections q, k, v, o, gate, up, down of every layer and
     lm_head); with the int8 cache one decode-attention launch per layer
-    and step."""
+    and step. `split_prefills` of the prompt passes are fused ones with
+    the split, their language projections on `text_rows` = B * (N - 578)
+    rows: where those are at most MAX_M, each adds a matmul launch for
+    the 7 projections of every layer."""
+    from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
     L = cfg.num_hidden_layers
     want = Counter({k["name"]: 0 for k in KERNELS})
     want["flash_bridged_attention"] = prefills * L
     if MATMUL_KERNEL[mode]:
-        want[MATMUL_KERNEL[mode]] = prefills + steps * (7 * L + 1)
+        max_m = I8.MAX_M if mode == "int8" else I4.MAX_M
+        split = split_prefills * 7 * L if text_rows <= max_m else 0
+        want[MATMUL_KERNEL[mode]] = prefills + split + steps * (7 * L + 1)
     if kv_quant:
         want["int8_decode_attention"] = steps * L
     return want
@@ -882,18 +982,18 @@ def assert_counts(label: str, got: Counter, want: Counter, card: str) -> None:
                              f"expected {dict(want)}")
 
 
-def text_logits(cfg, params, args, gen, tok=None):
-    """Text-vocab logits of the prompt pass and, with the int8 cache, of
-    the next decode step (on `tok`, or on the argmax); and that token."""
+def text_logits(cfg, params, args, gen, tok=None, fused=None):
+    """Text-vocab logits of the prompt pass and of the next text-only
+    decode step (on `tok`, or on the argmax); and that token. fused:
+    _prefill's keywords of the fused-pixels path."""
     from libra_tpu_torch.generation import _prefill, decode_micro_step
-    st = _prefill(params, *args, cfg=cfg, gen=gen)
+    st = _prefill(params, *args, cfg=cfg, gen=gen, **(fused or {}))
     out = {"prompt pass": st.logits[0, :, :cfg.vocab_size].float()}
-    if gen.kv_quant:
-        tok = torch.argmax(st.logits, dim=-1) if tok is None else tok
-        st.mask_buf[:, args[0].shape[-1]] = 1
-        step, *_ = decode_micro_step(params, cfg, tok, st.mask_buf, st.cache,
-                                     st.vi_last, st.last_pos, lang_only=True)
-        out["decode step"] = step[0, :, :cfg.vocab_size].float()
+    tok = torch.argmax(st.logits, dim=-1) if tok is None else tok
+    st.mask_buf[:, args[0].shape[-1]] = 1
+    step, *_ = decode_micro_step(params, cfg, tok, st.mask_buf, st.cache,
+                                 st.vi_last, st.last_pos, lang_only=True)
+    out["decode step"] = step[0, :, :cfg.vocab_size].float()
     return out, tok
 
 
@@ -1030,12 +1130,179 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
           f"{tok_s:.3f} tok/s ({MAX_NEW} new tokens in {t64 * 1e3:.3f} ms) "
           f"[{card}]")
     profile_paths(card, cfg, params, args, g64, mode)
-    return N
+    fused = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
+                       torch.stack(images), main)
+    return N, fused
 
 
-def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS):
+def fused_inputs(cfg, dev, pixels):
+    """bench.py:523-556's batch: B rows of 32 random text ids (a seeded
+    torch.Generator) with one image block at IMG_T, unpadded, the prompts
+    ending in text; the block's ids are placeholders that the encode
+    overwrites."""
+    Mv, Q = cfg.max_vision_token_length, cfg.vision_codebook_num
+    n = NQ
+    g = torch.Generator().manual_seed(SEED + 4)
+    ids = torch.randint(3, cfg.vocab_size, (1, B, n), generator=g).expand(
+        Q, B, n).contiguous()
+    vi = torch.full((B, n), Mv, dtype=torch.long)
+    vi[:, IMG_T:IMG_T + Mv] = torch.arange(Mv)
+    return {"input_ids": ids.to(dev), "attention_mask": torch.ones((B, n), dtype=torch.long,
+                                                                  device=dev),
+            "vision_indices": vi.to(dev), "pixels": pixels,
+            "img_start": torch.full((B,), IMG_T, dtype=torch.long, device=dev)}
+
+
+ENCODE_REGION = "clip+lfq (encode_images_to_tokens)"
+
+
+def fused_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
+               pixels, main: Counter) -> dict:
+    """The fused-pixels path (bench.py::bench_vqa_fused_full32's shape):
+    uint8 pixels and img_start through the Generator, CLIP + LFQ inside
+    the prompt pass, the language projections on the B * 32 text rows
+    (split_prefill), then the decode. Checks the fused image ids against
+    ImageTokenizer's, two-layer logits against the plain versions and
+    split on against split off, two greedy runs equal, the launch counts;
+    times TTFT and decode tok/s with split on and off in turns; profiles
+    one prompt pass each way. Adds the timed runs' launches to `main`."""
+    from libra_tpu_torch.generation import GenerationConfig, Generator
+    from libra_tpu_torch.tokenization import ImageTokenizer
+    from libra_tpu_torch.training.fused import (encode_images_to_tokens,
+                                                maybe_normalize_pixels)
+    quant = mode != "bf16"
+    Mv = cfg.max_vision_token_length
+    inputs = fused_inputs(cfg, dev, pixels)
+    N = inputs["input_ids"].shape[-1]
+    text_rows = B * (N - Mv)
+
+    # --- the image ids: the fused encode against the tokenizer's ---
+    with torch.inference_mode():
+        ids, _ = encode_images_to_tokens(vq_params, vq_cfg, cfg, pixels)
+        tok_ids = ImageTokenizer(vq_cfg, vq_params, cfg.vocab_size, Mv).encode(
+            maybe_normalize_pixels(vq_cfg, pixels))["input_ids"]
+    agree = (ids == tok_ids).float().mean().item()
+    print(f"{mode} fused image ids: {ids.shape[-1]} a row, share equal to "
+          f"ImageTokenizer's on the same pixels {agree:.6f} [{card}]")
+    if agree < 1.0:
+        # the same normalization and encode run on both sides; only a
+        # feature within rounding of an LFQ sign boundary could flip
+        print(f"{mode} fused image ids differ in {1 - agree:.6f} of the codes: "
+              f"one LFQ bit flips where a feature sits at 0 within rounding "
+              f"[{card}]")
+        if agree < 0.99:
+            raise AssertionError("the fused encode disagrees with ImageTokenizer")
+
+    # --- two layers at full width: kernels against the plain versions,
+    # split on against split off ---
+    qkw = dict(kv_quant=True, a8_prefill=True, decode_modality="text") if quant else {}
+    gen = GenerationConfig(max_new_tokens=2, eos_token_id=-1, **qkw)
+    off = dataclasses.replace(gen, split_prefill=False)
+    args = (inputs["input_ids"], inputs["attention_mask"], inputs["vision_indices"],
+            None)
+    fkw = dict(vq_params=vq_params, pixels=pixels, img_start=inputs["img_start"],
+               vq_cfg=vq_cfg)
+    small_cfg = cfg.replace(num_hidden_layers=2)
+    with torch.inference_mode():
+        small = decoder_params(small_cfg, dev, mode)
+        got_l, tok = text_logits(small_cfg, small, args, gen, fused=fkw)
+        off_l, _ = text_logits(small_cfg, small, args, off, tok, fused=fkw)
+        with plain_kernels():
+            want_l, _ = text_logits(small_cfg, small, args, gen, tok, fused=fkw)
+        del small
+    tol = E2E_TOL_QUANT if quant else E2E_TOL
+
+    def rel(a, b):
+        return {k: ((a[k] - b[k]).norm() / b[k].norm()).item() for k in a}
+    vs_plain, vs_off = rel(got_l, want_l), rel(got_l, off_l)
+    print(f"{mode} fused 2-layer logits, relative L2: split on vs the plain "
+          f"versions " + ", ".join(f"{k} {v:.6g}" for k, v in vs_plain.items())
+          + "; split on vs split off " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                                  vs_off.items())
+          + f" (tol {tol}) [{card}]")
+    if not max(vs_plain.values()) < tol:
+        raise AssertionError(f"fused 2-layer logits differ from the plain path: {vs_plain}")
+    if not max(vs_off.values()) < tol:
+        raise AssertionError(f"fused 2-layer logits, split on vs off: {vs_off}")
+
+    # --- TTFT and decode rate, split on and off in turns ---
+    g = Generator(params, cfg, vq_params=vq_params, vq_cfg=vq_cfg)
+    gens = {split: (GenerationConfig(max_new_tokens=1, eos_token_id=-1,
+                                     split_prefill=split, **qkw),
+                    GenerationConfig(max_new_tokens=MAX_NEW, eos_token_id=-1,
+                                     split_prefill=split, **qkw))
+            for split in (True, False)}
+
+    def run(gen_cfg):
+        t = time.perf_counter()
+        res = g(inputs, gen_cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, res
+
+    for pair in gens.values():                   # warm-up
+        for gen_cfg in pair:
+            run(gen_cfg)
+    zero_counts()
+    times = {split: ([], []) for split in gens}
+    seqs = []
+    for order in ((True, False), (False, True)):
+        for split in order:
+            t1, _ = run(gens[split][0])
+            t64, res = run(gens[split][1])
+            times[split][0].append(t1)
+            times[split][1].append(t64)
+            if split:
+                seqs.append(res.sequences)
+    got = read_counts()
+    main.update(got)
+    assert_counts(f"{mode} fused generator (split on and off, each 2 x 1 + 2 x "
+                  f"{MAX_NEW} new tokens)", got,
+                  expected_counts(cfg, mode, quant, 8, 4 * (MAX_NEW - 1),
+                                  split_prefills=4, text_rows=text_rows), card)
+    if not torch.equal(seqs[0], seqs[1]):
+        raise AssertionError("two fused greedy runs gave different tokens")
+    if not torch.equal(seqs[0][:, :, IMG_T:IMG_T + Mv], ids):
+        raise AssertionError("the fused prompt does not hold the encoded image ids")
+    if bool((seqs[0][:, :, N:] >= cfg.vocab_size).any()):
+        raise AssertionError("text positions emitted vision ids")
+    stats = {}
+    for split, (t1, t64) in times.items():
+        ttft, best64 = min(t1), min(t64)
+        stats["on" if split else "off"] = dict(
+            ttft_ms=ttft * 1e3, tok_s=(MAX_NEW - 1) * B / (best64 - ttft))
+    print(f"{mode} fused VQA B={B} N={N} img_start={IMG_T} {qkw}: "
+          + "; ".join(f"split {k}: TTFT {v['ttft_ms']:.3f} ms, decode "
+                      f"{v['tok_s']:.3f} tok/s" for k, v in stats.items())
+          + f" (best of 2 each, in turns) [{card}]")
+    profile_fused(card, cfg, params, args, fkw, gens[True][1], mode)
+    return stats
+
+
+def profile_fused(card: str, cfg, params, args, fkw, gen, mode: str) -> None:
+    """torch.profiler over one fused prompt pass with split on and one
+    with split off: device time by kernel, and that of CLIP + LFQ (the
+    encode, under a record_function region)."""
+    import libra_tpu_torch.generation as G
+    encode = G.encode_images_to_tokens
+
+    def encode_in_region(*a):
+        with torch.profiler.record_function(ENCODE_REGION):
+            return encode(*a)
+
+    with mock.patch.object(G, "encode_images_to_tokens", encode_in_region), \
+            torch.inference_mode():
+        for split in (True, False):
+            step = dataclasses.replace(gen, split_prefill=split)
+            profiled(card, f"{mode} fused prompt pass, split {'on' if split else 'off'}",
+                     lambda: G._prefill(params, *args, cfg=cfg, gen=step, **fkw),
+                     regions=(ENCODE_REGION,))
+
+
+def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS, regions=()):
     """Run fn under torch.profiler: print its wall and device time and the
-    kernels that take the most device time; return fn's result."""
+    kernels that take the most device time, and the device time of the
+    kernels run inside each record_function region named in `regions`;
+    return fn's result."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1044,12 +1311,18 @@ def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the kernels' own rows (an op's row repeats its kernels' time)
+    cpu = torch.autograd.DeviceType.CPU
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type != torch.autograd.DeviceType.CPU),
+                      if e.device_type != cpu and e.key not in regions),
                      key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {label}: {wall * 1e3:.3f} ms wall, {device_ms:.3f} "
           f"ms device [{card}]")
+    for r in regions:
+        ms = sum(e.device_time_total for e in prof.key_averages()
+                 if e.key == r and e.device_type == cpu) / 1e3
+        print(f"  region {r}: {ms:.3f} ms device ({ms / device_ms:.1%} of the "
+              f"device time)")
     for e in kernels[:rows]:
         print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d} launches")
@@ -1567,11 +1840,16 @@ def main() -> int:
           f"{L} layers + lm_head = {7 * L + 1} matmul launches; with the int8 "
           f"cache, {L} decode-attention launches (1 a layer) [{card}]")
     main_counts = Counter()
+    fused = {}
     for mode in ("bf16", "int8", "int4"):
-        n_prompt = full_path(card, dev, cfg, vq_cfg, vq_params, mode, main_counts)
+        n_prompt, fused[mode] = full_path(card, dev, cfg, vq_cfg, vq_params, mode,
+                                          main_counts)
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
         torch.cuda.empty_cache()
+    print("fused summary (TTFT ms, decode tok/s): " + "; ".join(
+        f"{mode} split {k} {v['ttft_ms']:.3f} / {v['tok_s']:.3f}"
+        for mode, runs in fused.items() for k, v in runs.items()) + f" [{card}]")
     train = train_path(card, dev, vq_cfg, vq_params, main_counts)
     print("train summary: " + "; ".join(
         f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "

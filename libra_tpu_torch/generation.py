@@ -7,6 +7,11 @@ forcing and vision-index auto-increment, the int8 KV cache (``kv_quant``)
 and the w8a8 prompt pass (``a8_prefill``), with a Python loop in place of
 ``lax.while_loop``. The loop stops once every row has finished and skips
 the forward after the last token it needs. Prompts must be LEFT-padded.
+
+Given raw ``pixels`` and ``img_start`` (a Generator built with the
+tokenizer's ``vq_params``), the prompt pass runs CLIP + LFQ on the device,
+writes the image ids and signal rows into the prompt there, and runs the
+language projections on the text rows only (``split_prefill``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import torch
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.models import libra as M
 from libra_tpu_torch.ops.qlinear import a8_enabled
+from libra_tpu_torch.training.fused import (_scatter_block,
+                                            encode_images_to_tokens,
+                                            resolve_attn_impl)
 
 
 @dataclass(frozen=True)
@@ -32,10 +40,19 @@ class GenerationConfig:
     eos_token_id: int = 2
     pad_token_id: int = 0
     prompt_bucket: int = 0   # 0 = no padding to a bucket boundary
+    attn_impl: str = "auto"  # "auto" | "plain" | "flash" (prompt-pass
+    #   attention): "auto" takes the flash kernel on the card, the plain
+    #   attention on the CPU
     kv_quant: bool = False   # int8 K/V cache (per-token/head scales)
     a8_prefill: bool = False  # w8a8 prompt pass: int8-weight matmuls that
     #   no kernel takes quantize their activations per row and run an
     #   integer matmul; decode stays weight-only. No-op on a plain tree.
+    split_prefill: bool = True  # modality-split prompt pass (raw-pixels
+    #   path only): the full-rank language projections run on the text
+    #   rows, whose count N - 578 is the same in every row, instead of all
+    #   N positions. Exact: the routing merge discards the language
+    #   outputs at vision positions. Off in addition_mode (the language
+    #   path is needed everywhere).
     decode_modality: str = "auto"  # "auto" | "text" | "dual": "text"
     #   decodes through the language path only (exact for prompts that end
     #   in text); "auto" resolves per call from the prompts' last tokens
@@ -125,16 +142,33 @@ class PrefillState(NamedTuple):
 
 
 def _prefill(params, input_ids, attention_mask, vision_indices,
-             contiguous_signal, *, cfg: LibraConfig,
-             gen: GenerationConfig) -> PrefillState:
-    """The prompt pass: cache init (N + max_new_tokens slots, int8 with
-    gen.kv_quant), prompt forward through the flash kernel (w8a8 with
-    gen.a8_prefill), last-position logits (weight-only). JAX rounds an
+             contiguous_signal, vq_params=None, pixels=None, img_start=None,
+             *, cfg: LibraConfig, gen: GenerationConfig,
+             vq_cfg=None) -> PrefillState:
+    """The prompt pass: with pixels, the image encode (CLIP + LFQ) and its
+    ids and signal rows written at img_start, all on the device; cache
+    init (N + max_new_tokens slots, int8 with gen.kv_quant); the prompt
+    forward (attention by gen.attn_impl, w8a8 with gen.a8_prefill, the
+    language projections on the text rows with pixels and
+    gen.split_prefill); last-position logits (weight-only). JAX rounds an
     int8 cache's length up to 128 for its TPU kernel; the port does not
     need to, and the extra slots are masked there anyway."""
     Q, B, N = input_ids.shape
     S = N + gen.max_new_tokens
     device = input_ids.device
+    impl = resolve_attn_impl(gen.attn_impl, device)
+    text_span = None
+    if pixels is not None:
+        if gen.split_prefill and not cfg.addition_mode:
+            # every row carries one full image block at img_start, so the
+            # text width N - Mv is the same for all: the split is exact
+            text_span = M.text_span_maps(cfg, img_start, N)
+        img_ids, img_sig = encode_images_to_tokens(vq_params, vq_cfg, cfg, pixels)
+        input_ids = _scatter_block(input_ids.permute(1, 2, 0),
+                                   img_ids.permute(1, 2, 0),
+                                   img_start).permute(2, 0, 1)
+        contiguous_signal = _scatter_block(
+            img_sig.new_zeros((B, N, img_sig.shape[-1])), img_sig, img_start)
     cache = M.init_cache(cfg, B, S, device=device, quantized=gen.kv_quant)
     mask_buf = torch.zeros((B, S), dtype=torch.int64, device=device)
     mask_buf[:, :N] = attention_mask
@@ -142,7 +176,7 @@ def _prefill(params, input_ids, attention_mask, vision_indices,
     with a8_enabled(gen.a8_prefill):
         out = M.forward(params, cfg, input_ids, mask_buf, vision_indices,
                         contiguous_signal, position_ids=pos, cache=cache,
-                        attn_impl="flash")
+                        attn_impl=impl, text_span=text_span)
     vi_last = vision_indices[:, -1]
     logits = _last_position_logits(params, cfg, out.hidden_states,
                                    vi_last < cfg.max_vision_token_length,
@@ -154,11 +188,13 @@ def _prefill(params, input_ids, attention_mask, vision_indices,
 
 
 def _generate_impl(params, input_ids, attention_mask, vision_indices,
-                   contiguous_signal, generator=None, *, cfg: LibraConfig,
-                   gen: GenerationConfig) -> GenerateResult:
+                   contiguous_signal, generator=None, vq_params=None,
+                   pixels=None, img_start=None, *, cfg: LibraConfig,
+                   gen: GenerationConfig, vq_cfg=None) -> GenerateResult:
     Q, B, N = input_ids.shape
     st = _prefill(params, input_ids, attention_mask, vision_indices,
-                  contiguous_signal, cfg=cfg, gen=gen)
+                  contiguous_signal, vq_params, pixels, img_start, cfg=cfg,
+                  gen=gen, vq_cfg=vq_cfg)
     tokens, mask_buf, cache, logits = st.tokens, st.mask_buf, st.cache, st.logits
     vi_last, last_pos = st.vi_last, st.last_pos
     lang_only = gen.decode_modality == "text"
@@ -184,11 +220,18 @@ def _generate_impl(params, input_ids, attention_mask, vision_indices,
 
 
 class Generator:
-    """Generation front end over a parameter tree on one device."""
+    """Generation front end over a parameter tree on one device.
 
-    def __init__(self, params, cfg: LibraConfig):
+    With the image tokenizer's params and config (vq_params, vq_cfg),
+    inputs may carry raw "pixels" and "img_start" in place of pre-encoded
+    image ids: the encode then runs inside the prompt pass, on the
+    device."""
+
+    def __init__(self, params, cfg: LibraConfig, vq_params=None, vq_cfg=None):
         self.params = params
         self.cfg = cfg
+        self.vq_params = vq_params
+        self.vq_cfg = vq_cfg
         self.device = params["embed_tokens"].device
 
     def __call__(self, inputs: Dict[str, Any],
@@ -196,8 +239,12 @@ class Generator:
                  generator: Optional[torch.Generator] = None) -> GenerateResult:
         """inputs: LibraTokenizer's dict (input_ids (Q, B, N) LEFT-padded,
         attention_mask, vision_indices, coninous_signal), as tensors or
-        numpy arrays. generator: the torch.Generator to sample from (a
-        seed-0 one on the params' device when sampling without one)."""
+        numpy arrays; or, for the fused vision path, pixels (B, S, S, 3)
+        (uint8, or CLIP-normalized float) and img_start (B,) in place of
+        the signal, each row holding one image block at img_start (its
+        ids there are overwritten). generator: the torch.Generator to
+        sample from (a seed-0 one on the params' device when sampling
+        without one)."""
         gen = gen or GenerationConfig()
         dev = self.device
         ids = torch.as_tensor(inputs["input_ids"], device=dev).long()
@@ -212,6 +259,14 @@ class Generator:
                 gen, decode_modality="text" if ends_in_text else "dual")
         elif gen.decode_modality == "text" and not ends_in_text:
             raise ValueError("decode_modality='text' needs prompts ending in text")
+        pixels, img_start = inputs.get("pixels"), inputs.get("img_start")
+        if pixels is not None:
+            if self.vq_params is None:
+                raise ValueError("Generator needs vq_params/vq_cfg for the "
+                                 "fused vision path")
+            pixels = torch.as_tensor(pixels, device=dev)
+            img_start = torch.as_tensor(img_start, device=dev).long()
+            sig = None
         if gen.prompt_bucket > 1:
             pad = (-ids.shape[-1]) % gen.prompt_bucket
             if pad:   # left-pad to the bucket boundary
@@ -221,8 +276,11 @@ class Generator:
                 vi = torch.cat([vi.new_full((B, pad), Mv), vi], -1)
                 if sig is not None:
                     sig = torch.cat([sig.new_zeros((B, pad, sig.shape[-1])), sig], 1)
+                if img_start is not None:
+                    img_start = img_start + pad
         if gen.do_sample and generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         with torch.inference_mode():
             return _generate_impl(self.params, ids, mask, vi, sig, generator,
-                                  cfg=self.cfg, gen=gen)
+                                  self.vq_params, pixels, img_start,
+                                  cfg=self.cfg, gen=gen, vq_cfg=self.vq_cfg)

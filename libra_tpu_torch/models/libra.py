@@ -17,10 +17,13 @@ Training adds per-layer rematerialisation (``forward(remat=...)``:
 ``torch.utils.checkpoint``, full or selective on the named big dots) and
 the multi-codebook loss.
 
+The fused-pixels prompt pass (generation.py) passes ``text_span``
+(``text_span_maps``): every row holds one full image block, so the
+full-rank language projections run on the T = N - 578 text rows only.
+
 Parameters are nested dicts of tensors with the JAX tree's key names,
 layer leaves stacked on axis 0 and weights stored for ``x @ W``.
-Dropout and the modality-split prefill (``text_span``) are training or
-TPU paths the port does not carry yet.
+Dropout is a training path the port does not carry yet.
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ from libra_tpu_torch.ops.flash_bridge import flash_bridged_attention
 from libra_tpu_torch.ops.norm import rms_norm
 from libra_tpu_torch.ops.qlinear import qdot
 from libra_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from libra_tpu_torch.ops.routed import (low_rank_linear, routed_linear,
-                                        routed_low_rank, select_by_flag)
+from libra_tpu_torch.ops.routed import (gather_rows, low_rank_linear,
+                                        routed_linear, routed_low_rank,
+                                        select_by_flag, split_merge)
 from libra_tpu_torch.quantization import QuantizedArray
 
 Params = Dict[str, Any]
@@ -384,13 +388,17 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
                flag: torch.Tensor, cos, sin, position_ids, bias, kv_flag,
                cache_slice, attn_impl: str = "plain",
+               text_span=None,
                lang_only: bool = False) -> Tuple[torch.Tensor, Any]:
     """Routed attention with bridge; h is the routed-normed input.
 
     attn_impl: "plain" (ops/attention.py) or "flash" (the prompt-pass
-    kernel, ops/flash_bridge.py). lang_only (cached decode only) skips the
-    vision projections and the new tokens' bridge K/V, whose cache slots
-    are never read (cross is zero for text-query/text-key pairs).
+    kernel, ops/flash_bridge.py). text_span: the split prompt pass's row
+    maps; the q, k, v and o language projections run on the text rows
+    only (ops/routed.py::routed_linear). lang_only (cached decode only)
+    skips the vision projections and the new tokens' bridge K/V, whose
+    cache slots are never read (cross is zero for text-query/text-key
+    pairs).
     cache_slice: None or {"bufs": stacked cache buffers, "layer": this
     layer's index, "index": the sequence write offset}; the buffers are
     written in place. Returns (attn_out (B, N, D), bufs)."""
@@ -405,7 +413,7 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
                 return qdot(h, a[name])
             vp = a["vision_" + name[0]]
             return routed_linear(h, flag, a[name], vp["wa"], vp["wb"],
-                                 cfg.addition_mode)
+                                 cfg.addition_mode, text_span=text_span)
 
     q = apply_rope(_split_heads(rproj("q_proj"), H), cos, sin, position_ids)
     k = apply_rope(_split_heads(rproj("k_proj"), H), cos, sin, position_ids)
@@ -458,32 +466,41 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
             return qdot(out, a["o_proj"]), bufs
         vo = a["vision_o"]
         return routed_linear(out, flag, a["o_proj"], vo["wa"], vo["wb"],
-                             cfg.addition_mode), bufs
+                             cfg.addition_mode, text_span=text_span), bufs
 
 
 def _mlp(p: Params, cfg: LibraConfig, h: torch.Tensor, flag: torch.Tensor,
-         lang_only: bool = False) -> torch.Tensor:
-    """Routed SwiGLU MLP; routes strictly even in addition_mode."""
+         text_span=None, lang_only: bool = False) -> torch.Tensor:
+    """Routed SwiGLU MLP; routes strictly even in addition_mode. With
+    text_span the language SwiGLU (the layer's largest matmuls) runs on
+    the gathered text rows only; strict routing makes that exact in every
+    mode."""
     m = p["mlp"]
 
     def dot(name, x, *w):
         with checkpoint_name(name):
             return qdot(x, w[0]) if len(w) == 1 else low_rank_linear(x, *w)
 
-    lang = dot("mlp_down", F.silu(dot("mlp_gate", h, m["gate_proj"]))
-               * dot("mlp_up", h, m["up_proj"]), m["down_proj"])
+    def lang_mlp(x):
+        return dot("mlp_down", F.silu(dot("mlp_gate", x, m["gate_proj"]))
+                   * dot("mlp_up", x, m["up_proj"]), m["down_proj"])
+
     if lang_only:
-        return lang
+        return lang_mlp(h)
     gate_v = dot("mlp_vgate", h, m["vision_gate"]["wa"], m["vision_gate"]["wb"])
     up_v = dot("mlp_vup", h, m["vision_up"]["wa"], m["vision_up"]["wb"])
     vis = dot("mlp_vdown", F.silu(gate_v) * up_v, m["vision_down"]["wa"],
               m["vision_down"]["wb"])
-    return select_by_flag(flag, vis, lang)
+    if text_span is not None:
+        src, inv = text_span
+        return split_merge(flag, vis, lang_mlp(gather_rows(h, src)), inv)
+    return select_by_flag(flag, vis, lang_mlp(h))
 
 
 def decoder_layer(p: Params, cfg: LibraConfig, h: torch.Tensor,
                   flag: torch.Tensor, cos, sin, position_ids, bias, kv_flag,
                   cache_slice, attn_impl: str = "plain",
+                  text_span=None,
                   lang_only: bool = False) -> Tuple[torch.Tensor, Any]:
     """One pre-norm decoder layer with separate vision RMSNorms."""
     eps = cfg.rms_norm_eps
@@ -496,11 +513,39 @@ def decoder_layer(p: Params, cfg: LibraConfig, h: torch.Tensor,
 
     attn_out, bufs = _attention(p, cfg, routed_norm(h, "input_layernorm"),
                                 flag, cos, sin, position_ids, bias, kv_flag,
-                                cache_slice, attn_impl, lang_only=lang_only)
+                                cache_slice, attn_impl, text_span=text_span,
+                                lang_only=lang_only)
     h = h + attn_out
     h = h + _mlp(p, cfg, routed_norm(h, "post_attention_layernorm"), flag,
-                 lang_only=lang_only)
+                 text_span=text_span, lang_only=lang_only)
     return h, bufs
+
+
+def text_span_maps(cfg: LibraConfig, img_start: torch.Tensor, N: int):
+    """Row maps of the modality-split prompt pass (ops/routed.py).
+
+    Where every row carries exactly one full image block of
+    Mv = max_vision_token_length tokens starting at img_start[b] (the
+    fused-pixels prompt pass, generation.py), the other positions of row b
+    are [0, img_start) and [img_start + Mv, N): T = N - Mv of them, the
+    same for every row. Returns (src (B, T), inv (B, N)), computed on
+    img_start's device with no host read:
+      src[b, j] = the j-th non-vision position of row b;
+      inv[b, n] = the index into src of position n (clipped junk at
+                  vision positions, which the flag selects away).
+    Left padding is fine: pad positions are non-vision, src covers them,
+    and their outputs are masked downstream either way. None when N == Mv
+    (no text rows)."""
+    Mv = cfg.max_vision_token_length
+    T = N - Mv
+    if T <= 0:
+        return None
+    start = img_start.long()[:, None]
+    j = torch.arange(T, device=start.device)[None, :]
+    src = j + Mv * (j >= start)
+    n = torch.arange(N, device=start.device)[None, :]
+    inv = (n - Mv * (n >= start + Mv)).clamp(0, T - 1)
+    return src, inv
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +569,8 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
             position_ids: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None,
             attn_impl: str = "plain",
-            lang_only: bool = False, remat=False) -> ModelOutput:
+            lang_only: bool = False, remat=False,
+            text_span=None) -> ModelOutput:
     """Backbone forward.
 
     input_ids: (Q, B, N) combined-vocab ids. attention_mask: (B, N) without
@@ -534,6 +580,9 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
     returned cache's index is advanced by N. lang_only: text-only cached
     decode of prompts that end in text (exact: the vision vocab is -inf at
     text positions, so such a sequence never re-enters vision).
+    text_span: text_span_maps' row maps, with or without a cache: the
+    language projections run on the text rows only (the Generator's
+    fused-pixels prompt pass passes them).
 
     remat (training, no cache): False = none; True or "full" = each layer
     under torch.utils.checkpoint (non-reentrant), the backward re-running
@@ -581,12 +630,14 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
                                   cfg)
         if context_fn is not None:
             run = lambda x, fn=layer: fn(x, flag, cos, sin, position_ids, bias,
-                                         kv_flag, None, attn_impl)[0]
+                                         kv_flag, None, attn_impl,
+                                         text_span=text_span)[0]
             h = checkpoint(_naming_on(run) if named else run, h,
                            use_reentrant=False, context_fn=context_fn)
             continue
         h, _ = layer(h, flag, cos, sin, position_ids, bias, kv_flag,
-                     cache_slice, attn_impl, lang_only=lang_only)
+                     cache_slice, attn_impl, text_span=text_span,
+                     lang_only=lang_only)
     new_cache = None if cache is None else cache._replace(
         flag=kv_flag, index=cache.index + N)
 
