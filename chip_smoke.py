@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero:
 1. device: needs a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles the kernels' six sources of libra_tpu_torch/csrc at once
    (one nvcc each) and prints ptxas' register, shared-memory and spill
-   lines, and cuobjdump's SASS instruction mix of the int8 matmul's, the
-   decode attention's and the int4 experiment's kernels; fails if a kernel
-   of those three decode templates holds an I2F, or if its products are
-   not on the tensor cores of their type: HMMA (bf16, tf32) for B2, B3 and
-   the experiment's D and C, IMMA (int8) and no HMMA for its W4A8 mode.
+   lines, and cuobjdump's SASS instruction mix of the int8 and int4
+   matmuls', the decode attention's and the int4 experiment's kernels;
+   fails if a kernel of those three decode templates holds an I2F, or if
+   the products of a decode or rows kernel are not on the tensor cores of
+   their type: HMMA (bf16, tf32) for B2, B3, the experiment's D and C and
+   B5's weight-only rows, IMMA (int8) and no HMMA for the W4A8 modes.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included (one row padded by 70
@@ -27,11 +28,14 @@ Phases, in order; any failure exits non-zero:
    projection shapes (4096->4096, 4096->11008, 11008->4096, 4096->32000
    lm_head) and on 4096->2752 (F not a multiple of the decode templates'
    128-column tile), the weight a layer view of a stacked (8, K, F)
-   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7 (a zero row), 8,
-   128 (the split prompt pass's text rows) and 160 (the gate's limit), each
-   case with the template it ran (decode for M <= 8, chunked above); at
-   M = 4 each kernel's chunked template checked and timed beside the
-   decode one, with each one's share of the bound;
+   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7, 8, 128 (the
+   split prompt pass's text rows) and 160 (the gate's limit), x with a zero
+   row at M = 7 and above 8, each case with the template it ran (the
+   script raises unless M <= 8 took the decode template and M > 8 the rows
+   one); at M = 4, 128 and 160 each kernel's chunked template checked and
+   timed beside it, with each one's share of the bound; at M = 128 on
+   4096->4096 an x with an odd row pitch, which must take the chunked
+   template;
    torch._weight_int8pack_mm timed at M = 4, 128 and 160, and
    torch._weight_int4pack_mm for int4 weight-only at M = 4 and 128; at
    M = 128 on the four projection shapes also _a8_dot (torch._int_mm) on
@@ -314,18 +318,23 @@ def build(card: str) -> None:
                 print(f"  ptxas {lib.stem}:", line.strip())
     # B2's, B3's and the int4 experiment's decode templates make their
     # floats without I2F, and their products on the tensor cores of their
-    # type
-    for stem, kernel in (("int8_matmul-", "int8_decode_kernel"),
-                         ("decode_attention-", "attn_decode_kernel"),
-                         ("int4_exp-", "int4_exp_decode_kernel")):
+    # type; so do B2's and B5's rows templates (whose per-stage index
+    # arithmetic may divide by runtime counts, so I2F is not counted there)
+    mixes_of = {}
+    for stem, kernel, no_i2f in (("int8_matmul-", "int8_decode_kernel", True),
+                                 ("decode_attention-", "attn_decode_kernel", True),
+                                 ("int4_exp-", "int4_exp_decode_kernel", True),
+                                 ("int8_matmul-", "rows_kernel", False),
+                                 ("int4_matmul-", "rows_kernel", False)):
         lib = next(l for l in libs if l.stem.startswith(stem))
-        mixes = sass_mix(lib)
-        for name, mix in mixes.items():
-            print(f"  sass {lib.stem}: {name}: " + ", ".join(
-                f"{op} {n}" for op, n in sorted(mix.items())))
-        ours = {n: mix for n, mix in mixes.items() if kernel in n}
-        bad = [n for n, mix in ours.items() if mix["I2F"] or not mix[mma_op(n)]
-               or (mma_op(n) == "IMMA" and mix["HMMA"])]
+        if lib not in mixes_of:
+            mixes_of[lib] = sass_mix(lib)
+            for name, mix in mixes_of[lib].items():
+                print(f"  sass {lib.stem}: {name}: " + ", ".join(
+                    f"{op} {n}" for op, n in sorted(mix.items())))
+        ours = {n: mix for n, mix in mixes_of[lib].items() if kernel in n}
+        bad = [n for n, mix in ours.items() if (no_i2f and mix["I2F"])
+               or not mix[mma_op(n)] or (mma_op(n) == "IMMA" and mix["HMMA"])]
         print(f"  sass {kernel}: " + "; ".join(
             f"{n}: I2F {mix['I2F']}, HMMA {mix['HMMA']}, IMMA {mix['IMMA']}"
             for n, mix in ours.items()) + f" [{card}]")
@@ -339,10 +348,13 @@ SASS_OPS = ("I2F", "PRMT", "FADD", "FFMA", "HFMA2", "HMMA", "IMMA", "LDG", "LDS"
 
 
 def mma_op(kernel: str) -> str:
-    """The tensor-core opcode a decode kernel (its mangled name) must use:
-    IMMA for the int4 experiment's W4A8 mode (template argument MODE_A8 =
-    2), HMMA for the others."""
-    return "IMMA" if re.search(r"int4_exp_decode_kernelILi\d+ELi2E", kernel) else "HMMA"
+    """The tensor-core opcode a decode or rows kernel (its mangled name)
+    must use: IMMA for the W4A8 modes (the int4 experiment's template
+    argument MODE_A8 = 2; B5's rows template on rows::Mode<true>), HMMA for
+    the others."""
+    w4a8 = (re.search(r"int4_exp_decode_kernelILi\d+ELi2E", kernel)
+            or re.search(r"rows_kernelI.*ModeILb1E", kernel))
+    return "IMMA" if w4a8 else "HMMA"
 
 
 def sass_mix(lib: Path) -> dict:
@@ -566,9 +578,13 @@ def check_matmuls(card: str, dev) -> dict:
     in fp32; timed on layer views that rotate over the 8 layers of the
     stacked buffer, so each launch reads its weights from device memory
     (8 layers exceed the 50 MB L2 at every shape), as a decode step does.
-    At M = 4 each kernel also runs its chunked template alone, the one it
-    launches for M > 8, checked and timed in the same way. At M = 128 (the
-    split prompt pass's language projections, chunked template) each case
+    Each case names the template it ran and must take the decode template
+    at M <= 8 and the rows template above. At M = 4, 128 and 160 each
+    kernel also runs its chunked template alone (the one unaligned
+    operands take), checked and timed in the same way; at M = 128 on
+    4096->4096 an x with an odd row pitch must
+    take the chunked template, checked too. At M = 128 (the split prompt
+    pass's language projections, rows template) each case
     is timed beside the library calls for its rows (weight-only:
     torch._weight_int8pack_mm / _weight_int4pack_mm; int8: _a8_dot on
     torch._int_mm) and beside the route the dense prompt pass takes for
@@ -587,7 +603,7 @@ def check_matmuls(card: str, dev) -> dict:
         s4 = torch.rand((L, K // 128, F), generator=g, device=dev) * 2e-2
         for M in QUANT_M:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-            if M == 7:
+            if M == 7 or M > 8:
                 x[3] = 0   # a zero row: its absmax takes the scale 1
             cases = [("int8_matmul", "", I8.int8_matmul, I8.int8_matmul_plain,
                       lambda l: (q[l], s[l]), int8_template, int8_chunked)]
@@ -603,7 +619,7 @@ def check_matmuls(card: str, dev) -> dict:
                 a8 = "a8=True" in tag
                 template = which(x, *layer(3))
                 label = f"{name}{tag} M={M} {K}->{F} [{template}]"
-                if (template == "decode") != (M <= 8):
+                if template != matmul_template(M):
                     raise AssertionError(f"{label}: M = {M} took the {template} template")
                 got = kernel(x, *layer(3))
                 torch.cuda.synchronize()
@@ -625,12 +641,15 @@ def check_matmuls(card: str, dev) -> dict:
                     row.update(prompt_routes(name, a8, x, q, s, packed, s4, want,
                                              label, card))
                 extra = ""
-                if M == 4:
+                if M in (4, M_SPLIT, 160):
                     row["chunked_err"] = check(f"{label} chunked template",
                                                chunked(x, *layer(3)), want, card)
                     row["chunked_ms"] = cuda_ms(lambda: chunked(x, *layer(next(turn))))
                     extra = (f", chunked template {row['chunked_ms']:.4f} ms "
                              f"({bnd['bound_ms'] / row['chunked_ms']:.1%})")
+                if M == M_SPLIT and (K, F) == MATMUL_SHAPES[0]:
+                    row["unaligned_err"] = unaligned(label, kernel, which, x, layer(3),
+                                                     want, card)
                 print(f"{label}: kernel {ms:.4f} ms ({bnd['bound_ms'] / ms:.1%} of the "
                       f"bound){extra}, plain {plain_ms:.4f} ms, bound "
                       f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library {lib_ms} ms"
@@ -651,7 +670,8 @@ def check_matmuls(card: str, dev) -> dict:
         print(f"{name} at M = {M_SPLIT}, the split prompt pass's rows (ms, share of "
               f"the bound): " + "; ".join(
                   f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
-                  f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), library "
+                  f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), chunked "
+                  f"{r['chunked_ms']:.4f} ({r['bound_ms'] / r['chunked_ms']:.1%}), library "
                   + ("none" if r["library_ms"] is None else
                      f"{r['library_ms']:.4f} ({r['bound_ms'] / r['library_ms']:.1%})")
                   + ("" if r.get("a8_ms") is None else
@@ -666,12 +686,28 @@ def check_matmuls(card: str, dev) -> dict:
                      if r["M"] == M_SPLIT and r["tag"] == tag and "dense_ms" in r}
             per_pass = {key: LAYERS_11B * sum(n * split[kf][key]
                                               for kf, n in PROJECTIONS.items())
-                        for key in ("ms", "dense_ms")}
+                        for key in ("ms", "chunked_ms", "dense_ms")}
             print(f"{name}{tag} per prompt pass of libra-11b ({LAYERS_11B} layers x "
                   f"q, k, v, o, gate, up, down): the split's {7 * LAYERS_11B} launches "
-                  f"at M = {M_SPLIT} {per_pass['ms']:.3f} ms against the dense "
+                  f"at M = {M_SPLIT} {per_pass['ms']:.3f} ms (rows template; the "
+                  f"chunked template {per_pass['chunked_ms']:.3f} ms) against the dense "
                   f"route at M = {M_DENSE} {per_pass['dense_ms']:.3f} ms [{card}]")
     return report
+
+
+def unaligned(label, kernel, which, x, weights, want, card) -> float:
+    """x's rows with an odd row pitch (a view of an (M, K + 1) buffer): the
+    kernel must take the chunked template, and agree with the plain
+    version as on aligned rows."""
+    M, K = x.shape
+    xo = torch.empty((M, K + 1), dtype=x.dtype, device=x.device)[:, :K]
+    xo.copy_(x)
+    template = which(xo, *weights)
+    if template != "chunked":
+        raise AssertionError(f"{label}: x pitch {K + 1} took the {template} template")
+    got = kernel(xo, *weights)
+    torch.cuda.synchronize()
+    return check(f"{label} x pitch {K + 1} [{template}]", got, want, card)
 
 
 def prompt_routes(name, a8, x, q, s, packed, s4, want, label, card) -> dict:
@@ -713,6 +749,15 @@ def prompt_routes(name, a8, x, q, s, packed, s4, want, label, card) -> dict:
     return out
 
 
+# what int8_matmul_template and int4_matmul_template return
+TEMPLATES = {0: "chunked", 1: "decode", 2: "rows"}
+
+
+def matmul_template(M: int) -> str:
+    """The template B2 and B5 must take for M rows of aligned operands."""
+    return "decode" if M <= 8 else "rows"
+
+
 def int8_template(x, q, _scale) -> str:
     """The template int8_matmul launches for x (M, K) and the weight q, as
     the CUDA source's int8_matmul_template decides it."""
@@ -720,8 +765,8 @@ def int8_template(x, q, _scale) -> str:
     fn = _build.function(I8.SOURCE, "int8_matmul_template",
                          (ctypes.c_int,) * 3 + (ctypes.c_longlong,) * 2
                          + (ctypes.c_void_p,) * 2)
-    return "decode" if fn(x.shape[0], x.shape[-1], q.shape[1], x.stride(0),
-                          q.stride(0), x.data_ptr(), q.data_ptr()) else "chunked"
+    return TEMPLATES[fn(x.shape[0], x.shape[-1], q.shape[1], x.stride(0),
+                        q.stride(0), x.data_ptr(), q.data_ptr())]
 
 
 def int8_chunked(x, q, scale):
@@ -743,9 +788,9 @@ def int4_template(x, packed, scales, group) -> str:
                          (ctypes.c_int,) * 4 + (ctypes.c_longlong,) * 3
                          + (ctypes.c_void_p,) * 3)
     K = x.shape[-1]
-    return "decode" if fn(x.shape[0], K, packed.shape[1], group, x.stride(0),
-                          packed.stride(0), scales.stride(0), x.data_ptr(),
-                          packed.data_ptr(), scales.data_ptr()) else "chunked"
+    return TEMPLATES[fn(x.shape[0], K, packed.shape[1], group, x.stride(0),
+                        packed.stride(0), scales.stride(0), x.data_ptr(),
+                        packed.data_ptr(), scales.data_ptr())]
 
 
 def int4_chunked(x, packed, scales, group, a8):
@@ -754,7 +799,7 @@ def int4_chunked(x, packed, scales, group, a8):
     from libra_tpu_torch.ops import _build, int4_matmul as I4
     out = torch.empty((x.shape[0], packed.shape[1]), dtype=x.dtype, device=x.device)
     fn = _build.function(I4.SOURCE, "int4_matmul_chunked", I4._ARGTYPES)
-    _build.check_launch(I4._launch(fn, x, packed, scales, out, group, a8,
+    _build.check_launch(I4._launch(fn, x, packed, scales, out, group, a8, None,
                                    _build.stream(x)), "int4_matmul_chunked")
     return out
 
@@ -1825,6 +1870,13 @@ def main() -> int:
             {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
             max_abs_err=max(r["max_abs_err"] for r in rows))
+        if name != "int8_decode_attention":
+            # and the split prompt pass's rows: M = 128, 4096 -> 11008, the
+            # rows template beside the chunked one (the parent's kernel)
+            split = next(r for r in rows if all(
+                r[k] == v for k, v in dict(pick, M=M_SPLIT).items()))
+            report[name].update({f"rows_{k}": split[k] for k in (
+                "ms", "chunked_ms", "plain_ms", "bound_ms", "library_ms")})
 
     from libra_tpu_torch.config import LibraConfig, VQGANConfig
     from libra_tpu_torch.models import vqgan

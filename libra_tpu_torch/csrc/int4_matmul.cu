@@ -24,7 +24,7 @@
 // multiply-adds plus its unpack, so the unpack and the products must cost
 // a few instructions a byte or they, and not the bytes, set the time.
 //
-// Two templates; int4_matmul picks one per call (int4_matmul_template):
+// Three templates; int4_matmul picks one per call (int4_matmul_template):
 //
 // * decode (M <= 8, the decode step of every int4 projection): a lane owns
 //   4 adjacent output columns, so one warp load is one whole 128-byte line
@@ -54,7 +54,28 @@
 //   fixed order. It needs 16-byte x loads and scale loads and 4-byte weight
 //   loads (ldx, lds, F, ldp and the bases aligned to them), G % 4 == 0,
 //   K % 16 == 0, and a K slice of x that fits in shared memory.
-// * chunked (every other call: 8 < M <= 160, unaligned operands): one block
+// * rows (8 < M <= 160 with aligned operands: the split prompt pass's 128
+//   text rows; rows_mma.cuh holds the template, namespace rows the two
+//   weight modes): the weights as the A operand of mma.sync, 128 columns x
+//   128 rows of x a block, K in stages of 128 k through a cp.async ring and
+//   split over a cluster, a fixed-order cluster reduction.
+//   - weight-only: bf16 m16n8k16; each packed byte is one bf16x2 A
+//     register (its two k of one column) by the experiment's exact nibble
+//     conversion (XOR, masks, PRMT under 0x4300, one bf16x2 fma; no I2F);
+//     a group's fp32 sums times its scale as the K walk leaves the group.
+//   - W4A8: one pre-pass in the same call quantizes x (a block a row: the
+//     absmax, sx = absmax / 127 by IEEE division, rint(x / sx) as the
+//     chunked template does) into a workspace the wrapper allocates: xq
+//     (M, K) int8, each 8 k stored as its 4 even k then its 4 odd k, each
+//     row's group sums of xq, and sx. Then s8 mma.sync m16n8k32 with the
+//     experiment's mapping (a lane's 4 words transposed by 8 PRMT, the
+//     nibbles as u8 q + 8 against int8 x): a group's exact s32 sums less
+//     8 sum xq, as fp32 by a magic-number add, times the group scale; sx
+//     at the end.
+//   It needs 16-byte rows for cp.async (ldx % 8, ldp % 16, F % 16, lds % 4,
+//   the bases 16-byte aligned), K % 32 == 0 and K >= 256, and G % 32 == 0
+//   dividing 128 and K.
+// * chunked (every other call: unaligned operands, odd groups): one block
 //   per (32 output columns, MT rows of x), 256 threads = 8 column groups
 //   of 4 adjacent columns x 32 k-slices; x is staged through shared memory
 //   in chunks of 512 k (quantized there in W4A8 mode); each thread owns 8
@@ -69,6 +90,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows_mma.cuh"
 #include "split_k.cuh"
 
 #include <type_traits>
@@ -99,6 +121,12 @@ struct Args {
   __nv_bfloat16* out;
   long long ldo;
   int M, K, F, G;
+  // the rows template's W4A8 workspace: xq (M, K), the group sums of xq
+  // (K / G, mp), sx (mp), mp = M rounded up to 4
+  int8_t* xq;
+  int* gsum;
+  float* sx;
+  int mp;
 };
 
 template <bool VEC>
@@ -573,10 +601,309 @@ cudaError_t launch_mt(const Args& a, bool a8, cudaStream_t stream) {
 
 }  // namespace dec
 
+// ---------------------------------------------------------------------------
+// The rows template (8 < M <= 160): its two weight modes (rows_mma.cuh)
+// ---------------------------------------------------------------------------
+
+namespace rows {
+
+using rowsmma::Lane;
+using rowsmma::NJ;
+using rowsmma::KT;
+using rowsmma::UNIT_K;
+using rowsmma::UNITS;
+using rowsmma::ROW;
+using rowsmma::X16_ROW;
+using rowsmma::WROWS;
+using rowsmma::TILE_F;
+using rowsmma::TILE_M;
+using rowsmma::comp;
+using splitk::prmt;
+
+// Weight-only (the experiment's C mode): a word w of 4 packed bytes (byte c
+// = column c), u = w ^ SIGN_FLIP holds q1 + 8 in each high nibble and q0 +
+// 8 in each low one; lo = u & NIB_MASK and hi = (u >> 4) & NIB_MASK are
+// the nibbles as bytes. SELc puts lo's byte c under the low half and hi's
+// byte c under the high half of a word, 0x00 above each (a sign-replicating
+// selector on a nibble byte); OR BF16_128 makes the halves the bf16 128 +
+// n, and a bf16x2 fma by BF16_ONE plus OFFSET = {-136, -136} gives {q0,
+// q1}, exact: the byte's two k of its column, one bf16x2 A register.
+constexpr uint32_t SIGN_FLIP = 0x80808080u;
+constexpr uint32_t NIB_MASK = 0x0F0F0F0Fu;
+constexpr uint32_t SEL0 = 0xC480u;
+constexpr uint32_t SEL1 = 0xD591u;
+constexpr uint32_t SEL2 = 0xE6A2u;
+constexpr uint32_t SEL3 = 0xF7B3u;
+constexpr uint32_t BF16_128 = 0x43004300u;
+constexpr uint32_t BF16_ONE = 0x3F803F80u;
+constexpr uint32_t OFFSET = 0xC308C308u;
+// W4A8 (the experiment's mapping): the lane's 4 words of a unit (word r:
+// byte row 4 t + r) become one word a column by a 4x4 byte transpose:
+// prmt(a, b, SEL_LO) = (a0, b0, a1, b1), SEL_HI = (a2, b2, a3, b3), then
+// SEL_W0 takes the low halves of two words and SEL_W1 the high halves, so
+// word c holds column 4 g + c, byte r its byte row 4 t + r. Of such a
+// word, w & NIB_MASK is q0 + 8 of each byte and ((w >> 4) ^ HI_FLIP) &
+// NIB_MASK is q1 + 8, both 0..15 as u8: the 4 even and the 4 odd k of the
+// lane's slots, against x staged as each 8 k's 4 even k, then its 4 odd k.
+constexpr uint32_t SEL_LO = 0x5140u;
+constexpr uint32_t SEL_HI = 0x7362u;
+constexpr uint32_t SEL_W0 = 0x5410u;
+constexpr uint32_t SEL_W1 = 0x7632u;
+constexpr uint32_t HI_FLIP = 0x08080808u;
+// An integer n with |n| < 2^22 as fp32 without I2F: MAGIC_I + n are the
+// bits of the fp32 1.5 * 2^23 + n, and minus MAGIC_F that is n, exact. A
+// group sum is |sum xq q| <= 127 * 8 * G <= 2^17 (G <= KT).
+constexpr uint32_t MAGIC_I = 0x4B400000u;
+constexpr float MAGIC_F = 12582912.0;
+constexpr int MAX_GROUPS = 1024;       // K / G the pre-pass's shared group sums take
+constexpr int GSLOTS = KT / UNIT_K;    // groups a stage holds (G divides KT)
+
+static_assert(1016 * KT < (1 << 22), "a W4A8 group sum converts exactly");
+
+__host__ __device__ constexpr int pad4(int M) { return (M + 3) & ~3; }
+// The W4A8 workspace: xq (M, K) int8, then the group sums (K / G, pad4(M))
+// int32, then sx (pad4(M)) fp32; each part 16-byte aligned (K % 32 == 0).
+__host__ __device__ constexpr long long gsum_offset(int M, int K) { return (long long)M * K; }
+__host__ __device__ constexpr long long sx_offset(int M, int K, int G) {
+  return gsum_offset(M, K) + 4LL * pad4(M) * (K / G);
+}
+__host__ __device__ constexpr long long workspace_bytes(int M, int K, int G) {
+  return sx_offset(M, K, G) + 4LL * pad4(M);
+}
+
+// byte c (selector sel) of a word's nibbles lo, hi as the bf16 pair {q0, q1}
+__device__ __forceinline__ uint32_t nib_pair(uint32_t lo, uint32_t hi, uint32_t sel) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(prmt(lo, hi, sel) | BF16_128), "r"(BF16_ONE), "r"(OFFSET));
+  return d;
+}
+
+// The W4A8 pre-pass: a block a row of x. The row's absmax, sx = absmax /
+// 127 (1 / 127 for a zero row), each xq = rint(x / sx) by IEEE division,
+// as int4_matmul_plain; xq stored as each 8 k's 4 even k, then its 4 odd k
+// (the order the B fragments read), with each group's sum of xq.
+__global__ void __launch_bounds__(rowsmma::THREADS) quantize_kernel(const Args a) {
+  __shared__ float wmax[rowsmma::WARPS];
+  __shared__ int gs[MAX_GROUPS];
+  const int m = blockIdx.x, tid = threadIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(a.x + (long long)m * a.ldx);
+  const int nc = a.K / 8, ng = a.K / a.G;
+  float v = 0.f;
+  for (int c = tid; c < nc; c += rowsmma::THREADS) {
+    const uint4 u = __ldg(xr + c);
+    const uint32_t h[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v = fmaxf(v, fmaxf(fabsf(dec::bf_lo(h[i])), fabsf(dec::bf_hi(h[i]))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (tid % 32 == 0) wmax[tid / 32] = v;
+  for (int g = tid; g < ng; g += rowsmma::THREADS) gs[g] = 0;
+  __syncthreads();
+  float amax = 0.f;
+#pragma unroll
+  for (int w = 0; w < rowsmma::WARPS; ++w) amax = fmaxf(amax, wmax[w]);
+  const float s = __fdiv_rn(amax > 0.f ? amax : 1.f, 127.f);
+  for (int c = tid; c < nc; c += rowsmma::THREADS) {
+    const uint4 u = __ldg(xr + c);
+    const uint32_t h[4] = {u.x, u.y, u.z, u.w};
+    uint32_t even = 0u, odd = 0u;
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // k 8 c + 2 i and 8 c + 2 i + 1
+      const int q0 = (int)rintf(__fdiv_rn(dec::bf_lo(h[i]), s));
+      const int q1 = (int)rintf(__fdiv_rn(dec::bf_hi(h[i]), s));
+      even |= ((uint32_t)q0 & 255u) << (8 * i);
+      odd |= ((uint32_t)q1 & 255u) << (8 * i);
+      sum += q0 + q1;
+    }
+    *reinterpret_cast<uint2*>(a.xq + (long long)m * a.K + 8 * c) = make_uint2(even, odd);
+    atomicAdd(&gs[8 * c / a.G], sum);
+  }
+  __syncthreads();
+  for (int g = tid; g < ng; g += rowsmma::THREADS) a.gsum[(long long)g * a.mp + m] = gs[g];
+  if (tid == 0) a.sx[m] = s;
+}
+
+// The weight modes of the rows template. A stage's weights are its 64 byte
+// rows of the tile's 128 columns (swizzle shift 2: the lane of thread t
+// reads byte rows 4 t .. 4 t + 3 of each unit); its aux rows the scales of
+// the (at most GSLOTS) groups it holds and, W4A8, the tile rows' group sums
+// of xq. In a unit (32 k, 16 byte rows) the lane holds the words of byte
+// rows 4 t .. 4 t + 3 of its 4 columns 4 g .. 4 g + 3: column pair p's A
+// rows g and g + 8 are the columns 4 g + 2 p and 4 g + 2 p + 1.
+// * weight-only, m16n8k16 twice a column pair: in the h-th, thread t's k
+//   slots 2 t, 2 t + 1 are the two k of byte row 4 t + 2 h and its slots
+//   2 t + 8, 2 t + 9 those of byte row 4 t + 2 h + 1, so B is x row g's
+//   bf16 words at k 8 t + 4 h and 8 t + 4 h + 2 of the unit: one 16-byte
+//   load an n8 tile covers both h.
+// * W4A8, one m16n8k32 a column pair: thread t's k slots 4 t .. 4 t + 3 are
+//   the even k of byte rows 4 t .. 4 t + 3 (their low nibbles), its slots
+//   16 + 4 t .. the odd k (the high nibbles), and B is x row g's 8 bytes at
+//   k 8 t .. 8 t + 7 of the unit as staged (4 even k, then 4 odd k).
+// Any assignment of k to slots gives the same sum when A and B agree on it.
+template <bool A8>
+struct Mode {
+  using Args = ::Args;
+  using P = typename std::conditional<A8, int, float>::type;
+  struct Part {
+    P v[2][NJ][4];   // the current group's sums: [column pair][n8 tile][C fragment]
+  };
+  static constexpr bool X8 = A8;
+  static constexpr int W_BYTES = KT / 2 * ROW;
+  static constexpr int S_BYTES = GSLOTS * TILE_F * 4;
+  static constexpr int AUX_BYTES = S_BYTES + (A8 ? GSLOTS * TILE_M * 4 : 0);
+
+  __device__ static void zero(Part& part) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part.v[p][j][c] = 0;
+  }
+
+  __device__ static void load(const Args& a, unsigned char* w, unsigned char* aux, int f0, int m0,
+                              int kbase, int tid) {
+    rowsmma::stage_bytes_of<KT / 2, 2>(w, a.p, a.ldp, kbase / 2, a.K / 2, f0, a.F, tid);
+    if (tid < GSLOTS * 32) {
+      const int sl = tid / 32, c = tid % 32;
+      const int g = kbase / a.G + sl;
+      const bool in = g * a.G < min(kbase + KT, a.K);   // a group of this stage
+      const bool ok = in && f0 + 4 * c < a.F;
+      rowsmma::cp_async16(aux + sl * TILE_F * 4 + 16 * c,
+                          ok ? a.s + (long long)g * a.lds + f0 + 4 * c : a.s, ok ? 16 : 0);
+      if constexpr (A8) {
+        const int m = m0 + 4 * c, n = in && m < a.M ? min(4, a.M - m) : 0;
+        rowsmma::cp_async16(aux + S_BYTES + sl * TILE_M * 4 + 16 * c,
+                            n ? a.gsum + (long long)g * a.mp + m : a.gsum, 4 * n);
+      }
+    }
+  }
+
+  // a group's sums times its scale (W4A8: less 8 sum xq, exact, then as
+  // fp32) into the lane's sums; C rows g, g + 8 are the columns 4 g + 2 p,
+  // + 1; C columns 2 t, 2 t + 1 are rows of x
+  __device__ static void fold(const Args& a, Part& part, float (&acc)[2][NJ][4],
+                              const unsigned char* aux, const Lane& L, int sl, int nj) {
+    const float4 sc = *reinterpret_cast<const float4*>(aux + sl * TILE_F * 4 +
+                                                       (32 * L.cw + 4 * L.g) * 4);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) break;
+      int2 gsum = make_int2(0, 0);
+      if constexpr (A8)
+        gsum = *reinterpret_cast<const int2*>(aux + S_BYTES + sl * TILE_M * 4 +
+                                              (WROWS * L.rw + 8 * j + 2 * L.t) * 4);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float s = comp(sc, 2 * p + c / 2);
+          if constexpr (A8) {
+            const int n = part.v[p][j][c] - 8 * (c % 2 ? gsum.y : gsum.x);
+            acc[p][j][c] = fmaf(__uint_as_float(MAGIC_I + (uint32_t)n) - MAGIC_F, s, acc[p][j][c]);
+          } else {
+            acc[p][j][c] = fmaf(part.v[p][j][c], s, acc[p][j][c]);
+          }
+          part.v[p][j][c] = 0;
+        }
+    }
+  }
+
+  __device__ static void stage(const Args& a, Part& part, float (&acc)[2][NJ][4],
+                               const unsigned char* w, const unsigned char* x,
+                               const unsigned char* aux, const Lane& L, int kbase, int kend,
+                               int nj) {
+    const unsigned char* wl = rowsmma::w_lane<2>(w, L);
+    const int g_lo = kbase / a.G;
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int kk = kbase + UNIT_K * u;
+      if (kk >= kend) break;
+      uint32_t wv[4];   // byte rows 4 t + r of the unit, columns 4 g .. 4 g + 3
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        wv[r] = *reinterpret_cast<const uint32_t*>(wl + (16 * u + r) * ROW);
+      if constexpr (A8) {
+        const uint32_t t0 = prmt(wv[0], wv[1], SEL_LO), t1 = prmt(wv[0], wv[1], SEL_HI);
+        const uint32_t t2 = prmt(wv[2], wv[3], SEL_LO), t3 = prmt(wv[2], wv[3], SEL_HI);
+        const uint32_t col[4] = {prmt(t0, t2, SEL_W0), prmt(t0, t2, SEL_W1),
+                                 prmt(t1, t3, SEL_W0), prmt(t1, t3, SEL_W1)};
+        uint32_t lo[4], hi[4];   // [column 4 g + c]: q0 + 8 and q1 + 8 of its byte rows
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          lo[c] = col[c] & NIB_MASK;
+          hi[c] = ((col[c] >> 4) ^ HI_FLIP) & NIB_MASK;
+        }
+        // x row 64 rw + 8 j + g: bytes 8 t .. 8 t + 7 of the unit
+        const unsigned char* xl = x + (WROWS * L.rw + L.g) * ROW +
+                                  (((2 * u + (L.t >> 1)) ^ ((L.g & 3) << 1)) << 4) +
+                                  8 * (L.t & 1);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint2 xv = *reinterpret_cast<const uint2*>(xl + 8 * j * ROW);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            rowsmma::mma_u8s8(part.v[p][j], lo[2 * p], lo[2 * p + 1], hi[2 * p], hi[2 * p + 1],
+                              xv.x, xv.y);
+        }
+      } else {
+        uint32_t q[4][4];   // [byte row 4 t + r][column 4 g + c]: bf16 pairs {q0, q1}
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t uw = wv[r] ^ SIGN_FLIP;
+          const uint32_t lo = uw & NIB_MASK, hi = (uw >> 4) & NIB_MASK;
+          q[r][0] = nib_pair(lo, hi, SEL0);
+          q[r][1] = nib_pair(lo, hi, SEL1);
+          q[r][2] = nib_pair(lo, hi, SEL2);
+          q[r][3] = nib_pair(lo, hi, SEL3);
+        }
+        // x row 64 rw + 8 j + g: k 8 t .. 8 t + 7 of the unit
+        const unsigned char* xl =
+            x + (WROWS * L.rw + L.g) * X16_ROW + (((4 * u + L.t) ^ ((L.g & 1) << 2)) << 4);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint4 xv = *reinterpret_cast<const uint4*>(xl + 8 * j * X16_ROW);
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            rowsmma::mma_bf16(part.v[p][j], q[0][2 * p], q[0][2 * p + 1], q[1][2 * p],
+                              q[1][2 * p + 1], xv.x, xv.y);
+            rowsmma::mma_bf16(part.v[p][j], q[2][2 * p], q[2][2 * p + 1], q[3][2 * p],
+                              q[3][2 * p + 1], xv.z, xv.w);
+          }
+        }
+      }
+      if ((kk + UNIT_K) % a.G == 0) fold(a, part, acc, aux, L, kk / a.G - g_lo, nj);
+    }
+  }
+
+  __device__ static float row_scale(const Args& a, int m) { return A8 ? a.sx[m] : 1.f; }
+  __device__ static float col_scale(const Args&, int) { return 1.f; }
+};
+
+cudaError_t launch(Args a, bool a8, void* ws, long long ws_bytes, cudaStream_t st) {
+  if (!a8) return rowsmma::launch<Mode<false>>(a, st);
+  if (ws == nullptr || ws_bytes < workspace_bytes(a.M, a.K, a.G)) return cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  a.mp = pad4(a.M);
+  a.xq = reinterpret_cast<int8_t*>(base);
+  a.gsum = reinterpret_cast<int*>(base + gsum_offset(a.M, a.K));
+  a.sx = reinterpret_cast<float*>(base + sx_offset(a.M, a.K, a.G));
+  quantize_kernel<<<a.M, rowsmma::THREADS, 0, st>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return rowsmma::launch<Mode<true>>(a, st);
+}
+
+}  // namespace rows
+
 Args make_args(const void* x, long long ldx, const void* packed, long long ldp,
                const void* scales, long long lds, void* out, long long ldo,
                int M, int K, int F, int G) {
-  Args a;
+  Args a = {};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.ldx = ldx;
   a.p = static_cast<const int8_t*>(packed);
@@ -603,49 +930,82 @@ cudaError_t launch_chunked(const Args& a, bool a8, cudaStream_t st) {
 }  // namespace
 
 // The template int4_matmul runs for these operands: 1 the decode template,
-// 0 the chunked one. The decode template takes M <= 8 rows of x, 16-byte x
-// loads (ldx a multiple of 8, x's base 16-byte aligned), 4-byte weight
-// loads (F, ldp and the packed base multiples of 4), 16-byte scale loads
-// (lds a multiple of 4, the scales' base 16-byte aligned), whole 16-k
-// units and 4-k pairs inside a group (K % 16 == 0, G % 4 == 0), and a K
-// slice of x within its shared-memory limit in either mode, so the choice
-// does not depend on a8.
+// 2 the rows template, 0 the chunked one; the choice does not depend on a8.
+// The decode template takes M <= 8 rows of x, 16-byte x loads (ldx a
+// multiple of 8, x's base 16-byte aligned), 4-byte weight loads (F, ldp and
+// the packed base multiples of 4), 16-byte scale loads (lds a multiple of
+// 4, the scales' base 16-byte aligned), whole 16-k units and 4-k pairs
+// inside a group (K % 16 == 0, G % 4 == 0), and a K slice of x within its
+// shared-memory limit in either mode. The rows template takes M > 8 rows
+// and 16-byte cp.async rows (ldx % 8, ldp % 16, F % 16, lds % 4, every base
+// 16-byte aligned), whole 32-k units and at least two 128-k stages (K % 32
+// == 0, K >= 256: a cluster has at least two ranks), groups of whole units
+// that divide a stage (G % 32 == 0, 128 % G == 0), and at most MAX_GROUPS
+// groups (the pre-pass's shared sums).
 extern "C" int int4_matmul_template(int M, int K, int F, int G, long long ldx,
                                     long long ldp, long long lds, const void* x,
                                     const void* packed, const void* scales) {
-  return M >= 1 && M <= 8 && K % dec::UNIT_K == 0 && G % 4 == 0 && F % 4 == 0 &&
-         ldx % 8 == 0 && ldp % 4 == 0 && lds % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(packed) % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(scales) % 16 == 0 &&
-         dec::smem_bytes(8, false, K) <= dec::SMEM_MAX &&
-         dec::smem_bytes(8, true, K) <= dec::SMEM_MAX;
+  const bool aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  if (M >= 1 && M <= 8 && K % dec::UNIT_K == 0 && G % 4 == 0 && F % 4 == 0 && ldx % 8 == 0 &&
+      ldp % 4 == 0 && lds % 4 == 0 && aligned16 && reinterpret_cast<uintptr_t>(packed) % 4 == 0 &&
+      dec::smem_bytes(8, false, K) <= dec::SMEM_MAX && dec::smem_bytes(8, true, K) <= dec::SMEM_MAX)
+    return 1;
+  if (M > 8 && K % rowsmma::UNIT_K == 0 && K >= 2 * rowsmma::KT && G > 0 &&
+      G % rowsmma::UNIT_K == 0 && rowsmma::KT % G == 0 && K % G == 0 &&
+      K / G <= rows::MAX_GROUPS && F % 16 == 0 && ldx % 8 == 0 && ldp % 16 == 0 &&
+      lds % 4 == 0 && aligned16 && reinterpret_cast<uintptr_t>(packed) % 16 == 0)
+    return 2;
+  return 0;
+}
+
+// The bytes of workspace int4_matmul needs for these rows (the rows
+// template's W4A8 pre-pass: xq, the group sums, sx); 0 without a8 or at
+// the decode template's M <= 8. Under 2^31 for the wrapper's M <= 160
+// rows and the gate's K / G <= MAX_GROUPS, G <= 128.
+extern "C" int int4_matmul_workspace(int M, int K, int G, int a8) {
+  return a8 && M > 8 && G > 0 ? (int)rows::workspace_bytes(M, K, G) : 0;
+}
+
+// The rows template's split of K for these rows: the cluster size KS (K
+// in whole 128-k stages over KS blocks) and the clusters resident on the
+// card at once, as its launch picks them. Returns the CUDA error code.
+extern "C" int int4_matmul_rows_split(int M, int K, int F, int a8, int* ks, int* clusters) {
+  return (int)(a8 ? rowsmma::split<rows::Mode<true>>(M, K, F, ks, clusters)
+                  : rowsmma::split<rows::Mode<false>>(M, K, F, ks, clusters));
 }
 
 // x (M, K) bf16, row stride ldx, unit stride in K; packed (K/2, F) int8,
 // row stride ldp; scales (K/G, F) fp32, row stride lds; out (M, F) bf16,
 // row stride ldo. K and G even, K % G == 0 (the wrapper checks). a8: run
-// W4A8. Launches the template int4_matmul_template names. Returns the CUDA
+// W4A8. ws: ws_bytes of device memory for the rows template's W4A8
+// pre-pass (int4_matmul_workspace; unused by the other templates).
+// Launches the template int4_matmul_template names. Returns the CUDA
 // error code of the launch (0 = launched).
 extern "C" int int4_matmul(const void* x, long long ldx, const void* packed,
                            long long ldp, const void* scales, long long lds,
                            void* out, long long ldo, int M, int K, int F,
-                           int G, int a8, void* stream) {
+                           int G, int a8, void* ws, long long ws_bytes, void* stream) {
   const Args a = make_args(x, ldx, packed, ldp, scales, lds, out, ldo, M, K, F, G);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!int4_matmul_template(M, K, F, G, ldx, ldp, lds, x, packed, scales))
-    return (int)launch_chunked(a, a8 != 0, st);
-  if (M <= 1) return (int)dec::launch_mt<1>(a, a8 != 0, st);
-  if (M <= 2) return (int)dec::launch_mt<2>(a, a8 != 0, st);
-  if (M <= 4) return (int)dec::launch_mt<4>(a, a8 != 0, st);
-  return (int)dec::launch_mt<8>(a, a8 != 0, st);
+  switch (int4_matmul_template(M, K, F, G, ldx, ldp, lds, x, packed, scales)) {
+    case 1:
+      if (M <= 1) return (int)dec::launch_mt<1>(a, a8 != 0, st);
+      if (M <= 2) return (int)dec::launch_mt<2>(a, a8 != 0, st);
+      if (M <= 4) return (int)dec::launch_mt<4>(a, a8 != 0, st);
+      return (int)dec::launch_mt<8>(a, a8 != 0, st);
+    case 2:
+      return (int)rows::launch(a, a8 != 0, ws, ws_bytes, st);
+    default:
+      return (int)launch_chunked(a, a8 != 0, st);
+  }
 }
 
 // The chunked template alone, for any M, with int4_matmul's arguments.
 extern "C" int int4_matmul_chunked(const void* x, long long ldx, const void* packed,
                                    long long ldp, const void* scales, long long lds,
                                    void* out, long long ldo, int M, int K, int F,
-                                   int G, int a8, void* stream) {
+                                   int G, int a8, void*, long long, void* stream) {
   const Args a = make_args(x, ldx, packed, ldp, scales, lds, out, ldo, M, K, F, G);
   return (int)launch_chunked(a, a8 != 0, static_cast<cudaStream_t>(stream));
 }

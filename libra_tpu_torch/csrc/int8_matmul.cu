@@ -16,7 +16,7 @@
 // byte needs its conversion to a float and M products, so these must cost
 // a few instructions a byte or they, and not the bytes, set the time.
 //
-// Two templates; int8_matmul picks one per call (int8_matmul_template):
+// Three templates; int8_matmul picks one per call (int8_matmul_template):
 //
 // * decode (M <= 8, the decode step of every int8 projection): a block
 //   takes a 128-column tile, and K is split into 16-k units over the 8
@@ -46,26 +46,25 @@
 //   It needs 16-byte x loads and 4-byte weight loads (ldx, F, ldq and the
 //   bases aligned to them), K % 16 == 0, and a K slice of x that fits in
 //   shared memory.
-// * chunked (every other call: 8 < M <= 160, unaligned operands; the only
-//   template before the decode one, exported alone as int8_matmul_chunked):
-//   - one block per (32 output columns, MT rows of x); 256 threads, each
-//     owning 4 adjacent columns (one 4-byte load of q per k row) and one of
-//     32 k-slices, so a warp reads 4 rows x 32 contiguous bytes;
-//   - x is staged through shared memory in chunks of 512 k as fp32; each
-//     thread issues its 16 weight loads of a chunk before using any, to
-//     keep bytes in flight;
-//   - MT is 4, 8 or 16 (the smallest that covers M, tiled above 16), so
-//     decode does no multiply-adds on padding rows;
-//   - the 32 k-slices are summed with warp shuffles, then across the 8 warps
-//     through shared memory; the scale is applied once per output;
-//   - ragged M, K and F are masked in the kernel; without 4-byte aligned
-//     rows the weight loads go byte by byte.
-
+// * rows (8 < M <= 160 with aligned operands: the split prompt pass's 128
+//   text rows; rows_mma.cuh holds the template, namespace rows the weight
+//   mode): the weights as the A operand of bf16 mma.sync m16n8k16, 128
+//   columns x 128 rows of x a block, K in stages of 128 k through a
+//   cp.async ring and split over a cluster, a fixed-order cluster
+//   reduction, the column's scale on the fp32 sum. Each int8 weight
+//   becomes its exact fp32 by the decode template's XOR + PRMT + FADD, and
+//   a pair of k rows of one column one bf16x2 A register by one PRMT of the
+//   two floats' high halves (the values are exact in bf16: |q| <= 128 has 8
+//   significant bits). It needs 16-byte cp.async rows (ldx % 8, ldq % 16,
+//   F % 16, x and q 16-byte aligned), K % 32 == 0 and K >= 256.
+// * chunked (every other call: unaligned operands; the only template before
+//   the decode one, exported alone as int8_matmul_chunked):
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows_mma.cuh"
 #include "split_k.cuh"
 
 namespace {
@@ -456,6 +455,92 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace dec
 
+// ---------------------------------------------------------------------------
+// The rows template (8 < M <= 160): its weight mode (rows_mma.cuh)
+// ---------------------------------------------------------------------------
+
+namespace rows {
+
+using rowsmma::Lane;
+using rowsmma::NJ;
+using rowsmma::KT;
+using rowsmma::UNIT_K;
+using rowsmma::UNITS;
+using rowsmma::ROW;
+using rowsmma::X16_ROW;
+using rowsmma::WROWS;
+
+// Two exact weights of one column as one bf16x2 A register: the fp32
+// values from dec::weight hold integers of at most 8 significant bits, so
+// their high halves are their bf16; PRMT by PAIR_HI joins the high half of
+// the first (the low half of the pair) and of the second.
+constexpr uint32_t PAIR_HI = 0x7632u;
+
+// The weight mode. A stage's weights are its 128 k rows of the tile's 128
+// columns (swizzle shift 3: the lane of thread t reads k rows 8 t .. 8 t +
+// 7 of each unit). In a unit (32 k) the lane holds the words of k rows 8 t
+// .. 8 t + 7 of its 4 columns 4 g .. 4 g + 3, and column pair p's A rows g
+// and g + 8 are the columns 4 g + 2 p and 4 g + 2 p + 1. Two m16n8k16 a
+// column pair: in the h-th, thread t's k slots 2 t, 2 t + 1 are k rows 8 t
+// + 4 h and 8 t + 4 h + 1, its slots 2 t + 8, 2 t + 9 the k rows 8 t + 4 h
+// + 2 and + 3, so B is x row g's bf16 words at k 8 t + 4 h and 8 t + 4 h +
+// 2 of the unit: one 16-byte load an n8 tile covers both h. The column
+// scale multiplies the cluster's sum in the epilogue.
+struct Mode {
+  using Args = ::Args;
+  struct Part {};
+  static constexpr bool X8 = false;
+  static constexpr int W_BYTES = KT * ROW;
+  static constexpr int AUX_BYTES = 0;
+
+  __device__ static void zero(Part&) {}
+
+  __device__ static void load(const Args& a, unsigned char* w, unsigned char*, int f0, int,
+                              int kbase, int tid) {
+    rowsmma::stage_bytes_of<KT, 3>(w, a.q, a.ldq, kbase, a.K, f0, a.F, tid);
+  }
+
+  __device__ static void stage(const Args&, Part&, float (&acc)[2][NJ][4], const unsigned char* w,
+                               const unsigned char* x, const unsigned char*, const Lane& L,
+                               int kbase, int kend, int) {
+    const unsigned char* wl = rowsmma::w_lane<3>(w, L);
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      if (kbase + UNIT_K * u >= kend) break;
+      uint32_t pr[4][4];   // [k rows 8 t + 2 i, + 1][column 4 g + c]: bf16 pairs
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t u0 = *reinterpret_cast<const uint32_t*>(wl + (32 * u + 2 * i) * ROW);
+        const uint32_t u1 = *reinterpret_cast<const uint32_t*>(wl + (32 * u + 2 * i + 1) * ROW);
+        const uint32_t v0 = u0 ^ dec::SIGN_FLIP, v1 = u1 ^ dec::SIGN_FLIP;
+        pr[i][0] = __byte_perm(dec::weight(v0, dec::SEL0), dec::weight(v1, dec::SEL0), PAIR_HI);
+        pr[i][1] = __byte_perm(dec::weight(v0, dec::SEL1), dec::weight(v1, dec::SEL1), PAIR_HI);
+        pr[i][2] = __byte_perm(dec::weight(v0, dec::SEL2), dec::weight(v1, dec::SEL2), PAIR_HI);
+        pr[i][3] = __byte_perm(dec::weight(v0, dec::SEL3), dec::weight(v1, dec::SEL3), PAIR_HI);
+      }
+      // x row 64 rw + 8 j + g: k 8 t .. 8 t + 7 of the unit
+      const unsigned char* xl =
+          x + (WROWS * L.rw + L.g) * X16_ROW + (((4 * u + L.t) ^ ((L.g & 1) << 2)) << 4);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(xl + 8 * j * X16_ROW);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          rowsmma::mma_bf16(acc[p][j], pr[0][2 * p], pr[0][2 * p + 1], pr[1][2 * p],
+                            pr[1][2 * p + 1], xv.x, xv.y);
+          rowsmma::mma_bf16(acc[p][j], pr[2][2 * p], pr[2][2 * p + 1], pr[3][2 * p],
+                            pr[3][2 * p + 1], xv.z, xv.w);
+        }
+      }
+    }
+  }
+
+  __device__ static float row_scale(const Args&, int) { return 1.f; }
+  __device__ static float col_scale(const Args& a, int f) { return __ldg(a.scale + f); }
+};
+
+}  // namespace rows
+
 Args make_args(const void* x, long long ldx, const void* q, long long ldq,
                const void* scale, void* out, long long ldo, int M, int K, int F) {
   Args a;
@@ -483,17 +568,32 @@ cudaError_t launch_chunked(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // The template int8_matmul runs for these operands: 1 the decode template,
-// 0 the chunked one. The decode template takes M <= 8 rows of x, 16-byte x
-// loads (ldx a multiple of 8, x's base 16-byte aligned), 4-byte weight
-// loads (F, ldq and q's base multiples of 4), whole 16-k units
-// (K % 16 == 0), and a K slice of x within its shared-memory limit.
+// 2 the rows template, 0 the chunked one. The decode template takes M <= 8
+// rows of x, 16-byte x loads (ldx a multiple of 8, x's base 16-byte
+// aligned), 4-byte weight loads (F, ldq and q's base multiples of 4), whole
+// 16-k units (K % 16 == 0), and a K slice of x within its shared-memory
+// limit. The rows template takes M > 8 rows and 16-byte cp.async rows
+// (ldx % 8, ldq % 16, F % 16, x and q 16-byte aligned), whole 32-k units
+// and at least two 128-k stages (K % 32 == 0, K >= 256: a cluster has at
+// least two ranks).
 extern "C" int int8_matmul_template(int M, int K, int F, long long ldx,
                                     long long ldq, const void* x, const void* q) {
-  return M >= 1 && M <= 8 && K % dec::UNIT_K == 0 && F % 4 == 0 &&
-         ldx % 8 == 0 && ldq % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
-         dec::smem_bytes(8, K) <= dec::SMEM_MAX;
+  if (M >= 1 && M <= 8 && K % dec::UNIT_K == 0 && F % 4 == 0 && ldx % 8 == 0 && ldq % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+      dec::smem_bytes(8, K) <= dec::SMEM_MAX)
+    return 1;
+  if (M > 8 && K % rowsmma::UNIT_K == 0 && K >= 2 * rowsmma::KT && F % 16 == 0 &&
+      ldx % 8 == 0 && ldq % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(q) % 16 == 0)
+    return 2;
+  return 0;
+}
+
+// The rows template's split of K for these rows: the cluster size KS (K
+// in whole 128-k stages over KS blocks) and the clusters resident on the
+// card at once, as its launch picks them. Returns the CUDA error code.
+extern "C" int int8_matmul_rows_split(int M, int K, int F, int* ks, int* clusters) {
+  return (int)rowsmma::split<rows::Mode>(M, K, F, ks, clusters);
 }
 
 // x (M, K) bf16, row stride ldx, unit stride in K; q (K, F) int8, row
@@ -505,11 +605,17 @@ extern "C" int int8_matmul(const void* x, long long ldx, const void* q,
                            long long ldo, int M, int K, int F, void* stream) {
   const Args a = make_args(x, ldx, q, ldq, scale, out, ldo, M, K, F);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!int8_matmul_template(M, K, F, ldx, ldq, x, q)) return (int)launch_chunked(a, st);
-  if (M <= 1) return (int)dec::launch<1>(a, st);
-  if (M <= 2) return (int)dec::launch<2>(a, st);
-  if (M <= 4) return (int)dec::launch<4>(a, st);
-  return (int)dec::launch<8>(a, st);
+  switch (int8_matmul_template(M, K, F, ldx, ldq, x, q)) {
+    case 1:
+      if (M <= 1) return (int)dec::launch<1>(a, st);
+      if (M <= 2) return (int)dec::launch<2>(a, st);
+      if (M <= 4) return (int)dec::launch<4>(a, st);
+      return (int)dec::launch<8>(a, st);
+    case 2:
+      return (int)rowsmma::launch<rows::Mode>(a, st);
+    default:
+      return (int)launch_chunked(a, st);
+  }
 }
 
 // The chunked template alone, for any M, with int8_matmul's arguments.

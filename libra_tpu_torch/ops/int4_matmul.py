@@ -16,12 +16,16 @@ fp32 scale per (group of K, output column).
 
 On a CUDA tensor `int4_matmul` launches the hand-written Hopper kernel in
 ``csrc/int4_matmul.cu`` or raises; on a CPU tensor it runs
-`int4_matmul_plain`. The kernel has two templates, and the C function
+`int4_matmul_plain`. The kernel has three templates, and the C function
 ``int4_matmul_template`` decides between them from the operands: the
 decode template (split-K clusters, ``__dp4a`` for W4A8) for M <= 8 rows
-with aligned operands, every decode step of an int4 tree; the chunked
-template for the rest (8 < M <= MAX_M, unaligned operands), which is
-also exported alone as ``int4_matmul_chunked``.
+with aligned operands, every decode step of an int4 tree; the rows
+template (``csrc/rows_mma.cuh``: ``mma.sync`` on the tensor cores, bf16
+m16n8k16 weight-only, s8 m16n8k32 W4A8 after a pre-pass that quantizes x
+into a workspace this wrapper allocates) for 8 < M <= MAX_M rows with
+aligned operands, the split prompt pass's text rows; the chunked template
+for the rest (unaligned operands), which is also exported alone as
+``int4_matmul_chunked``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,10 @@ SOURCE = _build.CSRC / "int4_matmul.cu"
 MAX_M = 160     # the JAX gate, as for the int8 kernel
 _ARGTYPES = ((ctypes.c_void_p, ctypes.c_longlong) * 3
              + (ctypes.c_void_p, ctypes.c_longlong)
-             + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+             + (ctypes.c_int,) * 5
+             + (ctypes.c_void_p, ctypes.c_longlong)      # the workspace, its bytes
+             + (ctypes.c_void_p,))
+_WS_ARGTYPES = (ctypes.c_int,) * 4
 
 
 def pack_int4(w: torch.Tensor, group: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,6 +78,15 @@ def dequant_int4(packed: torch.Tensor, scales: torch.Tensor, group: int = 128,
     return (unpack_int4(packed) * s).to(dtype)
 
 
+def quantize_rows(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W4A8's activations: each row of xf (M, K) fp32 as xq = round(x /
+    sx), ties to even, with sx = absmax / 127 (1 / 127 for a zero row).
+    Returns (xq (M, K) fp32 integers, sx (M, 1))."""
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.where(amax > 0, amax, 1.0) / 127.0
+    return torch.round(xf / sx), sx
+
+
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                       scales: torch.Tensor, group: int = 128,
                       a8: bool = False) -> torch.Tensor:
@@ -84,9 +100,7 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     if not a8:
         out = xf @ dequant_int4(packed, scales, group)
     else:
-        amax = xf.abs().amax(dim=-1, keepdim=True)
-        sx = torch.where(amax > 0, amax, 1.0) / 127.0
-        xq = torch.round(xf / sx)                                   # (M, K)
+        xq, sx = quantize_rows(xf)                                  # (M, K), (M, 1)
         G = K // group
         w = unpack_int4(packed).float().reshape(G, group, -1)       # (G, g, O)
         sums = torch.bmm(xq.reshape(-1, G, group).transpose(0, 1), w)  # (G, M, O)
@@ -125,11 +139,22 @@ def _check(x, packed, scales, group):
                          "last dim")
 
 
-def _launch(fn, x2, packed, scales, out, group, a8, stream) -> int:
+def workspace(x2: torch.Tensor, group: int, a8: bool):
+    """The device workspace the kernel needs for x2's rows (the rows
+    template's W4A8 pre-pass: xq, its group sums and the row scales, as
+    ``int4_matmul_workspace`` sizes it), or None."""
+    M, K = x2.shape
+    n = _build.function(SOURCE, "int4_matmul_workspace", _WS_ARGTYPES)(M, K, group, int(a8))
+    return torch.empty(n, dtype=torch.uint8, device=x2.device) if n else None
+
+
+def _launch(fn, x2, packed, scales, out, group, a8, ws, stream) -> int:
     M, K = x2.shape
     return fn(x2.data_ptr(), x2.stride(0), packed.data_ptr(), packed.stride(0),
               scales.data_ptr(), scales.stride(0), out.data_ptr(),
-              out.stride(0), M, K, packed.shape[1], group, int(a8), stream)
+              out.stride(0), M, K, packed.shape[1], group, int(a8),
+              None if ws is None else ws.data_ptr(),
+              0 if ws is None else ws.numel(), stream)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -137,7 +162,9 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """x (..., K) @ dequant_int4(packed (K/2, O), scales (K/group, O))
     -> (..., O) in x's dtype; a8 runs W4A8. CPU tensors take the plain
     version. CUDA tensors launch the kernel (bfloat16 x, at most MAX_M
-    rows) and add one to `int4_matmul.launches`."""
+    rows; the template ``int4_matmul_template`` names, W4A8 on the rows
+    template with its pre-pass in the same call) and add one to
+    `int4_matmul.launches`."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, group, a8)
     if x.device.type != "cuda":
@@ -149,7 +176,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         x2 = x2.contiguous()
     out = torch.empty((x2.shape[0], O), dtype=x.dtype, device=x.device)
     status = _launch(_build.function(SOURCE, "int4_matmul", _ARGTYPES),
-                     x2, packed, scales, out, group, a8, _build.stream(x))
+                     x2, packed, scales, out, group, a8,
+                     workspace(x2, group, a8), _build.stream(x))
     _build.check_launch(status, "int4_matmul")
     int4_matmul.launches += 1
     return out.reshape(x.shape[:-1] + (O,))

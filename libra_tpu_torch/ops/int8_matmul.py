@@ -8,12 +8,14 @@ accumulator, the result in x's dtype.
 On a CUDA tensor `int8_matmul` launches the hand-written Hopper kernel in
 ``csrc/int8_matmul.cu`` (built with nvcc at first use, bound with ctypes)
 or raises; a layer view ``q[l]`` of a stacked (L, K, F) weight is read in
-place. On a CPU tensor it runs `int8_matmul_plain`. The kernel has two
+place. On a CPU tensor it runs `int8_matmul_plain`. The kernel has three
 templates, and the C function ``int8_matmul_template`` decides between
 them from the operands: the decode template (split-K clusters, exact
 magic-number floats) for M <= 8 rows with aligned operands, every decode
-step of an int8 tree; the chunked template for the rest (8 < M <= MAX_M,
-unaligned operands), which is also exported alone as
+step of an int8 tree; the rows template (``csrc/rows_mma.cuh``: bf16
+``mma.sync`` m16n8k16 on the tensor cores) for 8 < M <= MAX_M rows with
+aligned operands, the split prompt pass's text rows; the chunked template
+for the rest (unaligned operands), which is also exported alone as
 ``int8_matmul_chunked``.
 """
 
