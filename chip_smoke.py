@@ -28,8 +28,9 @@ Phases, in order; any failure exits non-zero:
    projection shapes (4096->4096, 4096->11008, 11008->4096, 4096->32000
    lm_head) and on 4096->2752 (F not a multiple of the decode templates'
    128-column tile), the weight a layer view of a stacked (8, K, F)
-   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7, 8, 128 (the
-   split prompt pass's text rows) and 160 (the gate's limit), x with a zero
+   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7, 8, 62 and 124
+   (the serving engine's k = 1 and 2 pixels refills at a 128 bucket),
+   128 (the split prompt pass's text rows) and 160 (the gate's limit), x with a zero
    row at M = 7 and above 8, each case with the template it ran (the
    script raises unless M <= 8 took the decode template and M > 8 the rows
    one); at M = 4, 128 and 160 each kernel's chunked template checked and
@@ -74,7 +75,22 @@ Phases, in order; any failure exits non-zero:
    prompt pass of a quantized tree adds 7 matmul launches a layer, its
    B * 32 = 128 text rows being under the kernels' MAX_M); torch.profiler's
    split of one fused prompt pass by kernel, split on and off, with the
-   device time of CLIP + LFQ.
+   device time of CLIP + LFQ. Then each tree's serving engine
+   (serving.ServingEngine, raw-pixels requests of the fused shape, the
+   quantized trees with the same options): the B fused requests at once
+   (one k = 4 group, max_len 674) with tokens equal to the fused
+   Generator's; a recycling burst of 8 requests (budgets 8 to 64, bucket
+   128, max_len 768, decode_chunk 8) run twice with equal tokens, each
+   request's prompt-pass and first-decode-step logits (the latter over
+   its pool row, recycled for the k = 1 refills) equal to the fused
+   Generator's on its prefill group alone at the pool's cache length,
+   each finishing on its budget, launch counts derived from the run's own
+   schedule (its prefill groups and decode steps) and one decode chunk
+   under torch.cuda.set_sync_debug_mode("error"), a chunk and a k = 1
+   refill profiled; an open-loop run of the same requests at seeded
+   exponential arrivals (TTFT p50 / p95 from arrival, tokens/s,
+   requests/s, wall time a chunk against its device time, peak memory);
+   on the int8 tree, ServingEngine.warmup once.
 7. the training path: the fused pretrain step (CLIP + LFQ tokenizing inside
    the step, frozen-language AdamW, remat), libra-11b at full width cut to
    4 layers, B=8, N=120+578=698 (bench.py's train-step proxy), for remat
@@ -125,6 +141,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 from unittest import mock
 
 import torch
@@ -138,9 +155,11 @@ MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 # int8 (B2) and int4 (B5) also on an F that is not a multiple of the
 # decode templates' 128-column tile (libra-11b's vision-MLP bottleneck), at
 # the decode row counts 1, 4, 7, 8 (the templates' MT = 1, 4, 8 and a
-# ragged 7), 128 (the split prompt pass's text rows, B * 32) and 160
+# ragged 7), 62 and 124 (the serving engine's k = 1 and 2 pixels refills
+# at a 128 bucket: k * (640 - 578) text rows, a ragged last n8 tile), 128
+# (the split prompt pass's text rows, B * 32) and 160
 QUANT_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
-QUANT_M = (1, 4, 7, 8, 128, 160)
+QUANT_M = (1, 4, 7, 8, 62, 124, 128, 160)
 M_SPLIT = 128                                # B * (NQ - 578) text rows
 M_DENSE = B * NQ                             # the dense prompt pass's rows
 LAYERS_11B = 32
@@ -148,6 +167,10 @@ LAYERS_11B = 32
 PROJECTIONS = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
 SEED = 0
 MAX_NEW = 64
+# phase 6's serving engine: a burst of ENGINE_N pixels requests with budgets
+# ENGINE_CHUNK * (i + 1), prompts bucketed to 128 (610 -> 640), max_len 768
+ENGINE_N, ENGINE_CHUNK, ENGINE_BUCKET, ENGINE_MAX_LEN = 8, 8, 128, 768
+STRICT_CHUNK = 2                             # the burst's chunk with no sync allowed
 PROFILE_ROWS = 8                             # kernels listed per profile
 # End-to-end check on two layers: the kernels and their plain versions
 # both round each result to bf16 from fp32 sums taken in different
@@ -1066,10 +1089,11 @@ def plain_kernels():
 
 
 def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
-              main: Counter) -> int:
-    """Chat, logit checks and TTFT/decode timing for one weight mode.
-    Adds the main-path runs' kernel launches to `main`; returns the
-    prompt length."""
+              main: Counter):
+    """Chat, logit checks and TTFT/decode timing for one weight mode, then
+    its fused-pixels path and its serving-engine phase. Adds the main-path
+    runs' kernel launches to `main`; returns the prompt length, the fused
+    path's and the engine's figures."""
     from libra_tpu_torch.generation import GenerationConfig
     from libra_tpu_torch.pipeline import LibraPipeline
     from libra_tpu_torch.tokenization import (ImageTokenizer, LibraTokenizer,
@@ -1175,9 +1199,11 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
           f"{tok_s:.3f} tok/s ({MAX_NEW} new tokens in {t64 * 1e3:.3f} ms) "
           f"[{card}]")
     profile_paths(card, cfg, params, args, g64, mode)
-    fused = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
-                       torch.stack(images), main)
-    return N, fused
+    fused, seqs = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
+                             torch.stack(images), main)
+    engine = engine_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
+                         torch.stack(images), seqs, fused["on"]["ttft_ms"], main)
+    return N, fused, engine
 
 
 def fused_inputs(cfg, dev, pixels):
@@ -1210,7 +1236,9 @@ def fused_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
     ImageTokenizer's, two-layer logits against the plain versions and
     split on against split off, two greedy runs equal, the launch counts;
     times TTFT and decode tok/s with split on and off in turns; profiles
-    one prompt pass each way. Adds the timed runs' launches to `main`."""
+    one prompt pass each way. Adds the timed runs' launches to `main`.
+    Returns (TTFT and decode tok/s each way, the split-on sequences of
+    MAX_NEW greedy tokens)."""
     from libra_tpu_torch.generation import GenerationConfig, Generator
     from libra_tpu_torch.tokenization import ImageTokenizer
     from libra_tpu_torch.training.fused import (encode_images_to_tokens,
@@ -1320,7 +1348,326 @@ def fused_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
                       f"{v['tok_s']:.3f} tok/s" for k, v in stats.items())
           + f" (best of 2 each, in turns) [{card}]")
     profile_fused(card, cfg, params, args, fkw, gens[True][1], mode)
-    return stats
+    return stats, seqs[0]
+
+
+# ---------------------------------------------------------------------------
+# Serving engine
+# ---------------------------------------------------------------------------
+
+def engine_counts(cfg, mode: str, kv_quant: bool, stats: dict, n_prompt: int) -> Counter:
+    """Kernel launches of one ServingEngine.run, from its own schedule
+    (last_run_stats): each prefill a fused-pixels prompt pass of a k-row
+    group (group_sizes), split on, its text rows k * (n_prompt - 578); each
+    decode step (iters: chunks x decode_chunk, every slot stepping, idle
+    ones too) a text-only decode step of max_batch rows."""
+    Mv = cfg.max_vision_token_length
+    want = expected_counts(cfg, mode, kv_quant, 0, stats["iters"])
+    for k in stats["group_sizes"]:
+        want.update(expected_counts(cfg, mode, False, 1, 0, split_prefills=1,
+                                    text_rows=k * (n_prompt - Mv)))
+    return want
+
+
+def nth_call(fn, index: int, wrap):
+    """fn with its index-th call (from 0) run as wrap(call)."""
+    calls = itertools.count()
+
+    def hooked(*args, **kwargs):
+        call = functools.partial(fn, *args, **kwargs)
+        return wrap(call) if next(calls) == index else call()
+    return hooked
+
+
+def no_sync(call):
+    """call() under torch.cuda.set_sync_debug_mode("error"): any host sync
+    inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def engine_requests(cfg, pixels, budgets, arrivals=None):
+    """Raw-pixels requests of fused_inputs' shape, one per budget: 32 text
+    ids from a torch.Generator seeded per request, the 578-token block at
+    IMG_T (placeholder ids), image i % B of `pixels` (host uint8)."""
+    import numpy as np
+    from libra_tpu_torch.serving import Request
+    Mv, Q = cfg.max_vision_token_length, cfg.vision_codebook_num
+    vi = np.full((NQ,), Mv, np.int64)
+    vi[IMG_T:IMG_T + Mv] = np.arange(Mv)
+    reqs = []
+    for i, budget in enumerate(budgets):
+        g = torch.Generator().manual_seed(SEED + 10 + i)
+        ids = torch.randint(3, cfg.vocab_size, (1, NQ), generator=g).expand(Q, NQ)
+        reqs.append(Request(i, ids.numpy().copy(), vi, max_new_tokens=budget,
+                            pixels=pixels[i % len(pixels)], img_start=IMG_T,
+                            arrival_s=None if arrivals is None else arrivals[i]))
+    return reqs
+
+
+def piece_bytes(cfg, n: int, kv_quant: bool) -> int:
+    """Bytes of one slot row's cache piece of n positions, over the four
+    buffers (int8 values and fp32 scales, or bf16)."""
+    per = cfg.num_hidden_layers * n * cfg.num_attention_heads
+    return 4 * (per * (cfg.head_dim + 4) if kv_quant else per * cfg.head_dim * 2)
+
+
+def recorder(fn, pick, sink: list):
+    """fn that also appends pick(its result) to `sink`."""
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        sink.append(pick(out))
+        return out
+    return wrapped
+
+
+class FirstStep(Exception):
+    """Ends a Generator run after its first decode step (burst_parity)."""
+
+
+def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, results,
+                 firsts: dict, dispatch: list, qkw: dict) -> None:
+    """The recycling burst against the port's Generator: each prefill group
+    of the burst (`dispatch`, request ids in dispatch order) run alone
+    through the fused Generator at B = k, the same bucket and the pool's
+    cache length (max_new_tokens = ENGINE_MAX_LEN - N), stopped after its
+    first decode step. `firsts` holds each request's first two logits in
+    the engine: the prompt pass's, read from its slot row after the
+    install, and the first decode step's, over the pool row it was
+    installed into (the k = 1 refills' rows recycled, the pool's other
+    slots at other key extents). Both must EQUAL the Generator's: the
+    shapes, kernels and launch order are the same, apart from the decode
+    step's row count at k < B, and every kernel of that step computes its
+    rows independently. (A cache of another length would not do: it
+    changes the order of the attention's sums, and 32 random layers grow
+    the rounding differences far past any tolerance the check could set.)"""
+    import numpy as np
+    import libra_tpu_torch.generation as G
+    g = G.Generator(params, cfg, vq_params=vq_params, vq_cfg=vq_cfg)
+    gen = G.GenerationConfig(max_new_tokens=ENGINE_MAX_LEN - -(-NQ // ENGINE_BUCKET)
+                             * ENGINE_BUCKET, eos_token_id=-1,
+                             prompt_bucket=ENGINE_BUCKET, **qkw)
+    decode = G.decode_micro_step
+
+    def first_step(*args, **kwargs):
+        step.append(decode(*args, **kwargs)[0])
+        raise FirstStep
+
+    def rel(a, b):
+        """Relative L2 over b's finite entries (a text position's vision
+        slice is -inf); inf where a's -inf entries are elsewhere."""
+        live = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), live):
+            return math.inf
+        a, b = a[live].float(), b[live].float()
+        return ((a - b).norm() / b.norm()).item()
+    rows, unequal = [], []
+    for ids in dispatch:
+        rq = [reqs[i] for i in ids]
+        inputs = {"input_ids": np.stack([r.input_ids for r in rq], 1),
+                  "attention_mask": np.ones((len(rq), NQ), np.int64),
+                  "vision_indices": np.stack([r.vision_indices for r in rq]),
+                  "pixels": np.stack([r.pixels for r in rq]),
+                  "img_start": np.array([r.img_start for r in rq])}
+        pre, step = [], []
+        with contextlib.suppress(FirstStep), \
+                mock.patch.object(G, "_prefill", recorder(G._prefill, lambda st: st.logits,
+                                                          pre)), \
+                mock.patch.object(G, "decode_micro_step", first_step):
+            g(inputs, gen)
+        for b, i in enumerate(ids):
+            out = []
+            for name, got, want in zip(("prompt pass", "first decode step"), firsts[i],
+                                       (pre[0][:, b], step[0][:, b])):
+                if torch.equal(got, want):
+                    out.append(f"{name} equal")
+                else:
+                    out.append(f"{name} relative L2 {rel(got, want):.6g}")
+                    unequal.append(i)
+            rows.append(f"request {i} (k = {len(ids)}): " + ", ".join(out))
+    print(f"{mode} engine burst against the Generator on each prefill group alone, "
+          f"logits: " + "; ".join(rows) + f" [{card}]")
+    if unequal:
+        raise AssertionError(f"{mode} engine burst: logits of requests "
+                             f"{sorted(set(unequal))} differ "
+                             f"from the Generator's")
+
+
+def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
+                want_seqs, gap_ms: float, main: Counter) -> dict:
+    """The serving engine (libra_tpu_torch.serving.ServingEngine) on this
+    tree, with raw-pixels requests of the fused path's shape (the quantized
+    trees with kv_quant, a8_prefill and text decode):
+      1. lockstep: the fused path's B requests at once, MAX_NEW tokens,
+         max_len = NQ + MAX_NEW, one k = B group: every request's tokens
+         equal to the fused Generator's (`want_seqs`, the same inputs);
+      2. a recycling burst: ENGINE_N requests, budgets ENGINE_CHUNK * (i +
+         1), bucket 128 (N = 640), max_len 768, run twice (the first a
+         warm-up, one of its chunks and its first k = 1 refill
+         profiled): equal tokens, each its
+         budget's count with "length", launches derived from the run's own
+         schedule, one chunk under set_sync_debug_mode("error"); each
+         request's first two logits in the second run equal to the
+         Generator's on its prefill group alone (burst_parity);
+      3. open loop: the same requests with seeded exponential gaps of mean
+         `gap_ms` (a B-row fused prompt pass's TTFT): TTFT p50 / p95 from
+         arrival, tokens/s, requests/s, last_run_stats, wall time a chunk
+         against the profiled chunk's device time, peak memory;
+      4. on the int8 tree, engine.warmup once.
+    Adds the runs' launches to `main`; returns the open loop's figures."""
+    import random
+    import numpy as np
+    from libra_tpu_torch.generation import GenerationConfig
+    from libra_tpu_torch.serving import Request, ServingEngine
+    t_phase = time.perf_counter()
+    quant = mode != "bf16"
+    Mv = cfg.max_vision_token_length
+    qkw = dict(kv_quant=True, a8_prefill=True, decode_modality="text") if quant else {}
+    kw = dict(gen=GenerationConfig(eos_token_id=-1, **qkw), vq_params=vq_params,
+              vq_cfg=vq_cfg, max_batch=B)
+    px = pixels.cpu().numpy()
+
+    def counted(label, eng, n_prompt, call):
+        zero_counts()
+        t = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = read_counts()
+        main.update(got)
+        assert_counts(f"{mode} engine {label}", got,
+                      engine_counts(cfg, mode, quant, eng.last_run_stats, n_prompt), card)
+        return res, wall
+
+    # --- 1. lockstep: the Generator's tokens ---
+    inputs = fused_inputs(cfg, dev, pixels)
+    ids = inputs["input_ids"].cpu().numpy()
+    vi = inputs["vision_indices"].cpu().numpy()
+    reqs = [Request(b, ids[:, b], vi[b], max_new_tokens=MAX_NEW, pixels=px[b],
+                    img_start=IMG_T) for b in range(B)]
+    eng = ServingEngine(params, cfg, max_len=NQ + MAX_NEW, **kw)
+    res, wall = counted("lockstep", eng, NQ, lambda: eng.run(reqs))
+    want = want_seqs[:, :, NQ:].cpu().numpy()
+    equal = [bool(np.array_equal(r.tokens, want[:, b])) for b, r in enumerate(res)]
+    print(f"{mode} engine lockstep: {B} pixels requests, one group of k = "
+          f"{eng.last_run_stats['group_sizes']}, {MAX_NEW} tokens each, max_len "
+          f"{eng.S}: tokens equal to the fused Generator's {equal}, {wall:.3f} s "
+          f"[{card}]")
+    if eng.last_run_stats["group_sizes"] != [B] or not all(equal):
+        raise AssertionError(f"{mode} engine lockstep differs from the Generator")
+    del eng
+
+    # --- 2. the recycling burst, twice ---
+    budgets = [ENGINE_CHUNK * (i + 1) for i in range(ENGINE_N)]
+    burst = engine_requests(cfg, px, budgets)
+    eng = ServingEngine(params, cfg, max_len=ENGINE_MAX_LEN, prompt_bucket=ENGINE_BUCKET,
+                        decode_chunk=ENGINE_CHUNK, **kw)
+    n_bucket = -(-NQ // ENGINE_BUCKET) * ENGINE_BUCKET
+    chunk, refill = {}, {}
+    profile = functools.partial(profiled, card, f"{mode} engine decode chunk "
+                                f"({ENGINE_CHUNK} steps, {B} slots)", out=chunk)
+    profile_refill = functools.partial(profiled, card, f"{mode} engine k = 1 refill "
+                                       f"(N = {-(-NQ // ENGINE_BUCKET) * ENGINE_BUCKET})",
+                                       out=refill)
+    with mock.patch.object(eng, "_decode", nth_call(eng._decode, 1, profile)), \
+            mock.patch.object(eng, "_prefill", nth_call(eng._prefill, 1, profile_refill)):
+        t = time.perf_counter()
+        first = eng.run(burst)
+        t_first = time.perf_counter() - t
+    # the second run also keeps each request's first two logits: the prompt
+    # pass's from its slot row, the first decode step's from the pool
+    import libra_tpu_torch.serving as SV
+    firsts, pending, dispatch = {}, {}, []
+    order = iter(range(ENGINE_N))       # one bucket, no arrivals: queue order
+
+    def keep_prefill(prefill):
+        def wrapped(N, has_px, k, state, reqs, slots):
+            state = prefill(N, has_px, k, state, reqs, slots)
+            dispatch.append([next(order) for _ in range(k)])
+            for i, slot in zip(dispatch[-1], slots.tolist()):
+                firsts[i] = [state.logits[:, slot].clone()]
+                pending[slot] = i
+            return state
+        return wrapped
+
+    def keep_step(*args, **kwargs):
+        out = decode_step(*args, **kwargs)
+        for slot, i in pending.items():
+            firsts[i].append(out[0][:, slot].clone())
+        pending.clear()
+        return out
+    decode_step = SV.decode_micro_step
+    with mock.patch.object(eng, "_decode", nth_call(eng._decode, STRICT_CHUNK, no_sync)), \
+            mock.patch.object(eng, "_prefill", keep_prefill(eng._prefill)), \
+            mock.patch.object(SV, "decode_micro_step", keep_step):
+        second, t_second = counted("burst", eng, n_bucket, lambda: eng.run(burst))
+    rs = dict(eng.last_run_stats)
+    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(first, second))
+    lengths = [r.tokens.shape[-1] for r in second]
+    print(f"{mode} engine burst: {ENGINE_N} pixels requests, budgets {budgets}, bucket "
+          f"{ENGINE_BUCKET} (N = {n_bucket}), max_len {ENGINE_MAX_LEN}, decode_chunk "
+          f"{ENGINE_CHUNK}: runs {t_first:.3f} s (warm-up) and {t_second:.3f} s, tokens "
+          f"equal {same}, finish {sorted({r.finish_reason for r in second})}, "
+          f"chunk {STRICT_CHUNK} under set_sync_debug_mode('error') passed; "
+          f"last_run_stats {rs} [{card}]")
+    if not same or lengths != budgets or {r.finish_reason for r in second} != {"length"}:
+        raise AssertionError(f"{mode} engine burst: tokens differ between runs or "
+                             f"lengths {lengths} != budgets {budgets}")
+    burst_parity(card, cfg, params, vq_cfg, vq_params, mode, burst, second, firsts,
+                 dispatch, qkw)
+    moved = piece_bytes(cfg, n_bucket, quant)
+    print(f"{mode} engine cache piece per refilled row: {moved / 1e6:.1f} MB written by "
+          f"the prompt pass, then read and written again into the pool, "
+          f"{2 * moved / 1e6:.1f} MB (whole rows of {ENGINE_MAX_LEN} slots gathered and "
+          f"scattered back: {4 * piece_bytes(cfg, ENGINE_MAX_LEN, quant) / 1e6:.1f} MB) "
+          f"[{card}]")
+
+    # --- 3. open loop ---
+    rng = random.Random(SEED)
+    arrivals, t = [], 0.0
+    for _ in range(ENGINE_N):
+        arrivals.append(t)
+        t += rng.expovariate(1e3 / gap_ms)
+    stream = engine_requests(cfg, px, budgets, arrivals)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = counted("open loop", eng, n_bucket, lambda: eng.run(stream))
+    rs = dict(eng.last_run_stats)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ttft = sorted(r.ttft_s * 1e3 for r in res if r.ttft_s is not None)
+    if len(ttft) != ENGINE_N or any(r.tokens.shape[-1] != b for r, b in zip(res, budgets)):
+        raise AssertionError(f"{mode} engine open loop: a request did not complete")
+    out = dict(ttft_p50_ms=statistics.median(ttft),
+               ttft_p95_ms=ttft[math.ceil(0.95 * len(ttft)) - 1],
+               tok_s=rs["tokens"] / wall, req_s=ENGINE_N / wall,
+               chunk_wall_ms=rs["t_decode"] / rs["n_decode"] * 1e3,
+               chunk_device_ms=chunk["device_ms"], refill_device_ms=refill["device_ms"],
+               peak_gb=peak_gb)
+    print(f"{mode} engine open loop: {ENGINE_N} requests, arrivals at "
+          f"{[round(a, 4) for a in arrivals]} s (exponential gaps, mean {gap_ms:.3f} ms), "
+          f"{wall:.3f} s: TTFT from arrival p50 {out['ttft_p50_ms']:.3f} ms, p95 (nearest "
+          f"rank) {out['ttft_p95_ms']:.3f} ms, {out['tok_s']:.3f} generated tokens/s, "
+          f"{out['req_s']:.4f} requests/s; decode chunk {out['chunk_wall_ms']:.3f} ms "
+          f"wall (t_decode / n_decode) against {chunk['device_ms']:.3f} ms device in the "
+          f"profiled chunk ({chunk['wall_ms']:.3f} ms wall there); peak memory "
+          f"{peak_gb:.3f} GB; last_run_stats {rs} [{card}]")
+
+    # --- 4. warmup ---
+    if mode == "int8":
+        t = time.perf_counter()
+        eng.warmup(burst[0])
+        torch.cuda.synchronize()
+        print(f"{mode} engine warmup: {time.perf_counter() - t:.3f} s, prompt-pass "
+              f"shapes {sorted(eng._prefill_shapes)}, stats {eng.stats} [{card}]")
+        if {k for _, _, k in eng._prefill_shapes} != set(eng._group_sizes):
+            raise AssertionError("warmup did not run every group size")
+    del eng
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{mode} engine phase: {out['phase_s']:.1f} s [{card}]")
+    return out
 
 
 def profile_fused(card: str, cfg, params, args, fkw, gen, mode: str) -> None:
@@ -1343,11 +1690,12 @@ def profile_fused(card: str, cfg, params, args, fkw, gen, mode: str) -> None:
                      regions=(ENCODE_REGION,))
 
 
-def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS, regions=()):
+def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS, regions=(),
+             out: Optional[dict] = None):
     """Run fn under torch.profiler: print its wall and device time and the
     kernels that take the most device time, and the device time of the
     kernels run inside each record_function region named in `regions`;
-    return fn's result."""
+    return fn's result. `out` receives wall_ms and device_ms."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1363,6 +1711,8 @@ def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS, regions=()):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {label}: {wall * 1e3:.3f} ms wall, {device_ms:.3f} "
           f"ms device [{card}]")
+    if out is not None:
+        out.update(wall_ms=wall * 1e3, device_ms=device_ms)
     for r in regions:
         ms = sum(e.device_time_total for e in prof.key_averages()
                  if e.key == r and e.device_type == cpu) / 1e3
@@ -1893,15 +2243,23 @@ def main() -> int:
           f"cache, {L} decode-attention launches (1 a layer) [{card}]")
     main_counts = Counter()
     fused = {}
+    engine = {}
     for mode in ("bf16", "int8", "int4"):
-        n_prompt, fused[mode] = full_path(card, dev, cfg, vq_cfg, vq_params, mode,
-                                          main_counts)
+        n_prompt, fused[mode], engine[mode] = full_path(card, dev, cfg, vq_cfg,
+                                                        vq_params, mode, main_counts)
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
         torch.cuda.empty_cache()
     print("fused summary (TTFT ms, decode tok/s): " + "; ".join(
         f"{mode} split {k} {v['ttft_ms']:.3f} / {v['tok_s']:.3f}"
         for mode, runs in fused.items() for k, v in runs.items()) + f" [{card}]")
+    print("engine summary (open loop: TTFT p50 / p95 ms, tokens/s, requests/s; "
+          "chunk wall / device ms; refill; phase s): " + "; ".join(
+              f"{mode} {v['ttft_p50_ms']:.3f} / {v['ttft_p95_ms']:.3f}, "
+              f"{v['tok_s']:.3f}, {v['req_s']:.4f}; {v['chunk_wall_ms']:.3f} / "
+              f"{v['chunk_device_ms']:.3f}; k = 1 refill {v['refill_device_ms']:.3f} ms "
+              f"device; {v['phase_s']:.1f}"
+              for mode, v in engine.items()) + f" [{card}]")
     train = train_path(card, dev, vq_cfg, vq_params, main_counts)
     print("train summary: " + "; ".join(
         f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "

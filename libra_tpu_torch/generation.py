@@ -116,14 +116,24 @@ def _last_position_logits(params, cfg: LibraConfig, hidden: torch.Tensor,
 def decode_micro_step(params, cfg: LibraConfig, tok: torch.Tensor,
                       mask_buf: torch.Tensor, cache: M.KVCache,
                       vi_last: torch.Tensor, pos_last: torch.Tensor,
+                      active: Optional[torch.Tensor] = None,
                       lang_only: bool = False):
-    """One decode step: advance vision_indices (auto-increment, clamped at
-    text) and positions, run the cached one-token forward, assemble the
-    logits. tok (Q, B) is the step's input token. Returns
+    """One decode step, shared by the Generator's loop and the serving
+    engine's decode chunk: advance vision_indices (auto-increment, clamped
+    at text) and positions, run the cached one-token forward, assemble the
+    logits. tok (Q, B) is the step's input token, already masked by the
+    caller, and mask_buf already holds the caller's write for its slot.
+    active=None: lockstep advance (the Generator: finished rows emit pads
+    but vi/pos keep advancing); active (B,) bool: rows with active False
+    keep their vi and pos (idle serving slots). Returns
     (logits, cache, vi_new, pos_new)."""
     Mv = cfg.max_vision_token_length
-    vi_new = torch.clamp_max(vi_last + 1, Mv)
-    pos_new = pos_last + 1
+
+    def adv(new, old):
+        return new if active is None else torch.where(active, new, old)
+
+    vi_new = adv(torch.clamp_max(vi_last + 1, Mv), vi_last)
+    pos_new = adv(pos_last + 1, pos_last)
     step = M.forward(params, cfg, tok[:, :, None], mask_buf, vi_new[:, None],
                      None, position_ids=pos_new[:, None], cache=cache,
                      lang_only=lang_only)

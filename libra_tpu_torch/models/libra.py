@@ -11,7 +11,9 @@ The PyTorch counterpart of ``libra_tpu/models/libra.py`` for inference:
   written in place; the int8 cache (``init_cache(quantized=True)``) is
   head-major (L, B, H, S, d) with (L, B, H, S) fp32 scales, and decode
   steps read it through the int8 decode-attention kernel
-  (ops/decode_attention.py).
+  (ops/decode_attention.py). The cache's index is a host int (every row
+  in lockstep) or a (B,) tensor on the device, one timeline per row (the
+  serving engine's slots, serving.py).
 
 Training adds per-layer rematerialisation (``forward(remat=...)``:
 ``torch.utils.checkpoint``, full or selective on the named big dots) and
@@ -31,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import functools
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -163,13 +165,18 @@ class KVCache(NamedTuple):
     tensors, or head-major QuantizedArrays (q (num_layers, B, H, max_len,
     head_dim) int8, scale (num_layers, B, H, max_len) fp32); kb/vb None
     without the bridge; flag: (B, max_len) vision flags of the cached
-    tokens; index: tokens already written (all rows in lockstep)."""
+    tokens. index: tokens already written -- a host int (all rows in
+    lockstep: the Generator's decode), or a (B,) int64 tensor on the
+    cache's device for PER-SLOT timelines (the serving engine: each slot
+    owns positions [0, index_b) of its own row and recycles
+    independently). A per-row write of N tokens starts at index_b clamped
+    to [0, max_len - N], as XLA's dynamic_update_slice clamps its start."""
     k: Any
     v: Any
     kb: Optional[Any]
     vb: Optional[Any]
     flag: torch.Tensor
-    index: int
+    index: Union[int, torch.Tensor]
 
 
 def init_cache(cfg: LibraConfig, batch: int, max_len: int,
@@ -198,26 +205,67 @@ def init_cache(cfg: LibraConfig, batch: int, max_len: int,
                    index=0)
 
 
-def _write_seq(buf: torch.Tensor, new: torch.Tensor, index: int) -> torch.Tensor:
+class RowSlots(NamedTuple):
+    """Where a per-row write of N tokens lands: rows (B, 1) and positions
+    (B, N), for one advanced-index write per buffer."""
+    rows: torch.Tensor
+    pos: torch.Tensor
+
+
+def row_slots(index: torch.Tensor, S: int, N: int) -> RowSlots:
+    """The write slots of N tokens at a per-row index (B,) into rows of S:
+    each start clamped to [0, S - N], XLA's rule for dynamic_update_slice,
+    so that a row whose index ran past the end (an idle serving slot keeps
+    decoding until a refill resets it) rewrites its last N positions
+    instead of indexing out of range. Computed on the index's device, with
+    no host read."""
+    start = index.clamp(0, S - N)
+    rows = torch.arange(index.shape[0], device=index.device)[:, None]
+    return RowSlots(rows, start[:, None] + torch.arange(N, device=index.device))
+
+
+def _write_seq(buf: torch.Tensor, new: torch.Tensor, index,
+               slots: Optional[RowSlots] = None) -> torch.Tensor:
     """Write `new` (B, N, ...) into `buf` (B, S, ...) at sequence offset
-    `index`, in place; returns `buf`."""
+    `index`, in place; returns `buf`. index: a host int (the same offset
+    for every row) or a (B,) tensor of per-row offsets, clamped as
+    row_slots says (`slots`: row_slots' result, when the caller has it)."""
+    if isinstance(index, torch.Tensor):
+        rows, pos = slots or row_slots(index, buf.shape[1], new.shape[1])
+        buf[rows, pos] = new.to(buf.dtype)
+        return buf
     buf[:, index:index + new.shape[1]] = new.to(buf.dtype)
     return buf
 
 
-def _write_cache(buf, new: torch.Tensor, layer_idx: int, index: int):
+def _write_cache(buf, new: torch.Tensor, layer_idx: int, index,
+                 slots: Optional[RowSlots] = None):
     """Write one layer's new K/V (B, N, H, d) into the stacked cache at
     layer `layer_idx`, sequence offset `index`, in place; returns `buf`.
+    index: a host int, or a (B,) tensor of per-row offsets (clamped as
+    row_slots says; `slots` is its result when the caller has it), written
+    as ONE advanced-index write per buffer, not a loop over the rows.
     A quantized buffer takes int8 values with one scale per (token, head):
-    absmax / 127, rounded to nearest even and clipped to +-127."""
+    absmax / 127, rounded to nearest even and clipped to +-127; its q and
+    scale are head-major, so a per-row write goes through their (B, S, H)
+    transposed views."""
     N = new.shape[1]
     if isinstance(buf, QuantizedArray):
         nf = new.float()
         a = nf.abs().amax(dim=-1, keepdim=True)
         scale = torch.where(a > 0, a, 1.0) / 127.0
         q = torch.round(nf / scale).clamp_(-127, 127).to(torch.int8)
+        if isinstance(index, torch.Tensor):
+            rows, pos = slots or row_slots(index, buf.q.shape[3], N)
+            buf.q[layer_idx].transpose(1, 2)[rows, pos] = q
+            buf.scale[layer_idx].transpose(1, 2)[rows, pos] = scale[..., 0]
+            return buf
         buf.q[layer_idx, :, :, index:index + N] = q.transpose(1, 2)
         buf.scale[layer_idx, :, :, index:index + N] = scale[..., 0].transpose(1, 2)
+        return buf
+    if isinstance(index, torch.Tensor):
+        rows, pos = slots or row_slots(index, buf.shape[2], N)
+        buf[layer_idx][rows, pos] = new.to(buf.dtype)
         return buf
     buf[layer_idx, :, index:index + N] = new.to(buf.dtype)
     return buf
@@ -400,8 +448,10 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
     cache slots are never read (cross is zero for text-query/text-key
     pairs).
     cache_slice: None or {"bufs": stacked cache buffers, "layer": this
-    layer's index, "index": the sequence write offset}; the buffers are
-    written in place. Returns (attn_out (B, N, D), bufs)."""
+    layer's index, "index": the sequence write offset (an int, or a (B,)
+    tensor of per-row offsets), "slots": row_slots' result for a per-row
+    index, else None}; the buffers are written in place. Returns
+    (attn_out (B, N, D), bufs)."""
     H = cfg.num_attention_heads
     a = p["attn"]
     if lang_only and cache_slice is None:
@@ -432,13 +482,13 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
     bufs = out = None
     if cache_slice is not None:
         li, idx = cache_slice["layer"], cache_slice["index"]
-        bufs = cache_slice["bufs"]
+        bufs, slots = cache_slice["bufs"], cache_slice["slots"]
         # keys span the whole cache; unwritten slots are masked by `bias`
-        _write_cache(bufs["k"], k, li, idx)
-        _write_cache(bufs["v"], v, li, idx)
+        _write_cache(bufs["k"], k, li, idx, slots)
+        _write_cache(bufs["v"], v, li, idx, slots)
         if cfg.use_bridge and not lang_only:
-            _write_cache(bufs["kb"], kb, li, idx)
-            _write_cache(bufs["vb"], vb, li, idx)
+            _write_cache(bufs["kb"], kb, li, idx, slots)
+            _write_cache(bufs["vb"], vb, li, idx, slots)
         ck, cv = bufs["k"][li], bufs["v"][li]
         ckb, cvb = (bufs["kb"][li], bufs["vb"][li]) if cfg.use_bridge else (None, None)
         if decode_kernel_applicable(ck, q.shape[1], cfg.head_dim):
@@ -577,7 +627,12 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
     a cache, or (B, max_cache_len) with one (unwritten slots 0).
     vision_indices: (B, N) in [0, max_vision_token_length]; the maximum
     means text. With a cache, its buffers are updated in place and the
-    returned cache's index is advanced by N. lang_only: text-only cached
+    returned cache's index is advanced by N. The index is a host int (all
+    rows in lockstep) or a (B,) tensor (per-slot timelines, KVCache): then
+    row b's queries sit at [index_b, index_b + N), the causal mask is per
+    row, (B, 1, N, S), and the writes clamp their start to S - N (the mask
+    does not: a row past the end is an idle slot, whose output nobody
+    reads). Nothing here reads the index on the host. lang_only: text-only cached
     decode of prompts that end in text (exact: the vision vocab is -inf at
     text positions, so such a sequence never re-enters vision).
     text_span: text_span_maps' row maps, with or without a cache: the
@@ -607,11 +662,17 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
     else:
         S = cache.flag.shape[1]
         rope_len = max(cfg.max_position_embeddings, S)
-        kv_flag = _write_seq(cache.flag, flag, cache.index)
-        # queries occupy slots [index, index + N); keys are the whole buffer
-        q_slots = cache.index + torch.arange(N, device=device)
-        causal = torch.arange(S, device=device)[None, :] <= q_slots[:, None]
-        keep = causal[None, None] & attention_mask.bool()[:, None, None, :]
+        per_row = isinstance(cache.index, torch.Tensor)
+        slots = row_slots(cache.index, S, N) if per_row else None
+        kv_flag = _write_seq(cache.flag, flag, cache.index, slots)
+        # queries occupy slots [index, index + N); keys are the whole buffer.
+        # index may be per row (B,): each serving slot has its own timeline
+        start = cache.index[:, None] if per_row else cache.index
+        q_slots = start + torch.arange(N, device=device)            # (N,) | (B, N)
+        causal = torch.arange(S, device=device) <= q_slots[..., None]  # (N, S) | (B, N, S)
+        if causal.dim() == 2:
+            causal = causal[None]
+        keep = causal[:, None] & attention_mask.bool()[:, None, None, :]
         bias = torch.where(keep, 0.0, BIG_NEG).float()
         if position_ids is None:
             raise ValueError("position_ids must be provided when using a cache")
@@ -625,7 +686,8 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
             bufs.update({"kb": cache.kb, "vb": cache.vb})
     for i in range(cfg.num_hidden_layers):
         cache_slice = (None if cache is None
-                       else {"bufs": bufs, "layer": i, "index": cache.index})
+                       else {"bufs": bufs, "layer": i, "index": cache.index,
+                             "slots": slots})
         layer = functools.partial(decoder_layer, _layer(params["layers"], i),
                                   cfg)
         if context_fn is not None:
@@ -669,7 +731,9 @@ def assemble_logits(cfg: LibraConfig, text_logits: torch.Tensor,
     """(Q, B, N, V + Vv) combined fp32 logits with -inf on the wrong
     modality's slice."""
     Q = cfg.vision_codebook_num
-    neg = torch.tensor(float("-inf"), device=text_logits.device)
+    # -inf as a scalar operand: a host tensor would be copied to the card,
+    # and that copy waits for the stream in every decode step
+    neg = float("-inf")
     tl = torch.where(flag[..., None], neg, text_logits.float())
     vl = torch.where(flag[None, ..., None], vision_logits.float(), neg)
     return torch.cat([tl[None].expand((Q,) + tl.shape), vl], dim=-1)
