@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero:
    lm_head) and on 4096->2752 (F not a multiple of the decode templates'
    128-column tile), the weight a layer view of a stacked (8, K, F)
    buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7, 8, 62 and 124
-   (the serving engine's k = 1 and 2 pixels refills at a 128 bucket),
+   (the serving engine's k = 1 and 2 pixels refills at a 128 bucket), 68
+   (the merged chunk's packed rows, B + C = 4 + 64),
    128 (the split prompt pass's text rows) and 160 (the gate's limit), x with a zero
    row at M = 7 and above 8, each case with the template it ran (the
    script raises unless M <= 8 took the decode template and M > 8 the rows
@@ -37,8 +38,8 @@ Phases, in order; any failure exits non-zero:
    timed beside it, with each one's share of the bound; at M = 128 on
    4096->4096 an x with an odd row pitch, which must take the chunked
    template;
-   torch._weight_int8pack_mm timed at M = 4, 128 and 160, and
-   torch._weight_int4pack_mm for int4 weight-only at M = 4 and 128; at
+   torch._weight_int8pack_mm timed at M = 4, 68, 128 and 160, and
+   torch._weight_int4pack_mm for int4 weight-only at M = 4, 68 and 128; at
    M = 128 on the four projection shapes also _a8_dot (torch._int_mm) on
    the same rows and the route the dense prompt pass takes for the
    projection at M = 2440 (_a8_dot for int8, the dequantized bf16 matmul
@@ -90,7 +91,19 @@ Phases, in order; any failure exits non-zero:
    refill profiled; an open-loop run of the same requests at seeded
    exponential arrivals (TTFT p50 / p95 from arrival, tokens/s,
    requests/s, wall time a chunk against its device time, peak memory);
-   on the int8 tree, ServingEngine.warmup once.
+   on the int8 tree, ServingEngine.warmup once. Then the merged burst: the
+   same 8 requests pre-encoded (the image block's ids and signal rows
+   from CLIP + LFQ, so 640 % 64 == 0 makes them merged-eligible), the
+   engine at merged_chunk 64 with merged_prefill resolving on: run once
+   with one merged chunk profiled, then beside the same burst with
+   merged_prefill=False, then again with equal tokens, installs and
+   merged chunks > 0, every request on its budget, launch counts derived
+   from the run's schedule (each packed iteration's matmuls at M = 68),
+   one merged chunk under set_sync_debug_mode("error"); TTFT p50 / p95 of
+   the installed requests and tokens/s each way; on two layers at full
+   width each installed request's first two logits against the same run
+   with the plain versions (and, bf16, against merged_prefill=False with
+   the prompt pass's attention plain, as the chunk segment's is).
 7. the training path: the fused pretrain step (CLIP + LFQ tokenizing inside
    the step, frozen-language AdamW, remat), libra-11b at full width cut to
    4 layers, B=8, N=120+578=698 (bench.py's train-step proxy), for remat
@@ -157,9 +170,10 @@ MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 # the decode row counts 1, 4, 7, 8 (the templates' MT = 1, 4, 8 and a
 # ragged 7), 62 and 124 (the serving engine's k = 1 and 2 pixels refills
 # at a 128 bucket: k * (640 - 578) text rows, a ragged last n8 tile), 128
-# (the split prompt pass's text rows, B * 32) and 160
+# (the split prompt pass's text rows, B * 32) and 160; and 68 (M_PACKED,
+# the merged chunk's B decode tokens and ENGINE_C prompt tokens)
 QUANT_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
-QUANT_M = (1, 4, 7, 8, 62, 124, 128, 160)
+QUANT_M = (1, 4, 7, 8, 62, 68, 124, 128, 160)
 M_SPLIT = 128                                # B * (NQ - 578) text rows
 M_DENSE = B * NQ                             # the dense prompt pass's rows
 LAYERS_11B = 32
@@ -170,7 +184,13 @@ MAX_NEW = 64
 # phase 6's serving engine: a burst of ENGINE_N pixels requests with budgets
 # ENGINE_CHUNK * (i + 1), prompts bucketed to 128 (610 -> 640), max_len 768
 ENGINE_N, ENGINE_CHUNK, ENGINE_BUCKET, ENGINE_MAX_LEN = 8, 8, 128, 768
+ENGINE_C = 64                                # merged_chunk: prompt tokens an iteration
+M_PACKED = B + ENGINE_C                      # a merged iteration's packed rows
+# the merged burst's two-layer logits check: decode chunks of one step, so
+# that every chunk ends on a step (and the merged chunks run one iteration)
+PARITY_BUDGETS = (2, 4, 6, 8, 10, 12)
 STRICT_CHUNK = 2                             # the burst's chunk with no sync allowed
+STRICT_MERGED = 1                            # the merged burst's merged chunk, likewise
 PROFILE_ROWS = 8                             # kernels listed per profile
 # End-to-end check on two layers: the kernels and their plain versions
 # both round each result to bf16 from fp32 sums taken in different
@@ -654,9 +674,9 @@ def check_matmuls(card: str, dev) -> dict:
                 bnd = bound(nbytes(x, *layer(3), got), 2 * M * K * F,
                             "int8" if a8 else "bf16")
                 lib_ms = None
-                if name == "int8_matmul" and M in (4, M_SPLIT, 160):
+                if name == "int8_matmul" and M in (4, M_PACKED, M_SPLIT, 160):
                     lib_ms = int8_library_ms(x, q, s, want, label, card)
-                elif name == "int4_matmul" and M in (4, M_SPLIT) and not a8:
+                elif name == "int4_matmul" and M in (4, M_PACKED, M_SPLIT) and not a8:
                     lib_ms = int4_library_ms(x, packed, s4, 128, card)
                 row = dict(M=M, K=K, F=F, tag=tag, template=template, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
@@ -704,6 +724,14 @@ def check_matmuls(card: str, dev) -> dict:
                   f"{r['dense_bound_ms']:.4f})"
                   for r in rows if r["M"] == M_SPLIT and "dense_ms" in r)
               + f" [{card}]")
+        print(f"{name} at M = {M_PACKED}, the merged chunk's packed rows (ms, share of "
+              f"the bound): " + "; ".join(
+                  f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
+                  f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f}, library "
+                  + ("none" if r["library_ms"] is None else
+                     f"{r['library_ms']:.4f} ({r['bound_ms'] / r['library_ms']:.1%})")
+                  for r in rows if r["M"] == M_PACKED) + f" [{card}]")
         for tag in sorted({r["tag"] for r in rows}):
             split = {(r["K"], r["F"]): r for r in rows
                      if r["M"] == M_SPLIT and r["tag"] == tag and "dense_ms" in r}
@@ -1355,17 +1383,73 @@ def fused_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
 # Serving engine
 # ---------------------------------------------------------------------------
 
-def engine_counts(cfg, mode: str, kv_quant: bool, stats: dict, n_prompt: int) -> Counter:
+def engine_counts(cfg, mode: str, kv_quant: bool, eng, n_prompt: int,
+                  pixels: bool = True) -> Counter:
     """Kernel launches of one ServingEngine.run, from its own schedule
-    (last_run_stats): each prefill a fused-pixels prompt pass of a k-row
-    group (group_sizes), split on, its text rows k * (n_prompt - 578); each
-    decode step (iters: chunks x decode_chunk, every slot stepping, idle
-    ones too) a text-only decode step of max_batch rows."""
+    (last_run_stats): each prefill a prompt pass of a k-row group
+    (group_sizes), with pixels a fused one with the split on, its text
+    rows k * (n_prompt - 578); each decode step (n_decode chunks x
+    decode_chunk, every slot stepping, idle ones too) a text-only decode
+    step of max_batch rows; each merged iteration (n_merged chunks x _Km)
+    packed_counts' launches."""
     Mv = cfg.max_vision_token_length
-    want = expected_counts(cfg, mode, kv_quant, 0, stats["iters"])
+    stats = eng.last_run_stats
+    want = expected_counts(cfg, mode, kv_quant, 0, stats["n_decode"] * eng.decode_chunk)
     for k in stats["group_sizes"]:
-        want.update(expected_counts(cfg, mode, False, 1, 0, split_prefills=1,
+        want.update(expected_counts(cfg, mode, False, 1, 0, split_prefills=int(pixels),
                                     text_rows=k * (n_prompt - Mv)))
+    if stats["n_merged"]:
+        for name, n in packed_counts(cfg, eng.params, kv_quant).items():
+            want[name] += n * stats["n_merged"] * eng._Km
+    return want
+
+
+def qdot_kernel(w, M: int) -> Optional[str]:
+    """The kernel ops.qlinear.qdot launches for M rows of x against the
+    weight w on the card, as its dispatch decides (None: no kernel)."""
+    from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
+    from libra_tpu_torch.quantization import Quantized4Array, QuantizedArray
+    if isinstance(w, Quantized4Array):
+        x = torch.empty((M, 2 * w.packed.shape[-2]), device="meta")
+        return "int4_matmul" if I4.supports(x, w.packed, w.scale, w.group) else None
+    if isinstance(w, QuantizedArray):
+        x = torch.empty((M, w.q.shape[-2]), device="meta")
+        return "int8_matmul" if I8.supports(x, w.q, w.scale) else None
+    return None
+
+
+def packed_counts(cfg, params, kv_quant: bool) -> Counter:
+    """Kernel launches of one merged iteration (serving._merged): every
+    weight of the dual-path layer body at M_PACKED rows, in every layer
+    (the language q, k, v, o, gate, up, down; the vision low-rank pairs'
+    wa and wb; the bridges'), the embedding's signal projection at
+    M_PACKED rows, lm_head at the B decode rows and at the chunk's last
+    row; with the int8 cache, one decode-attention launch a layer (the
+    decode segment; the chunk segment attends in plain PyTorch)."""
+    from libra_tpu_torch.models import libra as M
+    L = cfg.num_hidden_layers
+    layer = M._layer(params["layers"], 0)
+    a, m = layer["attn"], layer["mlp"]
+    weights = [a[n] for n in ("q_proj", "k_proj", "v_proj", "o_proj")]
+    weights += [m[n] for n in ("gate_proj", "up_proj", "down_proj")]
+    pairs = [a[n] for n in ("vision_q", "vision_k", "vision_v", "vision_o")]
+    pairs += [m[n] for n in ("vision_gate", "vision_up", "vision_down")]
+    if cfg.use_bridge:
+        pairs += [a[n] for n in ("k_bridge_lang", "k_bridge_vis", "v_bridge_lang",
+                                 "v_bridge_vis")]
+    weights += [p[x] for p in pairs for x in ("wa", "wb")]
+    want = Counter()
+    for w in weights:
+        name = qdot_kernel(w, M_PACKED)
+        if name:
+            want[name] += L
+    for w, rows in ((params["signal_proj"], M_PACKED), (params["lm_head"], B),
+                    (params["lm_head"], 1)):
+        name = qdot_kernel(w, rows)
+        if name:
+            want[name] += 1
+    if kv_quant:
+        want["int8_decode_attention"] += L
     return want
 
 
@@ -1425,6 +1509,17 @@ def recorder(fn, pick, sink: list):
     return wrapped
 
 
+def rel_l2(a, b) -> float:
+    """Relative L2 of logits a against b over b's finite entries (a text
+    position's vision slice is -inf); inf where a's -inf entries are
+    elsewhere."""
+    live = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), live):
+        return math.inf
+    a, b = a[live].float(), b[live].float()
+    return ((a - b).norm() / b.norm()).item()
+
+
 class FirstStep(Exception):
     """Ends a Generator run after its first decode step (burst_parity)."""
 
@@ -1456,15 +1551,6 @@ def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, res
     def first_step(*args, **kwargs):
         step.append(decode(*args, **kwargs)[0])
         raise FirstStep
-
-    def rel(a, b):
-        """Relative L2 over b's finite entries (a text position's vision
-        slice is -inf); inf where a's -inf entries are elsewhere."""
-        live = torch.isfinite(b)
-        if not torch.equal(torch.isfinite(a), live):
-            return math.inf
-        a, b = a[live].float(), b[live].float()
-        return ((a - b).norm() / b.norm()).item()
     rows, unequal = [], []
     for ids in dispatch:
         rq = [reqs[i] for i in ids]
@@ -1486,7 +1572,7 @@ def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, res
                 if torch.equal(got, want):
                     out.append(f"{name} equal")
                 else:
-                    out.append(f"{name} relative L2 {rel(got, want):.6g}")
+                    out.append(f"{name} relative L2 {rel_l2(got, want):.6g}")
                     unequal.append(i)
             rows.append(f"request {i} (k = {len(ids)}): " + ", ".join(out))
     print(f"{mode} engine burst against the Generator on each prefill group alone, "
@@ -1517,8 +1603,10 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
          `gap_ms` (a B-row fused prompt pass's TTFT): TTFT p50 / p95 from
          arrival, tokens/s, requests/s, last_run_stats, wall time a chunk
          against the profiled chunk's device time, peak memory;
-      4. on the int8 tree, engine.warmup once.
-    Adds the runs' launches to `main`; returns the open loop's figures."""
+      4. on the int8 tree, engine.warmup once;
+      5. merged chunked prefill (merged_burst).
+    Adds the runs' launches to `main`; returns the open loop's figures and
+    the merged burst's."""
     import random
     import numpy as np
     from libra_tpu_torch.generation import GenerationConfig
@@ -1540,7 +1628,7 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
         got = read_counts()
         main.update(got)
         assert_counts(f"{mode} engine {label}", got,
-                      engine_counts(cfg, mode, quant, eng.last_run_stats, n_prompt), card)
+                      engine_counts(cfg, mode, quant, eng, n_prompt), card)
         return res, wall
 
     # --- 1. lockstep: the Generator's tokens ---
@@ -1665,8 +1753,286 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
         if {k for _, _, k in eng._prefill_shapes} != set(eng._group_sizes):
             raise AssertionError("warmup did not run every group size")
     del eng
+    out["merged"] = merged_burst(card, cfg, params, mode, pixels, kw, main)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{mode} engine phase: {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+def preencoded_requests(cfg, vq_cfg, vq_params, pixels, budgets):
+    """engine_requests' burst in its pre-encoded form: each prompt's image
+    block holds the ids CLIP + LFQ give its image (ImageTokenizer's; the
+    fused path holds the two equal) and its signal rows the encode's
+    features. 610 tokens bucketed to 640, a multiple of ENGINE_C: each is
+    merged-eligible."""
+    import numpy as np
+    from libra_tpu_torch.serving import Request
+    from libra_tpu_torch.training.fused import encode_images_to_tokens
+    Mv = cfg.max_vision_token_length
+    with torch.inference_mode():
+        img_ids, img_sig = encode_images_to_tokens(vq_params, vq_cfg, cfg, pixels)
+    img_ids, img_sig = img_ids.cpu().numpy(), img_sig.float().cpu().numpy()
+    reqs = []
+    for r in engine_requests(cfg, pixels.cpu().numpy(), budgets):
+        i = r.request_id % pixels.shape[0]
+        ids = r.input_ids.copy()
+        ids[:, IMG_T:IMG_T + Mv] = img_ids[:, i]
+        sig = np.zeros((NQ, cfg.contiguous_signal_size), np.float32)
+        sig[IMG_T:IMG_T + Mv] = img_sig[i]
+        reqs.append(Request(r.request_id, ids, r.vision_indices, sig,
+                            max_new_tokens=r.max_new_tokens))
+    return reqs
+
+
+@contextlib.contextmanager
+def dispatch_order(eng, n: int, installed: list):
+    """Within the block, `installed` receives the ids of the requests eng
+    installs (merged), of n queued in id order with no arrivals: prefills
+    and installs each take the queue's head."""
+    order = iter(range(n))
+    prefill, install = eng._prefill, eng._install
+
+    def on_prefill(N, has_px, k, *args):
+        for _ in range(k):
+            next(order)
+        return prefill(N, has_px, k, *args)
+
+    def on_install(*args):
+        installed.append(next(order))
+        return install(*args)
+    with mock.patch.object(eng, "_prefill", on_prefill), \
+            mock.patch.object(eng, "_install", on_install):
+        yield
+
+
+def first_logits(eng, reqs, installed: Optional[list] = None) -> dict:
+    """Run reqs (queued in id order) through eng, whose decode chunks run
+    one step (decode_chunk 1, so its merged chunks one iteration too), and
+    return each request's first two logits: its prompt's last position's
+    (after its prompt pass, or after the merged iteration that took its
+    last chunk) and its first decode step's, read from its pool row at the
+    end of the chunk that ran them. `installed` receives the ids of the
+    requests installed."""
+    firsts, awaiting, installing = {}, {}, {}
+    order = iter(range(len(reqs)))
+    prefill, install, merged, decode = eng._prefill, eng._install, eng._merged, eng._decode
+
+    def stepped(state):
+        for slot, i in awaiting.items():
+            firsts[i].append(state.logits[:, slot].clone())
+        awaiting.clear()
+
+    def on_prefill(N, has_px, k, state, staged, slots):
+        state = prefill(N, has_px, k, state, staged, slots)
+        for slot in slots.tolist():
+            i = next(order)
+            firsts[i] = [state.logits[:, slot].clone()]
+            awaiting[slot] = i
+        return state
+
+    def on_install(state, prompts, staged, slot):
+        installing[slot] = next(order)
+        if installed is not None:
+            installed.append(installing[slot])
+        return install(state, prompts, staged, slot)
+
+    def on_merged(state, prompts, flags, generator):
+        f = flags.tolist()
+        out, state = merged(state, prompts, flags, generator)
+        stepped(state)
+        pf = [slot for slot in range(eng.B) if f[2][slot]]
+        if pf and f[3][pf[0]] + eng._C >= f[4][pf[0]]:
+            i = installing.pop(pf[0])
+            firsts[i] = [state.logits[:, pf[0]].clone()]
+            awaiting[pf[0]] = i
+        return out, state
+
+    def on_decode(*args):
+        out, state = decode(*args)
+        stepped(state)
+        return out, state
+    if eng.decode_chunk != 1 or eng._Km != 1:
+        raise ValueError("first_logits reads logits at chunk ends: one step a chunk")
+    with mock.patch.object(eng, "_prefill", on_prefill), \
+            mock.patch.object(eng, "_install", on_install), \
+            mock.patch.object(eng, "_merged", on_merged), \
+            mock.patch.object(eng, "_decode", on_decode):
+        eng.run(reqs)
+    return firsts
+
+
+def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
+                 main: Counter) -> dict:
+    """Merged chunked prefill on this tree: the recycling burst's requests
+    pre-encoded (preencoded_requests), an engine at max_len 768 (Np =
+    704), bucket 128, decode_chunk 8 and merged_chunk 64 with
+    merged_prefill=None resolving on, so that as slots free one at a time
+    while the others decode, the next prompt is installed and rides the
+    merged chunks, 64 tokens an iteration (_Km = 2 iterations a chunk, the
+    largest divisor of 128 / 64 within 8).
+      1. warm-up run, one merged chunk profiled (device and wall ms);
+      2. the same burst with merged_prefill=False (k = 1 refills);
+      3. the merged run again: tokens equal to run 1, installs and merged
+         chunks > 0, every request its budget with "length", launches as
+         derived from the run's schedule (engine_counts), merged chunk
+         STRICT_MERGED under set_sync_debug_mode("error");
+      4. two layers at full width, decode chunks of one step (PARITY_
+         BUDGETS): each installed request's first two logits within
+         E2E_TOL (E2E_TOL_QUANT) of the same merged run with the plain
+         versions and, in bf16, of merged_prefill=False with the prompt
+         pass's attention plain, as the chunk segment's is (libra_tpu's
+         bf16 scores); the distance to the flash prompt pass (fp32 scores)
+         is printed beside. In the quantized trees merged against
+         dedicated compares the kernels at M = 68 with the dense route at
+         M = 640 (two functions, as split on and off in libra_tpu); those
+         distances are printed, not bounded.
+    TTFT p50 / p95 (from the run's start) of the installed requests and
+    generated tokens/s are printed for runs 3 and 2 side by side. Adds the
+    counted runs' launches to `main`; returns the figures."""
+    import numpy as np
+    from libra_tpu_torch.serving import ServingEngine
+    quant = mode != "bf16"
+    n_bucket = -(-NQ // ENGINE_BUCKET) * ENGINE_BUCKET
+    budgets = [ENGINE_CHUNK * (i + 1) for i in range(ENGINE_N)]
+    reqs = preencoded_requests(cfg, kw["vq_cfg"], kw["vq_params"], pixels, budgets)
+
+    def engine(p, c, merged, chunk=ENGINE_CHUNK, **gen_kw):
+        opts = dict(kw, gen=dataclasses.replace(kw["gen"], **gen_kw))
+        return ServingEngine(p, c, max_len=ENGINE_MAX_LEN, prompt_bucket=ENGINE_BUCKET,
+                             decode_chunk=chunk, merged_chunk=ENGINE_C,
+                             merged_prefill=merged, **opts)
+
+    def check_run(label, eng, res, merged):
+        lengths = [r.tokens.shape[-1] for r in res]
+        rs = eng.last_run_stats
+        if lengths != budgets or {r.finish_reason for r in res} != {"length"}:
+            raise AssertionError(f"{label}: lengths {lengths} != budgets {budgets}")
+        if merged and not (rs["n_install"] > 0 and rs["n_merged"] > 0):
+            raise AssertionError(f"{label}: no merged installs or chunks: {rs}")
+
+    def counted(label, eng, call, merged):
+        zero_counts()
+        t = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = read_counts()
+        main.update(got)
+        assert_counts(label, got, engine_counts(cfg, mode, quant, eng, n_bucket,
+                                                pixels=False), card)
+        check_run(label, eng, res, merged)
+        return res, wall
+
+    eng = engine(params, cfg, None)
+    n_iters = ENGINE_BUCKET // ENGINE_C
+    km = max(d for d in range(1, min(ENGINE_CHUNK, n_iters) + 1) if n_iters % d == 0)
+    if not (eng._merged_on and eng._Np == ENGINE_MAX_LEN - ENGINE_C and eng._Km == km):
+        raise AssertionError(f"merged prefill: on {eng._merged_on}, Np {eng._Np}, "
+                             f"Km {eng._Km}")
+    # --- 1. warm-up, one merged chunk profiled (every chunk has one shape:
+    # _Km iterations of M_PACKED rows; profiling all of them costs seconds
+    # each in the profiler's bookkeeping) ---
+    chunk = {}
+    profile = functools.partial(profiled, card, f"{mode} merged chunk ({eng._Km} "
+                                f"iterations of T = {M_PACKED} packed rows, "
+                                f"{cfg.num_hidden_layers} layers)", out=chunk)
+    with mock.patch.object(eng, "_merged", nth_call(eng._merged, 1, profile)):
+        t = time.perf_counter()
+        first = eng.run(reqs)
+        t_first = time.perf_counter() - t
+    check_run(f"{mode} merged burst (warm-up)", eng, first, True)
+    print(f"{mode} merged burst warm-up: {t_first:.3f} s; the profiled merged chunk "
+          f"{chunk['device_ms']:.3f} ms device ({chunk['device_ms'] / eng._Km:.3f} ms an "
+          f"iteration), {chunk['wall_ms']:.3f} ms wall [{card}]")
+
+    # --- 2. the same burst, dedicated prefill ---
+    ded = engine(params, cfg, False)
+    ded_res, ded_wall = counted(f"{mode} engine burst pre-encoded, merged_prefill=False",
+                                ded, lambda: ded.run(reqs), False)
+    ded_rs = dict(ded.last_run_stats)
+    del ded
+
+    # --- 3. merged again: counted, one chunk with no sync allowed ---
+    installed = []
+    with dispatch_order(eng, ENGINE_N, installed), \
+            mock.patch.object(eng, "_merged", nth_call(eng._merged, STRICT_MERGED, no_sync)):
+        second, wall = counted(f"{mode} engine merged burst", eng, lambda: eng.run(reqs),
+                               True)
+    rs = dict(eng.last_run_stats)
+    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(first, second))
+    if not same:
+        raise AssertionError(f"{mode} merged burst: two runs gave different tokens")
+    if rs["n_install"] != len(installed) or not installed:
+        raise AssertionError(f"{mode} merged burst: installs {installed}, stats {rs}")
+    del eng
+
+    def ttft(res):
+        t = sorted(res[i].ttft_s * 1e3 for i in installed)
+        return statistics.median(t), t[math.ceil(0.95 * len(t)) - 1]
+    agree = float(np.mean([np.mean(a.tokens == b.tokens) for a, b in zip(second, ded_res)]))
+    out = dict(installs=rs["n_install"], chunks=rs["n_merged"], km=km,
+               chunk_device_ms=chunk["device_ms"],
+               chunk_wall_ms=rs["t_merged"] / rs["n_merged"] * 1e3,
+               install_wall_ms=rs["t_install"] / rs["n_install"] * 1e3,
+               ttft_ms=ttft(second), ded_ttft_ms=ttft(ded_res),
+               tok_s=rs["tokens"] / wall, ded_tok_s=ded_rs["tokens"] / ded_wall)
+    print(f"{mode} merged burst: {ENGINE_N} pre-encoded requests, budgets {budgets}, "
+          f"bucket {ENGINE_BUCKET} (N = {n_bucket}), max_len {ENGINE_MAX_LEN}, "
+          f"merged_chunk {ENGINE_C}: tokens equal to the warm-up run's, merged chunk "
+          f"{STRICT_MERGED} under set_sync_debug_mode('error') passed; installed "
+          f"requests {installed} ({out['install_wall_ms']:.3f} ms wall an install), "
+          f"{rs['n_merged']} merged chunks ({out['chunk_wall_ms']:.3f} ms wall each, "
+          f"{out['chunk_device_ms']:.3f} ms device in the profiled run), "
+          f"{rs['n_decode']} decode chunks, prefill groups {rs['group_sizes']}; "
+          f"{wall:.3f} s, {out['tok_s']:.3f} generated tokens/s, installed requests' "
+          f"TTFT p50 {out['ttft_ms'][0]:.3f} ms, p95 {out['ttft_ms'][1]:.3f} ms; "
+          f"last_run_stats {rs} [{card}]")
+    print(f"{mode} same burst with merged_prefill=False: prefill groups "
+          f"{ded_rs['group_sizes']}, {ded_rs['n_decode']} decode chunks, {ded_wall:.3f} s, "
+          f"{out['ded_tok_s']:.3f} generated tokens/s, the same requests' TTFT p50 "
+          f"{out['ded_ttft_ms'][0]:.3f} ms, p95 {out['ded_ttft_ms'][1]:.3f} ms; tokens "
+          f"equal to the merged run's: {agree:.4f} of them [{card}]")
+
+    # --- 4. two layers at full width: kernels vs plain, merged vs dedicated ---
+    small_cfg = cfg.replace(num_hidden_layers=2)
+    small = decoder_params(small_cfg, pixels.device, mode)
+    parity = [dataclasses.replace(r, max_new_tokens=b)
+              for r, b in zip(reqs, PARITY_BUDGETS)]
+    two = []                                    # the installed requests
+    got = first_logits(engine(small, small_cfg, None, 1), parity, two)
+    with plain_kernels():
+        want = first_logits(engine(small, small_cfg, None, 1), parity)
+    ded_l = first_logits(engine(small, small_cfg, False, 1), parity)
+    # dedicated prefill with the prompt pass's attention in plain PyTorch, as
+    # the merged chunk segment's (libra_tpu's bridged_attention: scores
+    # rounded to bf16), not in the flash kernel (fp32 scores)
+    ded_plain = first_logits(engine(small, small_cfg, False, 1, attn_impl="plain"),
+                             parity)
+    del small
+    tol = E2E_TOL_QUANT if quant else E2E_TOL
+    if not two:
+        raise AssertionError(f"{mode} merged 2-layer run installed nothing")
+
+    def dist(ref):
+        return {i: [round(rel_l2(a, b), 6) for a, b in zip(got[i], ref[i])] for i in two}
+    vs_plain, vs_ded, vs_ded_plain = dist(want), dist(ded_l), dist(ded_plain)
+    print(f"{mode} merged burst, 2 layers at full width, budgets {list(PARITY_BUDGETS)}: "
+          f"installed requests' (prompt end, first decode step) logits, relative L2 "
+          f"against the plain versions {vs_plain} (tol {tol}); against "
+          f"merged_prefill=False {vs_ded}, and with the prompt pass's attention plain "
+          f"{vs_ded_plain}" + (f" (tol {tol} on the latter: the former also has fp32 "
+                               f"scores in the flash kernel against bf16 in the chunk "
+                               f"segment's plain attention)" if not quant else
+                               " (not bounded: the kernels at M = 68 against the dense "
+                               "route at M = 640 compute another function)")
+          + f" [{card}]")
+    if any(len(got[i]) != 2 for i in two) or not all(v < tol for i in two
+                                                       for v in vs_plain[i]):
+        raise AssertionError(f"{mode} merged 2-layer logits differ from the plain "
+                             f"versions: {vs_plain}")
+    if not quant and not all(v < tol for i in two for v in vs_ded_plain[i]):
+        raise AssertionError(f"{mode} merged 2-layer logits differ from dedicated "
+                             f"prefill: {vs_ded_plain}")
     return out
 
 
@@ -2227,6 +2593,12 @@ def main() -> int:
                 r[k] == v for k, v in dict(pick, M=M_SPLIT).items()))
             report[name].update({f"rows_{k}": split[k] for k in (
                 "ms", "chunked_ms", "plain_ms", "bound_ms", "library_ms")})
+            # and the merged chunk's packed rows, M = 68, in the main path's
+            # mode (int4: W4A8, which no library call computes)
+            packed = next(r for r in rows if all(r[k] == v for k, v in dict(
+                pick, M=M_PACKED).items()))
+            report[name].update({f"packed_{k}": packed[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")})
 
     from libra_tpu_torch.config import LibraConfig, VQGANConfig
     from libra_tpu_torch.models import vqgan
@@ -2260,6 +2632,15 @@ def main() -> int:
               f"{v['chunk_device_ms']:.3f}; k = 1 refill {v['refill_device_ms']:.3f} ms "
               f"device; {v['phase_s']:.1f}"
               for mode, v in engine.items()) + f" [{card}]")
+    print("merged summary (merged chunk device ms / iterations; installs; installed "
+          "requests' TTFT p50 / p95 ms, merged then dedicated; generated tokens/s, "
+          "merged then dedicated): " + "; ".join(
+              f"{mode} {m['chunk_device_ms']:.3f} / {m['km']}, "
+              f"{m['installs']}; {m['ttft_ms'][0]:.3f} / {m['ttft_ms'][1]:.3f} vs "
+              f"{m['ded_ttft_ms'][0]:.3f} / {m['ded_ttft_ms'][1]:.3f}; {m['tok_s']:.3f} vs "
+              f"{m['ded_tok_s']:.3f}"
+              for mode, m in ((mode, v["merged"]) for mode, v in engine.items()))
+          + f" [{card}]")
     train = train_path(card, dev, vq_cfg, vq_params, main_counts)
     print("train summary: " + "; ".join(
         f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "

@@ -271,6 +271,45 @@ def _write_cache(buf, new: torch.Tensor, layer_idx: int, index,
     return buf
 
 
+def _write_cache_row(buf, new: torch.Tensor, layer_idx: int, row: torch.Tensor,
+                     offset: torch.Tensor, write: Optional[torch.Tensor] = None):
+    """Write one row's K/V block new (1, C, H, d) into the stacked cache at
+    [layer_idx, row, offset:offset + C], in place; returns `buf`. The
+    serving engine's merged chunk writes its prompt segment so: one
+    indexed write per buffer. row and offset are (1,) tensors on the
+    device, clamped as XLA clamps dynamic_update_slice's start (row to
+    [0, B - 1], offset to [0, S - C]); nothing here reads them on the
+    host. A quantized buffer takes _write_cache's int8 values and scales
+    through the head-major buffers' transposed views.
+
+    write (a bool tensor, or None for always): where False, the write is a
+    value-masked no-op, the old block read back and written again. The
+    merged chunk's parked iterations point at the just-finished row's
+    decode positions, whose decode-token K/V of the same layer a blind
+    write would clobber."""
+    C = new.shape[1]
+    q_buf = buf.q if isinstance(buf, QuantizedArray) else buf
+    B, S = q_buf.shape[1], q_buf.shape[3 if isinstance(buf, QuantizedArray) else 2]
+    rows = row.clamp(0, B - 1)[:, None]
+    pos = offset.clamp(0, S - C)[:, None] + torch.arange(C, device=offset.device)
+
+    def put(view, val):          # view (B, S, ...), val (1, C, ...)
+        if write is not None:
+            val = torch.where(write, val, view[rows, pos])
+        view[rows, pos] = val
+
+    if isinstance(buf, QuantizedArray):
+        nf = new.float()
+        a = nf.abs().amax(dim=-1, keepdim=True)
+        scale = torch.where(a > 0, a, 1.0) / 127.0
+        q = torch.round(nf / scale).clamp_(-127, 127).to(torch.int8)
+        put(buf.q[layer_idx].transpose(1, 2), q)
+        put(buf.scale[layer_idx].transpose(1, 2), scale[..., 0])
+        return buf
+    put(buf[layer_idx], new.to(buf.dtype))
+    return buf
+
+
 def _read_cache(view, dtype: torch.dtype) -> torch.Tensor:
     """One layer's cache as a sequence-major (B, S, H, d) tensor: a bf16
     view as it is; a quantized head-major view dequantized in `dtype`

@@ -515,6 +515,9 @@ def test_engine_warmup():
     eng.warmup(reqs[0])
     assert eng.stats["dedicated_prefills"] >= len(eng._group_sizes)
     assert {k for _, _, k in eng._prefill_shapes} >= set(eng._group_sizes)
+    # max_len 64 leaves no margin for the default merged_chunk 64 (Np = 0 <
+    # C), so merged_prefill=None resolves to off, as in libra_tpu
+    assert not eng._merged_on
     assert eng.stats["merged_installs"] == 0
     results = eng.run(reqs)
     _check_parity("plain", results, reqs)
@@ -553,19 +556,28 @@ def test_engine_streaming_replays_results():
 
 
 def test_engine_unported_options_raise():
-    """A mesh (ROADMAP A13), merged_prefill=True and a merged_chunk of its
-    own (A8c2) raise NotImplementedError; merged_prefill None and False run
-    dedicated prefill."""
+    """A mesh (ROADMAP A13) raises NotImplementedError. merged_prefill=None
+    resolves as libra_tpu's rule: on where the pool holds a merged_chunk
+    margin (Np = (S - C) // C * C >= C), off elsewhere; True raises
+    ValueError where it is off. At max_len 64 and the default C = 64,
+    Np = 0 < C: None and False both run dedicated prefill."""
     with pytest.raises(NotImplementedError, match="A13"):
         _engine("plain", mesh=object())
-    with pytest.raises(NotImplementedError, match="A8c2"):
-        _engine("plain", merged_prefill=True)
-    with pytest.raises(NotImplementedError, match="A8c2"):
-        _engine("plain", merged_chunk=32)
+    _, jcfg, np_tree, _ = _setup("plain")
+    for max_len, chunk in ((64, 64), (127, 64), (128, 64), (64, 32), (63, 32), (16, 8)):
+        jeng = jserving.ServingEngine(np_tree, jcfg, max_batch=2, max_len=max_len,
+                                      merged_chunk=chunk)
+        eng = _engine("plain", max_batch=2, max_len=max_len, merged_chunk=chunk)
+        assert eng._merged_on == jeng._merged_on == (max_len >= 2 * chunk), (max_len, chunk)
+        if not eng._merged_on:
+            with pytest.raises(ValueError, match="2 \\* merged_chunk"):
+                _engine("plain", max_batch=2, max_len=max_len, merged_chunk=chunk,
+                        merged_prefill=True)
     cfg = _setup("plain")[0]
     reqs = _requests(cfg, 2)
     for flag in (None, False):
         eng = _engine("plain", merged_prefill=flag, max_batch=2, max_len=64)
+        assert not eng._merged_on and eng._Np == 0
         _check_parity("plain", eng.run(reqs), reqs)
         assert eng.stats["merged_installs"] == 0
         assert eng.stats["dedicated_prefills"] == eng.last_run_stats["n_prefill"]
