@@ -18,6 +18,10 @@ Phases, in order; any failure exits non-zero:
    rows with fully masked query rows included (one row padded by 70
    tokens, more than a key tile, so that live rows start behind masked
    tiles); times beside SDPA's, with TFLOP/s and the share of the bound.
+   Also at a chat turn's text delta: Nq = 64 query rows at slots 672 to
+   735 of a 1024-slot cache (turn 1's 640 slots and 32 answer tokens
+   before them), turn 1's bucket pad and each row's own delta pad masked
+   (gaps between the turns), bridge on and off, timed beside SDPA.
 3b. flash backward kernel vs its plain version at the training shape (B=8,
    Nq=Nk=698, H=32, d=128, bf16), bridge on and off, right-padded rows and
    three left-padded rows (by 70, 3 and 5; fully masked query rows: dq
@@ -53,7 +57,10 @@ Phases, in order; any failure exits non-zero:
    bf16 q (both round the probabilities as the Pallas kernel does); the
    clusters of the decode template that fit on the card at each S; at
    S = 674 each N timed, and at N = 1 and 8 the rows template checked and
-   timed beside the decode one, with each one's share of the bound.
+   timed beside the decode one, with each one's share of the bound. Also
+   at a chat turn's text delta (N = 64 at slots 672 onward, S = 1024, the
+   same masked gaps as phase 3's), which must take the rows template:
+   checked, timed, with its share of the bound.
 6. full paths, libra-11b at full width and depth with random weights from
    a seeded torch.Generator (bridge B-weights filled with noise) and the
    two-tap CLIP ViT-L/14-336 tokenizer: the bf16 tree, then the tree
@@ -76,19 +83,38 @@ Phases, in order; any failure exits non-zero:
    prompt pass of a quantized tree adds 7 matmul launches a layer, its
    B * 32 = 128 text rows being under the kernels' MAX_M); torch.profiler's
    split of one fused prompt pass by kernel, split on and off, with the
-   device time of CLIP + LFQ. Then each tree's serving engine
+   device time of CLIP + LFQ. Then each tree's multi-turn chat
+   (chat.ChatSession, B = 4, max_len 1024, delta_bucket 64, the quantized
+   trees with the same options): three turns of 32 tokens, the fused
+   prompt from raw pixels (610 tokens, bucketed to 640) then two text
+   deltas of 8 to 29 tokens a row (bucketed to 64); each turn's TTFT (its
+   first token on the host) and turn 2's decode tok/s and the peak memory,
+   launch counts derived from the turns (B3 once a layer for a delta of 64
+   rows in the int8 cache, else B1; a delta's lm_head one matmul launch;
+   each step as in a decode), a second session with equal tokens in every
+   turn, every delta's int8_decode_attention call on B3's rows template,
+   torch.profiler's split of turn 2's delta pass; the Generator
+   re-prefilling turn 2's whole history (its TTFT: what the session
+   saves); on two layers at full width turn 2's delta-pass and first
+   decode-step logits against the plain versions and against
+   generation._prefill over the history at the same cache length (in
+   int4 with the leaves weight-only on both sides, so that the two
+   compute one function). In bf16
+   also a three-turn ChatThread (LibraPipeline.start_chat): answers to
+   every question, launches derived from its turns. Then each tree's serving engine
    (serving.ServingEngine, raw-pixels requests of the fused shape, the
    quantized trees with the same options): the B fused requests at once
    (one k = 4 group, max_len 674) with tokens equal to the fused
    Generator's; a recycling burst of 8 requests (budgets 8 to 64, bucket
-   128, max_len 768, decode_chunk 8) run twice with equal tokens, each
+   128, max_len 768, decode_chunk 8) run once, a chunk and the first
+   k = 1 refill profiled inside the run, each
    request's prompt-pass and first-decode-step logits (the latter over
    its pool row, recycled for the k = 1 refills) equal to the fused
    Generator's on its prefill group alone at the pool's cache length,
-   each finishing on its budget, launch counts derived from the run's own
+   and so every token of the first and the last k = 1 refill, each
+   finishing on its budget, launch counts derived from the run's own
    schedule (its prefill groups and decode steps) and one decode chunk
-   under torch.cuda.set_sync_debug_mode("error"), a chunk and a k = 1
-   refill profiled; an open-loop run of the same requests at seeded
+   under torch.cuda.set_sync_debug_mode("error"); an open-loop run of the same requests at seeded
    exponential arrivals (TTFT p50 / p95 from arrival, tokens/s,
    requests/s, wall time a chunk against its device time, peak memory);
    on the int8 tree, ServingEngine.warmup once. Then the merged burst: the
@@ -131,7 +157,9 @@ Each phase-6, phase-7 and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
 kernel report as JSON, with the launches summed over those runs and each
 kernel's bound (bytes over HBM's 3.35 TB/s or operations over the dense
-peak of their type, the larger) from its inputs here; the last line is
+peak of their type, the larger) from its inputs here: an attention
+kernel's cache bytes only at the slots some query leaves unmasked, its
+operations only over the unmasked pairs; the last line is
 {"ok": true, "device": {...}}. Every number printed stands beside the
 card's name and power limit.
 """
@@ -192,6 +220,19 @@ PARITY_BUDGETS = (2, 4, 6, 8, 10, 12)
 STRICT_CHUNK = 2                             # the burst's chunk with no sync allowed
 STRICT_MERGED = 1                            # the merged burst's merged chunk, likewise
 PROFILE_ROWS = 8                             # kernels listed per profile
+# phase 6's chat sessions (ChatSession(B, max_len=S_CHAT, delta_bucket=
+# CHAT_BUCKET)): turn 1 the fused prompt (NQ tokens, bucketed to 640), then
+# text deltas of CHAT_LENS tokens a row (bucketed to 64), CHAT_NEW tokens a
+# turn. Turn 2's delta rows sit at slots DELTA_AT.. of the S_CHAT-slot
+# cache, after turn 1's 640 slots and its answers: phases 3 and 5 check B1
+# and B3 at that shape
+S_CHAT, CHAT_BUCKET, CHAT_NEW = 1024, 64, 32
+CHAT_LENS = ([8 + 7 * b for b in range(B)], [29 - 7 * b for b in range(B)])
+TURN1_PAD = -NQ % CHAT_BUCKET                 # turn 1's left pad in its bucket
+DELTA_AT = NQ + TURN1_PAD + CHAT_NEW          # 672
+FOLLOW_UPS = [["What else is there?", "Why?", "Which one is larger?", "Describe it again."],
+              ["Thanks.", "And the colors?", "Is it outdoors?", "Count them."]]
+THREAD_NEW = 8                                # ChatThread's tokens a turn
 # End-to-end check on two layers: the kernels and their plain versions
 # both round each result to bf16 from fp32 sums taken in different
 # orders, so a few elements differ by one bf16 ulp; every later bf16 op
@@ -466,12 +507,97 @@ def needed_pairs(bias) -> int:
     return int(keep.sum().item()) + int(dead.sum().item()) * bias.shape[-1]
 
 
+def needed_slots(bias) -> torch.Tensor:
+    """(B, S): the cache slots a batch row's queries need: those some query
+    leaves unmasked, and every slot of a row with a fully masked query (its
+    output is the uniform average). bias: (B, 1, Nq, S)."""
+    keep = bias[:, 0] > -2.0 ** 29
+    return keep.any(dim=1) | (~keep.any(dim=-1)).any(dim=1, keepdim=True)
+
+
+def cache_bytes(bias, *caches) -> int:
+    """The bytes of the cache operands (each (B, S, ...) or head-major
+    (B, H, S, ...)) that the function must read: the needed_slots only."""
+    need = needed_slots(bias)
+    per_slot = sum(t.numel() // need.numel() * t.element_size()
+                   for t in caches if t is not None)
+    return int(need.sum().item()) * per_slot
+
+
 def rate_line(ops_needed: float, ops_dense: float, ms: float, bnd: dict) -> str:
     """TFLOP/s over the products the data needs and over the dense
     products (what SDPA, which cannot skip a masked tile, computes), and
     the share of the bound."""
     return (f"{ops_needed / ms / 1e9:.1f} TFLOP/s needed, {ops_dense / ms / 1e9:.1f} "
             f"dense-equivalent, {bnd['bound_ms'] / ms:.2%} of the bound")
+
+
+def delta_bias(dev) -> torch.Tensor:
+    """(B, CHAT_BUCKET, S_CHAT) bias of a chat session's turn-2 delta:
+    query i at slot DELTA_AT + i sees the keys up to it, less turn 1's
+    bucket pad (slots below TURN1_PAD) and the delta's own left pad (row b
+    holds CHAT_LENS[0][b] tokens at the end of the bucket); the keys past
+    the delta are unwritten and masked."""
+    slots = torch.arange(S_CHAT, device=dev)
+    q_at = DELTA_AT + torch.arange(CHAT_BUCKET, device=dev)
+    keep = (slots[None, None, :] <= q_at[None, :, None]).expand(
+        B, CHAT_BUCKET, S_CHAT).clone()
+    keep[:, :, :TURN1_PAD] = False
+    for b, n in enumerate(CHAT_LENS[0]):
+        keep[b, :, DELTA_AT:DELTA_AT + CHAT_BUCKET - n] = False
+    return torch.where(keep, 0.0, -2.0 ** 30).float()
+
+
+def delta_flags(dev):
+    """Text query flags of the delta; key flags with turn 1's image block
+    (at TURN1_PAD + IMG_T) set."""
+    flag_q = torch.zeros((B, CHAT_BUCKET), dtype=torch.bool, device=dev)
+    flag_kv = torch.zeros((B, S_CHAT), dtype=torch.bool, device=dev)
+    flag_kv[:, TURN1_PAD + IMG_T:TURN1_PAD + IMG_T + IMG1 - IMG0] = True
+    return flag_q, flag_kv
+
+
+def check_flash_delta(card: str, dev) -> dict:
+    """B1 at a chat turn's text delta (phase 3): Nq = CHAT_BUCKET query
+    rows at slots DELTA_AT onward against the whole S_CHAT-slot cache,
+    masked gaps (delta_bias), bridge on and off, against its plain
+    version; timed beside SDPA (no bridge), with the share of the bound.
+    Returns the rows by use_bridge."""
+    from libra_tpu_torch.ops.flash_bridge import (flash_bridged_attention,
+                                                  flash_bridged_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bias = delta_bias(dev)[:, None]
+    flag_q, flag_kv = delta_flags(dev)
+    report = {}
+    for use_bridge in (True, False):
+        def rnd(n):
+            return torch.randn((B, n, H, HD), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = rnd(CHAT_BUCKET), rnd(S_CHAT), rnd(S_CHAT)
+        kb, vb = (rnd(S_CHAT), rnd(S_CHAT)) if use_bridge else (None, None)
+        args = (q, k, v, kb, vb, flag_q, flag_kv, bias)
+        got = flash_bridged_attention(*args)
+        torch.cuda.synchronize()
+        label = (f"flash chat delta Nq={CHAT_BUCKET} Nk={S_CHAT} at slot {DELTA_AT} "
+                 f"use_bridge={use_bridge}")
+        err = check(label, got, flash_bridged_attention_plain(*args), card)
+        ms = cuda_ms(lambda: flash_bridged_attention(*args))
+        plain_ms = cuda_ms(lambda: flash_bridged_attention_plain(*args))
+        per_pair = 2 * H * HD * (4 if use_bridge else 2)
+        ops, dense = per_pair * needed_pairs(bias), per_pair * B * CHAT_BUCKET * S_CHAT
+        # q, the flags, the bias and the output whole; k, v, kb, vb at the
+        # slots some query needs (turn 1's pad, the delta's pads and the
+        # unwritten tail are masked for every query)
+        bnd = bound(nbytes(q, flag_q, flag_kv, bias, got)
+                    + cache_bytes(bias, k, v, kb, vb), ops)
+        lib_ms = None if use_bridge else cuda_ms(lambda: sdpa(q, k, v, bias))
+        print(f"{label}: kernel {ms:.4f} ms ({rate_line(ops, dense, ms, bnd)}), plain "
+              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"SDPA {lib_ms} ms" + ("" if lib_ms is None else
+                                     f" (kernel at {lib_ms / ms:.2f}x its speed)")
+              + f" [{card}]")
+        report[use_bridge] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, **bnd)
+    return report
 
 
 def check_flash(card: str, dev) -> dict:
@@ -496,7 +622,9 @@ def check_flash(card: str, dev) -> dict:
         # also QKb^T and (P cross)Vb, over the pairs the mask leaves
         per_pair = 2 * H * HD * (4 if use_bridge else 2)
         ops, dense = per_pair * needed_pairs(args[7]), per_pair * B * NQ * NK
-        bnd = bound(nbytes(*args, got), ops)
+        # the keys and values at the slots some query needs (the decode
+        # tail is masked for every query); the rest whole
+        bnd = bound(nbytes(q, *args[5:], got) + cache_bytes(args[7], *args[1:5]), ops)
         # no library call computes the bridged function; without the
         # bridge, SDPA with the additive mask does
         lib_ms = None if use_bridge else cuda_ms(lambda: sdpa(q, k, args[2], args[7]))
@@ -955,10 +1083,13 @@ def check_decode_attention(card: str, dev) -> list:
                     continue
                 turn = itertools.cycle(range(L))
                 row["ms"] = cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw))
-                # score and value products over the S cached keys (x2 with the
+                # the cache at the slots some query needs; score and value
+                # products over the pairs the mask leaves (x2 with the
                 # bridge); no library call reads an int8 cache
-                row.update(bound(nbytes(q, *layer(1).values(), fq, flag_kv, bias, got),
-                                 2 * B * H * N * S * HD * (4 if bridge else 2)))
+                full = torch.where(keep, 0.0, -2.0 ** 30)[:, None]
+                row.update(bound(nbytes(q, fq, flag_kv, bias, got)
+                                 + cache_bytes(full, *layer(1).values()),
+                                 2 * H * HD * (4 if bridge else 2) * needed_pairs(full)))
                 extra = ""
                 if N in (1, 8):
                     row["plain_ms"] = cuda_ms(lambda: int8_decode_attention_plain(
@@ -982,6 +1113,65 @@ def check_decode_attention(card: str, dev) -> list:
                  if "rows_ms" in r else "")
               for r in report if r["S"] == S_DECODE) + f" [{card}]")
     return report
+
+
+def check_decode_delta(card: str, dev) -> list:
+    """B3 at a chat turn's text delta (phase 5): N = CHAT_BUCKET query rows
+    at slots DELTA_AT onward over an int8 cache of S_CHAT slots (layer
+    views of a stacked (2, ...) cache), delta_bias's causal offset and
+    gaps, bridge on and off; the rows template must take it. Against the
+    plain version on the same bf16 q, timed, with the share of the bound.
+    Returns phase 5's rows."""
+    from libra_tpu_torch.ops.decode_attention import (
+        int8_decode_attention, int8_decode_attention_plain)
+    L, N = 2, CHAT_BUCKET
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def buf():
+        q = torch.randint(-127, 128, (L, B, H, S_CHAT, HD), generator=g, device=dev,
+                          dtype=torch.int8)
+        return q, torch.rand((L, B, H, S_CHAT), generator=g, device=dev) * 0.03 + 1e-3
+
+    bufs = [buf() for _ in range(4)]
+    flag_q, flag_kv = delta_flags(dev)
+    kw = dict(flag_q=flag_q, kv_flag=flag_kv, bias=delta_bias(dev))
+    rows = []
+    for bridge in (True, False):
+        q = torch.randn((B, N, H, HD), generator=g, device=dev).to(torch.bfloat16)
+
+        def layer(l, bridge=bridge):
+            names = ["kq", "ks", "vq", "vs", "kbq", "kbs", "vbq", "vbs"]
+            ts = [t[l] for pair in bufs[:4 if bridge else 2] for t in pair]
+            return dict(zip(names, ts))
+
+        template = decode_template(q, **layer(1))
+        label = (f"int8_decode_attention chat delta N={N} S={S_CHAT} at slot {DELTA_AT} "
+                 f"bridge={bridge} [{template}]")
+        if template != "rows":
+            raise AssertionError(f"{label}: N = {N} took the {template} template")
+        got = int8_decode_attention(q, **layer(1), **kw)
+        torch.cuda.synchronize()
+        err = check(label, got, int8_decode_attention_plain(
+            q, **layer(1), **kw, out_dtype=torch.float32), card)
+        turn = itertools.cycle(range(L))
+        row = dict(N=N, S=S_CHAT, bridge=bridge, template=template, max_abs_err=err,
+                   library_ms=None,
+                   ms=cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw)),
+                   plain_ms=cuda_ms(lambda: int8_decode_attention_plain(
+                       q, **layer(next(turn)), **kw)))
+        # the cache at the slots some query needs; score and value products
+        # over the pairs the mask leaves (x2 with the bridge), as phase 5
+        # counts them; no library call reads an int8 cache
+        full = kw["bias"][:, None]
+        row.update(bound(nbytes(q, *kw.values(), got) + cache_bytes(full, *layer(1).values()),
+                         2 * H * HD * (4 if bridge else 2) * needed_pairs(full)))
+        print(f"{label}: kernel {row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of "
+              f"the bound), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}) [{card}]")
+        rows.append(row)
+    del bufs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def decode_template(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None) -> str:
@@ -1119,9 +1309,10 @@ def plain_kernels():
 def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
               main: Counter):
     """Chat, logit checks and TTFT/decode timing for one weight mode, then
-    its fused-pixels path and its serving-engine phase. Adds the main-path
-    runs' kernel launches to `main`; returns the prompt length, the fused
-    path's and the engine's figures."""
+    its fused-pixels path, its multi-turn chat sessions (and, in bf16, a
+    ChatThread) and its serving-engine phase. Adds the main-path runs'
+    kernel launches to `main`; returns the prompt length, the fused path's,
+    the chat sessions' and the engine's figures."""
     from libra_tpu_torch.generation import GenerationConfig
     from libra_tpu_torch.pipeline import LibraPipeline
     from libra_tpu_torch.tokenization import (ImageTokenizer, LibraTokenizer,
@@ -1229,9 +1420,13 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
     profile_paths(card, cfg, params, args, g64, mode)
     fused, seqs = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
                              torch.stack(images), main)
+    chat = chat_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
+                     torch.stack(images), main)
+    if mode == "bf16":
+        chat_thread(card, pipe, images, main)
     engine = engine_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
                          torch.stack(images), seqs, fused["on"]["ttft_ms"], main)
-    return N, fused, engine
+    return N, fused, chat, engine
 
 
 def fused_inputs(cfg, dev, pixels):
@@ -1380,6 +1575,393 @@ def fused_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
 
 
 # ---------------------------------------------------------------------------
+# Multi-turn chat
+# ---------------------------------------------------------------------------
+
+def chat_turns(cfg, dev, pixels) -> list:
+    """A chat session's three turns: turn 1 fused_inputs (raw pixels, the
+    image block at IMG_T, NQ tokens); turns 2 and 3 text deltas of
+    CHAT_LENS tokens a row, left-padded to the longest (random ids from a
+    seeded torch.Generator)."""
+    Mv, Q = cfg.max_vision_token_length, cfg.vision_codebook_num
+    turns = [fused_inputs(cfg, dev, pixels)]
+    for t, lens in enumerate(CHAT_LENS):
+        g = torch.Generator().manual_seed(SEED + 20 + t)
+        n = max(lens)
+        mask = (torch.arange(n)[None] >= n - torch.tensor(lens)[:, None]).long()
+        ids = torch.randint(3, cfg.vocab_size, (1, B, n), generator=g) * mask[None]
+        turns.append({"input_ids": ids.expand(Q, B, n).to(dev),
+                      "attention_mask": mask.to(dev),
+                      "vision_indices": torch.full((B, n), Mv, dtype=torch.long,
+                                                   device=dev)})
+    return turns
+
+
+def chat_history(cfg, turns, answers, bucket: Optional[int] = None) -> dict:
+    """The Generator's input for a conversation's token history: `turns`
+    with the TurnResults `answers` after each of the first ones, and turn
+    1's raw pixels. bucket=None keeps each row's real tokens only (what a
+    client re-sending the conversation sends), the rows left-padded to the
+    longest; bucket=k keeps the session's slot layout (each turn left-padded
+    to a multiple of k), so the history's slots are the session's cache
+    slots."""
+    Mv, Q = cfg.max_vision_token_length, cfg.vision_codebook_num
+    rows, starts = [], []
+    for b in range(B):
+        ids, mask, vi, start = [], [], [], None
+        for i, t in enumerate(turns):
+            n = t["input_ids"].shape[-1]
+            pad = (-n) % bucket if bucket else 0
+            m = torch.cat([torch.zeros(pad, dtype=torch.long),
+                           t["attention_mask"][b].cpu()])
+            keep = torch.ones_like(m, dtype=torch.bool) if bucket else m.bool()
+            if i == 0:
+                start = int(keep[:pad + IMG_T].sum())
+            ids.append(torch.nn.functional.pad(t["input_ids"][:, b].cpu(), (pad, 0))[:, keep])
+            mask.append(m[keep])
+            vi.append(torch.nn.functional.pad(t["vision_indices"][b].cpu(), (pad, 0),
+                                              value=Mv)[keep])
+            if i < len(answers):
+                k = int(answers[i].num_generated[b])
+                ids.append(answers[i].tokens[:, b, :k].cpu())
+                mask.append(torch.ones(k, dtype=torch.long))
+                vi.append(torch.full((k,), Mv, dtype=torch.long))
+        rows.append((torch.cat(ids, -1), torch.cat(mask), torch.cat(vi)))
+        starts.append(start)
+    n = max(r[1].shape[0] for r in rows)
+    out = {"input_ids": torch.zeros((Q, B, n), dtype=torch.long),
+           "attention_mask": torch.zeros((B, n), dtype=torch.long),
+           "vision_indices": torch.full((B, n), Mv, dtype=torch.long)}
+    for b, (ids, mask, vi) in enumerate(rows):
+        w = mask.shape[0]
+        out["input_ids"][:, b, n - w:] = ids
+        out["attention_mask"][b, n - w:] = mask
+        out["vision_indices"][b, n - w:] = vi
+        starts[b] += n - w
+    dev = turns[0]["pixels"].device
+    out = {k: v.to(dev) for k, v in out.items()}
+    out.update(pixels=turns[0]["pixels"],
+               img_start=torch.tensor(starts, dtype=torch.long, device=dev))
+    return out
+
+
+def delta_width(turn) -> int:
+    """The rows of a turn's delta pass: its width bucketed to CHAT_BUCKET."""
+    return -(-turn["input_ids"].shape[-1] // CHAT_BUCKET) * CHAT_BUCKET
+
+
+def chat_counts(cfg, mode: str, kv_quant: bool, turns) -> Counter:
+    """Kernel launches of a ChatSession's turns, each (rows of its delta
+    pass, decode steps, raw pixels): the int8 cache's decode-attention
+    gate takes a delta of at most 8 rows, or of a multiple of 8 up to 64
+    (B3 once a layer), else the prompt pass's B1 runs once a layer; a
+    delta's lm_head at the last position is one matmul launch in a
+    quantized tree, and its projections at B x rows (the split's text rows
+    with pixels) launch none, being past MAX_M (checked here); each decode
+    step as expected_counts counts it."""
+    from libra_tpu_torch.ops import int4_matmul as I4, int8_matmul as I8
+    L, Mv = cfg.num_hidden_layers, cfg.max_vision_token_length
+    want = Counter({k["name"]: 0 for k in KERNELS})
+    for n, steps, pixels in turns:
+        rows = B * (n - Mv if pixels else n)
+        if MATMUL_KERNEL[mode] and rows <= (I8.MAX_M if mode == "int8" else I4.MAX_M):
+            raise AssertionError(f"a delta of {rows} projection rows takes the matmul "
+                                 f"kernels; chat_counts does not count them")
+        b3 = kv_quant and (n <= 8 or (n <= 64 and n % 8 == 0))
+        want.update(expected_counts(cfg, mode, kv_quant, int(not b3), steps))
+        if b3:
+            want["int8_decode_attention"] += L
+            if MATMUL_KERNEL[mode]:
+                want[MATMUL_KERNEL[mode]] += 1
+    return want
+
+
+def chat_turn2_logits(cfg, params, gen, turns, vq_params, vq_cfg, tok=None,
+                      plain: bool = False):
+    """A fresh session runs turn 1 with the kernels, then turn 2 with one
+    new token, with every kernel's plain version patched in when `plain`:
+    the text-vocab logits of turn 2's delta pass and of the decode step
+    after it (on `tok`, or on the sampled token). Returns (logits, that
+    token, turn 1's TurnResult)."""
+    from libra_tpu_torch import chat as CH
+    sess = CH.ChatSession(params, cfg, batch=B, max_len=S_CHAT, gen=gen,
+                          delta_bucket=CHAT_BUCKET, vq_params=vq_params, vq_cfg=vq_cfg)
+    first = sess.ask(turns[0], max_new_tokens=CHAT_NEW)
+    out = {}
+    sample, step = CH.sample_tokens, CH.decode_micro_step
+
+    def sampled(logits, g, generator=None):
+        out["delta pass"] = logits[0, :, :cfg.vocab_size].float()
+        return sample(logits, g, generator) if tok is None else tok
+
+    def stepped(*args, **kwargs):
+        res = step(*args, **kwargs)
+        out["decode step"] = res[0][0, :, :cfg.vocab_size].float()
+        return res
+
+    with mock.patch.object(CH, "sample_tokens", sampled), \
+            mock.patch.object(CH, "decode_micro_step", stepped), \
+            (plain_kernels() if plain else contextlib.nullcontext()):
+        res = sess.ask(turns[1], max_new_tokens=1)
+    return out, res.tokens[:, :, 0], first
+
+
+def weight_only(tree):
+    """The tree with every int4 leaf's a8 flag off (the same tensors): B5
+    runs it weight-only, the function its dequantized dense route computes."""
+    from libra_tpu_torch.quantization import Quantized4Array
+    if isinstance(tree, dict):
+        return {k: weight_only(v) for k, v in tree.items()}
+    if isinstance(tree, Quantized4Array):
+        return Quantized4Array(tree.packed, tree.scale, tree.group, tree.out_features,
+                               a8=False)
+    return tree
+
+
+def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
+              main: Counter) -> dict:
+    """Multi-turn chat (chat.ChatSession) on this tree, the quantized trees
+    with kv_quant, a8_prefill and text decode: B conversations, max_len
+    S_CHAT, delta_bucket CHAT_BUCKET, three turns of CHAT_NEW tokens
+    (chat_turns: the fused prompt from raw pixels, then two text deltas),
+    in two sessions on the same inputs:
+      1. the first, the main path: counted, launches derived from the
+         turns (chat_counts); peak memory;
+      2. the second: equal tokens in every turn; every int8_decode_
+         attention call of more than 8 rows on B3's rows template; then a
+         prefill-only turn of turn 2's delta profiled (torch.profiler's
+         split of a delta pass; its rows at slot 864 instead of 672);
+         each turn's TTFT (its first token on the host) and turn 2's
+         decode tok/s: the better of the two sessions;
+      3. the Generator re-prefilling turn 2's whole history (chat_history,
+         real tokens only), max_new_tokens=1: its TTFT, best of 2;
+      4. two layers at full width: turn 2's delta-pass and first decode
+         step logits against the same turn with the plain versions, and
+         against generation._prefill over the history in the session's
+         slot layout at the same cache length (E2E_TOL; quantized
+         E2E_TOL_QUANT on a pair that computes one function: a8_prefill
+         off on both sides, and in int4 the leaves weight-only (weight_
+         only), since B5's decode steps run a W4A8 leaf as W4A8 and the
+         re-prefill's 256-row projections dequantize it. The distance with
+         a8_prefill on, where the session's answers hold K/V from the
+         decode steps and the re-prefill's from the w8a8 prompt pass, is
+         printed).
+    Adds the counted run's launches to `main`; returns the figures."""
+    from libra_tpu_torch import chat as CH
+    from libra_tpu_torch.generation import GenerationConfig, Generator
+    from libra_tpu_torch.models import libra as M
+    t_phase = time.perf_counter()
+    quant = mode != "bf16"
+    qkw = dict(kv_quant=True, a8_prefill=True, decode_modality="text") if quant else {}
+    gen = GenerationConfig(eos_token_id=-1, **qkw)
+    turns = chat_turns(cfg, dev, pixels)
+    marks = []
+    sample = CH.sample_tokens
+
+    def first_token(logits, g, generator=None):
+        tok = sample(logits, g, generator)
+        if marks and marks[-1] is None:     # a turn's first token, on the host
+            torch.cuda.synchronize()
+            marks[-1] = time.perf_counter()
+        return tok
+
+    def converse(sess):
+        """The three turns: (TurnResults, per-turn (rows, steps, pixels),
+        TTFT s, wall s)."""
+        results, shapes, ttft, walls = [], [], [], []
+        with mock.patch.object(CH, "sample_tokens", first_token):
+            for turn in turns:
+                used = sess.used
+                marks.append(None)
+                t0 = time.perf_counter()
+                results.append(sess.ask(turn, max_new_tokens=CHAT_NEW))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                ttft.append(marks[-1] - t0)
+                n = delta_width(turn)
+                shapes.append((n, sess.used - used - n, "pixels" in turn))
+        return results, shapes, ttft, walls
+
+    def session():
+        return CH.ChatSession(params, cfg, batch=B, max_len=S_CHAT, gen=gen,
+                              delta_bucket=CHAT_BUCKET, vq_params=vq_params,
+                              vq_cfg=vq_cfg)
+
+    # --- 1. the main path, counted ---
+    sess = session()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    results, shapes, ttft, walls = converse(sess)
+    got = read_counts()
+    main.update(got)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert_counts(f"{mode} chat session ({len(turns)} turns, rows and steps "
+                  f"{[s[:2] for s in shapes]})", got,
+                  chat_counts(cfg, mode, quant, shapes), card)
+    if any(steps != CHAT_NEW for _, steps, _ in shapes):
+        raise AssertionError(f"{mode} chat: a turn did not run {CHAT_NEW} steps: {shapes}")
+    for r in results:
+        if bool((r.tokens >= cfg.vocab_size).any()) or not bool((r.num_generated
+                                                                  == CHAT_NEW).all()):
+            raise AssertionError(f"{mode} chat: vision ids or short answers in a text turn")
+    S = sess.S
+    del sess
+
+    # --- 2. a second session: equal tokens, B3's template, a profiled delta ---
+    templates, prof = [], {}
+    b3 = M.int8_decode_attention
+
+    def b3_template(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None, **kw):
+        if q.shape[1] > 8:
+            templates.append((q.shape[1], decode_template(q, kq, ks, vq, vs, kbq, kbs,
+                                                          vbq, vbs)))
+        return b3(q, kq, ks, vq, vs, kbq=kbq, kbs=kbs, vbq=vbq, vbs=vbs, **kw)
+
+    sess = session()
+    with mock.patch.object(M, "int8_decode_attention", b3_template):
+        again, _, ttft2, walls2 = converse(sess)
+    profiled(card, f"{mode} chat delta pass of turn 2's input ({B} x {CHAT_BUCKET} rows "
+             f"at slot {sess.used}, a prefill-only turn)",
+             lambda: sess.ask(turns[1], max_new_tokens=0), out=prof)
+    del sess
+    same = all(torch.equal(a.tokens, b.tokens) and torch.equal(a.num_generated,
+                                                               b.num_generated)
+               for a, b in zip(results, again))
+    want_t = ([(CHAT_BUCKET, "rows")] * (cfg.num_hidden_layers * (len(turns) - 1))
+              if quant else [])
+    print(f"{mode} chat second session: tokens equal to the first's in every turn "
+          f"{same}; int8_decode_attention calls of more than 8 rows (N, template): "
+          f"{sorted(Counter(templates).items())} [{card}]")
+    if not same:
+        raise AssertionError(f"{mode} chat: two sessions gave different tokens")
+    if templates != want_t:
+        raise AssertionError(f"{mode} chat: the deltas' decode-attention calls "
+                             f"{Counter(templates)}, expected {Counter(want_t)}")
+    ttft = [min(a, b) for a, b in zip(ttft, ttft2)]
+    tok_s = max((CHAT_NEW - 1) * B / (w[1] - t[1]) for w, t in ((walls, ttft),
+                                                              (walls2, ttft2)))
+    out = dict(ttft_ms=[t * 1e3 for t in ttft], tok_s=tok_s, peak_gb=peak_gb,
+               delta_device_ms=prof["device_ms"])
+    print(f"{mode} chat session B={B} max_len {S_CHAT} (S = {S}) delta_bucket "
+          f"{CHAT_BUCKET} {qkw}: turns of {[s[0] for s in shapes]} rows, {CHAT_NEW} "
+          f"tokens each; TTFT (best of the two sessions) " + ", ".join(
+              f"turn {i + 1} {t * 1e3:.3f} ms" for i, t in enumerate(ttft))
+          + f"; turn walls {[round(w, 3) for w in walls]} and "
+          f"{[round(w, 3) for w in walls2]} s; turn 2 decode {tok_s:.3f} tok/s; peak "
+          f"memory {peak_gb:.3f} GB [{card}]")
+
+    # --- 3. what the session saves: the Generator re-prefilling turn 2's
+    # whole history ---
+    hist = chat_history(cfg, turns[:2], results[:1])
+    g = Generator(params, cfg, vq_params=vq_params, vq_cfg=vq_cfg)
+    g1 = GenerationConfig(max_new_tokens=1, eos_token_id=-1, **qkw)
+
+    def reprefill():
+        t = time.perf_counter()
+        g(hist, g1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    reprefill()
+    out["reprefill_ms"] = min(reprefill() for _ in range(2)) * 1e3
+    print(f"{mode} chat: the Generator re-prefilling turn 2's history "
+          f"({hist['input_ids'].shape[-1]} tokens) TTFT {out['reprefill_ms']:.3f} ms "
+          f"(best of 2) against the session's turn-2 TTFT {out['ttft_ms'][1]:.3f} ms "
+          f"[{card}]")
+
+    # --- 4. two layers at full width ---
+    small_cfg = cfg.replace(num_hidden_layers=2)
+    tol = E2E_TOL_QUANT if quant else E2E_TOL
+
+    def vs_reprefill(small, g_cfg, got_l, tok, first):
+        """got_l against _prefill over turn 1 and its answers and turn 2's
+        delta, in the session's slot layout, at S_CHAT slots."""
+        hist = chat_history(cfg, turns[:2], [first], bucket=CHAT_BUCKET)
+        n = hist["input_ids"].shape[-1]
+        fkw = dict(vq_params=vq_params, vq_cfg=vq_cfg, pixels=hist.pop("pixels"),
+                   img_start=hist.pop("img_start"))
+        args = tuple(hist[k] for k in ("input_ids", "attention_mask", "vision_indices"))
+        re_l, _ = text_logits(small_cfg, small, args + (None,), dataclasses.replace(
+            g_cfg, max_new_tokens=S_CHAT - n), tok, fused=fkw)
+        re_l["delta pass"] = re_l.pop("prompt pass")
+        return {k: rel_l2(got_l[k], re_l[k]) for k in got_l}, n
+
+    with torch.inference_mode():
+        small = decoder_params(small_cfg, dev, mode)
+        got_l, tok, first = chat_turn2_logits(small_cfg, small, gen, turns, vq_params,
+                                              vq_cfg)
+        want_l, _, _ = chat_turn2_logits(small_cfg, small, gen, turns, vq_params,
+                                         vq_cfg, tok, plain=True)
+        vs_re, n = vs_reprefill(small, gen, got_l, tok, first)
+        bounded = vs_re
+        if quant:
+            off = dataclasses.replace(gen, a8_prefill=False)
+            same = weight_only(small)
+            off_l, off_tok, off_first = chat_turn2_logits(small_cfg, same, off, turns,
+                                                          vq_params, vq_cfg)
+            bounded, _ = vs_reprefill(same, off, off_l, off_tok, off_first)
+            del same
+        del small
+    vs_plain = {k: rel_l2(got_l[k], want_l[k]) for k in got_l}
+
+    def line(d):
+        return ", ".join(f"{k} {v:.6g}" for k, v in d.items())
+    print(f"{mode} chat 2-layer logits of turn 2 (delta pass, first decode step), "
+          f"relative L2: against the plain versions {line(vs_plain)}; against _prefill "
+          f"over the history ({n} slots, cache {S_CHAT}) {line(vs_re)}"
+          + (f" (a8_prefill on, not bounded), and with a8_prefill off on both sides "
+             + ("and the int4 leaves weight-only " if mode == "int4" else "")
+             + f"{line(bounded)}" if quant else "") + f" (tol {tol}) [{card}]")
+    if not max(vs_plain.values()) < tol:
+        raise AssertionError(f"{mode} chat 2-layer logits differ from the plain path: "
+                             f"{vs_plain}")
+    if not max(bounded.values()) < tol:
+        raise AssertionError(f"{mode} chat 2-layer logits differ from the re-prefill: "
+                             f"{bounded}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{mode} chat phase: {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+def chat_thread(card: str, pipe, images, main: Counter) -> None:
+    """LibraPipeline.start_chat: a ChatThread of B conversations, three
+    turns of THREAD_NEW tokens (turn 1 the pipeline's image prompt, then
+    FOLLOW_UPS); non-empty answers, launches derived from the turns."""
+    from libra_tpu_torch import chat as CH
+    thread = pipe.start_chat(n_parallel=B, max_len=S_CHAT, max_new_tokens=THREAD_NEW,
+                             delta_bucket=CHAT_BUCKET)
+    widths, shapes = [], []
+    t0 = time.perf_counter()
+    zero_counts()
+    with mock.patch.object(CH.M, "forward", forwards_of(CH.M.forward, widths)):
+        answers = []
+        for qs, ims in [(QUESTIONS, images)] + [(f, None) for f in FOLLOW_UPS]:
+            used = thread.session.used
+            widths.clear()
+            answers.append(thread.ask(qs, images=ims))
+            shapes.append((widths[0], thread.session.used - used - widths[0], False))
+    torch.cuda.synchronize()
+    got = read_counts()
+    main.update(got)
+    assert_counts(f"chat thread ({len(shapes)} turns, rows and steps "
+                  f"{[s[:2] for s in shapes]})", got,
+                  chat_counts(pipe.cfg, "bf16", False, shapes), card)
+    print(f"chat thread: {thread.turn} turns of {B} conversations in "
+          f"{time.perf_counter() - t0:.3f} s, answers {answers} [{card}]")
+    if thread.turn != 3 or not all(len(a) == B and all(isinstance(x, str) and x
+                                                        for x in a) for a in answers):
+        raise AssertionError("the chat thread did not answer every question")
+
+
+def forwards_of(fn, widths: list):
+    """models/libra.forward that also appends each call's width to `widths`."""
+    def wrapped(params, cfg, input_ids, *args, **kwargs):
+        widths.append(input_ids.shape[-1])
+        return fn(params, cfg, input_ids, *args, **kwargs)
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
 # Serving engine
 # ---------------------------------------------------------------------------
 
@@ -1521,7 +2103,7 @@ def rel_l2(a, b) -> float:
 
 
 class FirstStep(Exception):
-    """Ends a Generator run after its first decode step (burst_parity)."""
+    """Ends a Generator run once burst_parity holds what it checks."""
 
 
 def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, results,
@@ -1539,34 +2121,52 @@ def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, res
     step's row count at k < B, and every kernel of that step computes its
     rows independently. (A cache of another length would not do: it
     changes the order of the attention's sums, and 32 random layers grow
-    the rounding differences far past any tolerance the check could set.)"""
+    the rounding differences far past any tolerance the check could set.)
+    The first and the last k = 1 refill (recycled pool rows) run on to
+    their budgets: every token they emitted must equal the Generator's."""
     import numpy as np
     import libra_tpu_torch.generation as G
     g = G.Generator(params, cfg, vq_params=vq_params, vq_cfg=vq_cfg)
     gen = G.GenerationConfig(max_new_tokens=ENGINE_MAX_LEN - -(-NQ // ENGINE_BUCKET)
                              * ENGINE_BUCKET, eos_token_id=-1,
                              prompt_bucket=ENGINE_BUCKET, **qkw)
-    decode = G.decode_micro_step
+    decode, sample = G.decode_micro_step, G.sample_tokens
+    refills = [ids for ids in dispatch if len(ids) == 1]
+    whole = {ids[0] for ids in refills[:1] + refills[-1:]}
 
-    def first_step(*args, **kwargs):
-        step.append(decode(*args, **kwargs)[0])
-        raise FirstStep
+    def stepped(*args, **kwargs):
+        # stop before the step after the tokens wanted (the first step's
+        # logits always)
+        if step and len(toks) >= want_n:
+            raise FirstStep
+        out = decode(*args, **kwargs)
+        if not step:
+            step.append(out[0])
+        return out
     rows, unequal = [], []
     for ids in dispatch:
         rq = [reqs[i] for i in ids]
+        want_n = rq[0].max_new_tokens if ids[0] in whole else 1
         inputs = {"input_ids": np.stack([r.input_ids for r in rq], 1),
                   "attention_mask": np.ones((len(rq), NQ), np.int64),
                   "vision_indices": np.stack([r.vision_indices for r in rq]),
                   "pixels": np.stack([r.pixels for r in rq]),
                   "img_start": np.array([r.img_start for r in rq])}
-        pre, step = [], []
+        pre, step, toks = [], [], []
         with contextlib.suppress(FirstStep), \
                 mock.patch.object(G, "_prefill", recorder(G._prefill, lambda st: st.logits,
                                                           pre)), \
-                mock.patch.object(G, "decode_micro_step", first_step):
+                mock.patch.object(G, "sample_tokens", recorder(sample, lambda t: t, toks)), \
+                mock.patch.object(G, "decode_micro_step", stepped):
             g(inputs, gen)
         for b, i in enumerate(ids):
             out = []
+            if i in whole:
+                seq = torch.stack(toks[:want_n], -1)[:, 0].cpu().numpy()
+                same = bool(np.array_equal(results[i].tokens, seq))
+                out.append(f"all {want_n} tokens " + ("equal" if same else "differ"))
+                if not same:
+                    unequal.append(i)
             for name, got, want in zip(("prompt pass", "first decode step"), firsts[i],
                                        (pre[0][:, b], step[0][:, b])):
                 if torch.equal(got, want):
@@ -1578,7 +2178,7 @@ def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, res
     print(f"{mode} engine burst against the Generator on each prefill group alone, "
           f"logits: " + "; ".join(rows) + f" [{card}]")
     if unequal:
-        raise AssertionError(f"{mode} engine burst: logits of requests "
+        raise AssertionError(f"{mode} engine burst: logits or tokens of requests "
                              f"{sorted(set(unequal))} differ "
                              f"from the Generator's")
 
@@ -1592,13 +2192,13 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
          max_len = NQ + MAX_NEW, one k = B group: every request's tokens
          equal to the fused Generator's (`want_seqs`, the same inputs);
       2. a recycling burst: ENGINE_N requests, budgets ENGINE_CHUNK * (i +
-         1), bucket 128 (N = 640), max_len 768, run twice (the first a
-         warm-up, one of its chunks and its first k = 1 refill
-         profiled): equal tokens, each its
+         1), bucket 128 (N = 640), max_len 768, run once, one of its
+         chunks and its first k = 1 refill profiled: each its
          budget's count with "length", launches derived from the run's own
          schedule, one chunk under set_sync_debug_mode("error"); each
-         request's first two logits in the second run equal to the
-         Generator's on its prefill group alone (burst_parity);
+         request's first two logits, and the first and last k = 1
+         refill's tokens, equal to the Generator's on its prefill group
+         alone (burst_parity);
       3. open loop: the same requests with seeded exponential gaps of mean
          `gap_ms` (a B-row fused prompt pass's TTFT): TTFT p50 / p95 from
          arrival, tokens/s, requests/s, last_run_stats, wall time a chunk
@@ -1649,7 +2249,7 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
         raise AssertionError(f"{mode} engine lockstep differs from the Generator")
     del eng
 
-    # --- 2. the recycling burst, twice ---
+    # --- 2. the recycling burst ---
     budgets = [ENGINE_CHUNK * (i + 1) for i in range(ENGINE_N)]
     burst = engine_requests(cfg, px, budgets)
     eng = ServingEngine(params, cfg, max_len=ENGINE_MAX_LEN, prompt_bucket=ENGINE_BUCKET,
@@ -1661,13 +2261,8 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
     profile_refill = functools.partial(profiled, card, f"{mode} engine k = 1 refill "
                                        f"(N = {-(-NQ // ENGINE_BUCKET) * ENGINE_BUCKET})",
                                        out=refill)
-    with mock.patch.object(eng, "_decode", nth_call(eng._decode, 1, profile)), \
-            mock.patch.object(eng, "_prefill", nth_call(eng._prefill, 1, profile_refill)):
-        t = time.perf_counter()
-        first = eng.run(burst)
-        t_first = time.perf_counter() - t
-    # the second run also keeps each request's first two logits: the prompt
-    # pass's from its slot row, the first decode step's from the pool
+    # the run keeps each request's first two logits: the prompt pass's from
+    # its slot row, the first decode step's from the pool
     import libra_tpu_torch.serving as SV
     firsts, pending, dispatch = {}, {}, []
     order = iter(range(ENGINE_N))       # one bucket, no arrivals: queue order
@@ -1689,22 +2284,24 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
         pending.clear()
         return out
     decode_step = SV.decode_micro_step
-    with mock.patch.object(eng, "_decode", nth_call(eng._decode, STRICT_CHUNK, no_sync)), \
-            mock.patch.object(eng, "_prefill", keep_prefill(eng._prefill)), \
+    # the two profiles run inside the counted run: a warm-up run of their
+    # own cost 21-35 s a tree of the script's time limit (PERF.md)
+    decode = nth_call(nth_call(eng._decode, STRICT_CHUNK, no_sync), 1, profile)
+    with mock.patch.object(eng, "_decode", decode), \
+            mock.patch.object(eng, "_prefill", keep_prefill(
+                nth_call(eng._prefill, 1, profile_refill))), \
             mock.patch.object(SV, "decode_micro_step", keep_step):
         second, t_second = counted("burst", eng, n_bucket, lambda: eng.run(burst))
     rs = dict(eng.last_run_stats)
-    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(first, second))
     lengths = [r.tokens.shape[-1] for r in second]
     print(f"{mode} engine burst: {ENGINE_N} pixels requests, budgets {budgets}, bucket "
           f"{ENGINE_BUCKET} (N = {n_bucket}), max_len {ENGINE_MAX_LEN}, decode_chunk "
-          f"{ENGINE_CHUNK}: runs {t_first:.3f} s (warm-up) and {t_second:.3f} s, tokens "
-          f"equal {same}, finish {sorted({r.finish_reason for r in second})}, "
-          f"chunk {STRICT_CHUNK} under set_sync_debug_mode('error') passed; "
-          f"last_run_stats {rs} [{card}]")
-    if not same or lengths != budgets or {r.finish_reason for r in second} != {"length"}:
-        raise AssertionError(f"{mode} engine burst: tokens differ between runs or "
-                             f"lengths {lengths} != budgets {budgets}")
+          f"{ENGINE_CHUNK}: {t_second:.3f} s (a chunk and a refill profiled), finish "
+          f"{sorted({r.finish_reason for r in second})}, chunk {STRICT_CHUNK} under "
+          f"set_sync_debug_mode('error') passed; last_run_stats {rs} [{card}]")
+    if lengths != budgets or {r.finish_reason for r in second} != {"length"}:
+        raise AssertionError(f"{mode} engine burst: lengths {lengths} != budgets "
+                             f"{budgets}")
     burst_parity(card, cfg, params, vq_cfg, vq_params, mode, burst, second, firsts,
                  dispatch, qkw)
     moved = piece_bytes(cfg, n_bucket, quant)
@@ -2571,10 +3168,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} [{card}]")
 
     build(card)
-    report = {"flash_bridged_attention": check_flash(card, dev),
-              "flash_bridged_attention_bwd": check_flash_bwd(card, dev)}
+    report = {"flash_bridged_attention": check_flash(card, dev)}
+    # and at a chat turn's text delta: 64 query rows at slot 672 of 1024
+    delta = check_flash_delta(card, dev)
+    report["flash_bridged_attention"].update(
+        {f"delta_{k}": delta[True][k] for k in ("ms", "plain_ms", "bound_ms")},
+        delta_library_ms=delta[False]["library_ms"], delta_unbridged_ms=delta[False]["ms"],
+        max_abs_err=max(report["flash_bridged_attention"]["max_abs_err"],
+                        *(r["max_abs_err"] for r in delta.values())))
+    report["flash_bridged_attention_bwd"] = check_flash_bwd(card, dev)
     mm = check_matmuls(card, dev)
     da = check_decode_attention(card, dev)
+    chat_da = check_decode_delta(card, dev)
+    da += chat_da
     # the JSON line's times: the decode shapes (M = 4, 4096 -> 11008; N = 1
     # with the bridge, S = 674); its error: the largest over every case
     for name, rows, pick in (
@@ -2599,6 +3205,9 @@ def main() -> int:
                 pick, M=M_PACKED).items()))
             report[name].update({f"packed_{k}": packed[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")})
+    # and the chat deltas' rows template: N = 64 at slot 672 of S = 1024
+    report["int8_decode_attention"].update(
+        {f"chat_{k}": chat_da[0][k] for k in ("ms", "plain_ms", "bound_ms")})
 
     from libra_tpu_torch.config import LibraConfig, VQGANConfig
     from libra_tpu_torch.models import vqgan
@@ -2614,17 +3223,22 @@ def main() -> int:
           f"{L} layers + lm_head = {7 * L + 1} matmul launches; with the int8 "
           f"cache, {L} decode-attention launches (1 a layer) [{card}]")
     main_counts = Counter()
-    fused = {}
-    engine = {}
+    fused, chat, engine = {}, {}, {}
     for mode in ("bf16", "int8", "int4"):
-        n_prompt, fused[mode], engine[mode] = full_path(card, dev, cfg, vq_cfg,
-                                                        vq_params, mode, main_counts)
+        n_prompt, fused[mode], chat[mode], engine[mode] = full_path(
+            card, dev, cfg, vq_cfg, vq_params, mode, main_counts)
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
         torch.cuda.empty_cache()
     print("fused summary (TTFT ms, decode tok/s): " + "; ".join(
         f"{mode} split {k} {v['ttft_ms']:.3f} / {v['tok_s']:.3f}"
         for mode, runs in fused.items() for k, v in runs.items()) + f" [{card}]")
+    print("chat summary (TTFT ms turns 1, 2, 3; the Generator re-prefilling turn 2's "
+          "history; turn-2 decode tok/s; turn-2 delta pass device ms; peak GB; phase s): "
+          + "; ".join(f"{mode} {', '.join(f'{t:.3f}' for t in v['ttft_ms'])}; "
+                      f"{v['reprefill_ms']:.3f}; {v['tok_s']:.3f}; {v['delta_device_ms']:.3f}; "
+                      f"{v['peak_gb']:.3f}; {v['phase_s']:.1f}" for mode, v in chat.items())
+          + f" [{card}]")
     print("engine summary (open loop: TTFT p50 / p95 ms, tokens/s, requests/s; "
           "chunk wall / device ms; refill; phase s): " + "; ".join(
               f"{mode} {v['ttft_p50_ms']:.3f} / {v['ttft_p95_ms']:.3f}, "

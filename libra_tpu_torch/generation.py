@@ -142,6 +142,28 @@ def decode_micro_step(params, cfg: LibraConfig, tok: torch.Tensor,
     return logits, step.cache, vi_new, pos_new
 
 
+def fuse_pixels(cfg: LibraConfig, gen: GenerationConfig, vq_params, vq_cfg,
+                input_ids: torch.Tensor, pixels: torch.Tensor,
+                img_start: torch.Tensor):
+    """A raw-pixels prompt's device side: CLIP + LFQ on `pixels`, the image
+    ids and signal rows written into the prompt at img_start; with
+    gen.split_prefill (not in addition_mode) also text_span_maps' row maps.
+    Returns (input_ids, contiguous_signal, text_span)."""
+    Q, B, N = input_ids.shape
+    text_span = None
+    if gen.split_prefill and not cfg.addition_mode:
+        # every row carries one full image block at img_start, so the text
+        # width N - Mv is the same for all: the split is exact
+        text_span = M.text_span_maps(cfg, img_start, N)
+    img_ids, img_sig = encode_images_to_tokens(vq_params, vq_cfg, cfg, pixels)
+    input_ids = _scatter_block(input_ids.permute(1, 2, 0),
+                               img_ids.permute(1, 2, 0),
+                               img_start).permute(2, 0, 1)
+    signal = _scatter_block(img_sig.new_zeros((B, N, img_sig.shape[-1])),
+                            img_sig, img_start)
+    return input_ids, signal, text_span
+
+
 class PrefillState(NamedTuple):
     tokens: torch.Tensor     # (Q, B, S) prompt written at [:, :, :N]
     mask_buf: torch.Tensor   # (B, S)
@@ -169,16 +191,8 @@ def _prefill(params, input_ids, attention_mask, vision_indices,
     impl = resolve_attn_impl(gen.attn_impl, device)
     text_span = None
     if pixels is not None:
-        if gen.split_prefill and not cfg.addition_mode:
-            # every row carries one full image block at img_start, so the
-            # text width N - Mv is the same for all: the split is exact
-            text_span = M.text_span_maps(cfg, img_start, N)
-        img_ids, img_sig = encode_images_to_tokens(vq_params, vq_cfg, cfg, pixels)
-        input_ids = _scatter_block(input_ids.permute(1, 2, 0),
-                                   img_ids.permute(1, 2, 0),
-                                   img_start).permute(2, 0, 1)
-        contiguous_signal = _scatter_block(
-            img_sig.new_zeros((B, N, img_sig.shape[-1])), img_sig, img_start)
+        input_ids, contiguous_signal, text_span = fuse_pixels(
+            cfg, gen, vq_params, vq_cfg, input_ids, pixels, img_start)
     cache = M.init_cache(cfg, B, S, device=device, quantized=gen.kv_quant)
     mask_buf = torch.zeros((B, S), dtype=torch.int64, device=device)
     mask_buf[:, :N] = attention_mask

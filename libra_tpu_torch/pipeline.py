@@ -4,9 +4,11 @@
     answers = pipe.chat(["What is in this image?"], images=[image])
 
 Covers v1 conversation prompt assembly with the 578-token image
-placeholder block and left-padded batched generation with the KV cache.
+placeholder block and left-padded batched generation with the KV cache,
+and incremental multi-turn chat (``start_chat``: a ChatThread over a
+chat.ChatSession, whose later turns prefill only their own tokens).
 Loading a checkpoint (``from_pretrained``) waits for the checkpoint
-converter's port (ROADMAP A8).
+converter's port (ROADMAP A8e).
 """
 
 from __future__ import annotations
@@ -85,10 +87,84 @@ class LibraPipeline:
             pad_token_id=text_tok.pad_token_id)
         res = self.generator(inputs, gen, generator=generator)
         N = inputs["input_ids"].shape[-1]
-        seqs = res.sequences.cpu()
+        return self._answers(res.sequences[:, :, N:], res.num_generated,
+                             gen.pad_token_id)
+
+    def _answers(self, tokens, num_generated, pad_token_id: int) -> List[str]:
+        """Decode each row's generated codebook-0 ids (tokens (Q, B, T)),
+        the first num_generated[b] of them less pads, skipping specials."""
+        tokens, num_generated = tokens.cpu(), num_generated.cpu()
         outs = []
-        for b in range(seqs.shape[1]):
-            ids = seqs[0, b, N:N + int(res.num_generated[b])]
-            ids = ids[ids != gen.pad_token_id]
-            outs.append(text_tok.decode(ids.tolist(), skip_special_tokens=True))
+        for b in range(tokens.shape[1]):
+            ids = tokens[0, b, :int(num_generated[b])]
+            ids = ids[ids != pad_token_id]
+            outs.append(self.tokenizer.text_tokenizer.decode(
+                ids.tolist(), skip_special_tokens=True))
         return outs
+
+    def start_chat(self, n_parallel: int = 1, max_len: int = 2048,
+                   template: str = "v1", max_new_tokens: int = 512,
+                   temperature: float = 0.0, delta_bucket: int = 64) -> "ChatThread":
+        """Open an incremental multi-turn conversation (n_parallel
+        independent conversations advance in lockstep). Unlike chat(),
+        which re-prefills the whole history every turn, each
+        ChatThread.ask() prefills only the new turn's tokens against the
+        resident KV cache."""
+        from libra_tpu_torch.chat import ChatSession
+        text_tok = self.tokenizer.text_tokenizer
+        gen = GenerationConfig(
+            max_new_tokens=max_new_tokens, do_sample=temperature > 0,
+            temperature=max(temperature, 1e-5),
+            eos_token_id=text_tok.eos_token_id,
+            pad_token_id=text_tok.pad_token_id)
+        session = ChatSession(self.params, self.cfg, batch=n_parallel,
+                              max_len=max_len, gen=gen, delta_bucket=delta_bucket)
+        return ChatThread(self, session, template)
+
+
+class ChatThread:
+    """Template and tokenizer front end over an incremental ChatSession.
+
+    Turn 1 renders the full v1 prompt (system + "USER: <image block> q
+    ASSISTANT:") with BOS; later turns tokenize only "USER: q ASSISTANT:"
+    without BOS: the generated EOS already sits in the cache as the
+    template's </s> separator. This continues at the token level, where a
+    rebuilt history string could tokenize an answer's boundary
+    differently."""
+
+    def __init__(self, pipe: LibraPipeline, session, template: str):
+        self.pipe = pipe
+        self.session = session
+        self.template = template
+        self.turn = 0
+
+    def ask(self, questions, images=None,
+            max_new_tokens: Optional[int] = None) -> List[str]:
+        pipe = self.pipe
+        if isinstance(questions, str):
+            questions = [questions]
+        if len(questions) != self.session.B:
+            raise ValueError(f"thread runs {self.session.B} conversations, "
+                             f"got {len(questions)} questions")
+        Mv = pipe.cfg.max_vision_token_length
+        if self.turn == 0:
+            prompts = [process_prompt(q, Mv, self.template,
+                                      with_image=images is not None)
+                       for q in questions]
+        else:
+            conv = conv_lib.conv_templates[self.template]
+            ph = ((" " + IMG_PH) * Mv).strip() + "\n" if images else ""
+            prompts = [f"{conv.roles[0]}: {ph}{q}{conv.sep}{conv.roles[1]}:"
+                       for q in questions]
+        tok = pipe.tokenizer.text_tokenizer
+        old_bos = getattr(tok, "add_bos_token", True)
+        try:
+            tok.add_bos_token = self.turn == 0
+            with torch.inference_mode():
+                inputs = pipe._tokenize(prompts, images)
+        finally:
+            tok.add_bos_token = old_bos
+        res = self.session.ask(inputs, max_new_tokens=max_new_tokens)
+        self.turn += 1
+        return pipe._answers(res.tokens, res.num_generated,
+                             self.session.gen.pad_token_id)

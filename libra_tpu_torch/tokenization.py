@@ -34,12 +34,13 @@ _WORDS = re.compile(r"<img_ph>|<img_gen>|\S+?(?=<img_ph>|<img_gen>)|\S+")
 class SimpleTextTokenizer:
     """Minimal whitespace tokenizer with the LLaMA tokenizer's surface, for
     tests and runs without a real vocabulary: pad = unk = 0, bos = 1
-    (prepended), eos = 2. Unseen words get ids as they first appear, as in
-    the JAX package, so two tokenizers fed the same texts in the same order
-    agree."""
+    (prepended while add_bos_token is set), eos = 2. Unseen words get ids
+    as they first appear, as in the JAX package, so two tokenizers fed the
+    same texts in the same order agree."""
 
     def __init__(self, vocab_size: int = 256):
         self.base_vocab_size = vocab_size
+        self.add_bos_token = True
         self.vocab: Dict[str, int] = {}
         self.pad_token_id = 0
         self.bos_token_id = 1
@@ -60,8 +61,8 @@ class SimpleTextTokenizer:
         return self.vocab[w]
 
     def encode_one(self, text: str) -> List[int]:
-        return [self.bos_token_id] + [self._word_id(m.group(0))
-                                      for m in _WORDS.finditer(text)]
+        bos = [self.bos_token_id] if self.add_bos_token else []
+        return bos + [self._word_id(m.group(0)) for m in _WORDS.finditer(text)]
 
     def __call__(self, texts: Sequence[str]) -> Dict[str, np.ndarray]:
         seqs = [self.encode_one(t) for t in texts]
