@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero:
    (one nvcc each) and prints ptxas' register, shared-memory and spill
    lines, and cuobjdump's SASS instruction mix of the int8 and int4
    matmuls', the decode attention's and the int4 experiment's kernels;
-   fails if a kernel of those three decode templates holds an I2F, or if
-   the products of a decode or rows kernel are not on the tensor cores of
-   their type: HMMA (bf16, tf32) for B2, B3, the experiment's D and C and
-   B5's weight-only rows, IMMA (int8) and no HMMA for the W4A8 modes.
+   fails if a kernel of those three decode templates or of B3's wide
+   template holds an I2F, or if the products of a decode, wide or rows
+   kernel are not on the tensor cores of their type: HMMA (bf16, tf32) for
+   B2, B3, the experiment's D and C and B5's weight-only rows, IMMA (int8)
+   and no HMMA for the W4A8 modes.
 3. flash kernel vs its plain version at the prompt pass's shape (B=4,
    Nq=610, Nk=738, H=32, d=128, bf16), bridge on and off, left-padded
    rows with fully masked query rows included (one row padded by 70
@@ -49,18 +50,20 @@ Phases, in order; any failure exits non-zero:
    projection at M = 2440 (_a8_dot for int8, the dequantized bf16 matmul
    for int4), each with its share of the bound.
 5. int8 decode attention vs its plain version (on the same bf16 q) at B=4,
-   H=32, d=128, S = 674 (610 + 64), 673, 128 and 2048: N = 1, 2, 4, 7, 8
-   (the decode template) and 16, 64 (the rows template), bridge on and
-   off, left-padded rows, a per-query causal bias, a fully masked row;
-   each case with the template it ran (the script raises if N <= 8 took
-   the rows one), both templates held to the plain version on the same
-   bf16 q (both round the probabilities as the Pallas kernel does); the
-   clusters of the decode template that fit on the card at each S; at
-   S = 674 each N timed, and at N = 1 and 8 the rows template checked and
-   timed beside the decode one, with each one's share of the bound. Also
-   at a chat turn's text delta (N = 64 at slots 672 onward, S = 1024, the
-   same masked gaps as phase 3's), which must take the rows template:
-   checked, timed, with its share of the bound.
+   H=32, d=128, S = 674 (610 + 64), 673, 128, 1024 and 2048: N = 1, 2, 4,
+   7, 8 (the decode template) and 16, 64 (the wide template), bridge on
+   and off, left-padded rows, a per-query causal bias, a fully masked row;
+   each case with the template it ran (the script raises unless N <= 8
+   took the decode one and N > 8 the wide one), every template held to the
+   plain version on the same bf16 q (all round the probabilities as the
+   Pallas kernel does); the clusters of the decode and wide templates that
+   fit on the card at each S; at S = 674 each N timed, the wide template
+   also at S = 1024 and 2048, and at N = 1, 8 and 64 the rows template
+   (the fallback for unaligned operands) checked and timed beside, with
+   each one's share of the bound. Also at a chat turn's text delta (N = 64
+   at slots 672 onward, S = 1024, the same masked gaps as phase 3's), which
+   must take the wide template: checked, timed, with its share of the
+   bound, the rows template checked and timed beside it.
 6. full paths, libra-11b at full width and depth with random weights from
    a seeded torch.Generator (bridge B-weights filled with noise) and the
    two-tap CLIP ViT-L/14-336 tokenizer: the bf16 tree, then the tree
@@ -92,7 +95,7 @@ Phases, in order; any failure exits non-zero:
    launch counts derived from the turns (B3 once a layer for a delta of 64
    rows in the int8 cache, else B1; a delta's lm_head one matmul launch;
    each step as in a decode), a second session with equal tokens in every
-   turn, every delta's int8_decode_attention call on B3's rows template,
+   turn, every delta's int8_decode_attention call on B3's wide template,
    torch.profiler's split of turn 2's delta pass; the Generator
    re-prefilling turn 2's whole history (its TTFT: what the session
    saves); on two layers at full width turn 2's delta-pass and first
@@ -400,13 +403,15 @@ def build(card: str) -> None:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {lib.stem}:", line.strip())
-    # B2's, B3's and the int4 experiment's decode templates make their
-    # floats without I2F, and their products on the tensor cores of their
-    # type; so do B2's and B5's rows templates (whose per-stage index
-    # arithmetic may divide by runtime counts, so I2F is not counted there)
+    # B2's, B3's and the int4 experiment's decode templates and B3's wide
+    # template make their floats without I2F, and their products on the
+    # tensor cores of their type; so do B2's and B5's rows templates (whose
+    # per-stage index arithmetic may divide by runtime counts, so I2F is not
+    # counted there)
     mixes_of = {}
     for stem, kernel, no_i2f in (("int8_matmul-", "int8_decode_kernel", True),
                                  ("decode_attention-", "attn_decode_kernel", True),
+                                 ("decode_attention-", "attn_wide_kernel", True),
                                  ("int4_exp-", "int4_exp_decode_kernel", True),
                                  ("int8_matmul-", "rows_kernel", False),
                                  ("int4_matmul-", "rows_kernel", False)):
@@ -1010,28 +1015,31 @@ def int8_library_ms(x, q, s, want, label, card):
     return cuda_ms(call)
 
 
-DA_N = (1, 2, 4, 7, 8, 16, 64)    # the decode template's N, then the rows template's
-DA_S = (S_DECODE, S_DECODE - 1, 128, 2048)
+DA_N = (1, 2, 4, 7, 8, 16, 64)    # the decode template's N, then the wide template's
+DA_S = (S_DECODE, S_DECODE - 1, 128, 1024, 2048)
+DA_ROWS_N = (1, 8, 64)             # the rows template beside, at S_DECODE
 
 
 def check_decode_attention(card: str, dev) -> list:
     """Decode steps over an int8 cache of S slots (S = 674: a prompt of 610
-    and 64 new tokens; 673, a ragged last unit; 128, one pass a rank; 2048,
-    passes): the N query rows sit at the slots min(610, S - N) onward
-    (keys past them masked), rows 2 and 3 left-padded by 3 and 5, batch
-    0's last query row fully masked (the uniform average of V); mixed query
-    flags for N > 1. Layer views of a stacked (2, ...) cache. Both
-    templates against the plain version on the same bf16 q (probabilities
-    rounded to bf16, as the Pallas kernel rounds them); at S = 674 timed,
-    the rows template beside the decode one at N = 1 and 8."""
+    and 64 new tokens; 673, a ragged last unit; 128, one pass a rank; 1024,
+    a chat session's cache; 2048, passes): the N query rows sit at the
+    slots min(610, S - N) onward (keys past them masked), rows 2 and 3
+    left-padded by 3 and 5, batch 0's last query row fully masked (the
+    uniform average of V); mixed query flags for N > 1. Layer views of a
+    stacked (2, ...) cache. Every template against the plain version on
+    the same bf16 q (probabilities rounded to bf16, as the Pallas kernel
+    rounds them); at S = 674 every N timed, the wide template (N > 8) also
+    at S = 1024 and 2048, and the rows template beside at N in DA_ROWS_N."""
     from libra_tpu_torch.ops.decode_attention import (
         int8_decode_attention, int8_decode_attention_plain)
     L = 2
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     for S in DA_S:
-        print(f"int8_decode_attention S={S}: decode template clusters resident "
-              f"at once: bridge {decode_clusters(S, True)}, no bridge "
-              f"{decode_clusters(S, False)} (of {B * H} a call) [{card}]")
+        print(f"int8_decode_attention S={S}: clusters resident at once (bridge, no "
+              f"bridge): decode template {decode_clusters(S, True)}, "
+              f"{decode_clusters(S, False)}; wide template {decode_clusters(S, True, 'wide')}, "
+              f"{decode_clusters(S, False, 'wide')} (of {B * H} a call) [{card}]")
     report = []
     for S in DA_S:
         def buf():
@@ -1067,11 +1075,11 @@ def check_decode_attention(card: str, dev) -> list:
                 kw = dict(flag_q=fq, kv_flag=flag_kv, bias=bias)
                 template = decode_template(q, **layer(1))
                 label = f"int8_decode_attention N={N} bridge={bridge} S={S} [{template}]"
-                if (template == "decode") != (N <= 8):
+                if template != ("decode" if N <= 8 else "wide"):
                     raise AssertionError(f"{label}: N = {N} took the {template} template")
                 got = int8_decode_attention(q, **layer(1), **kw)
                 torch.cuda.synchronize()
-                # both templates round their probabilities to bf16 as the
+                # every template rounds its probabilities to bf16 as the
                 # Pallas kernel does: the plain version on the same bf16 q
                 want = int8_decode_attention_plain(q, **layer(1), **kw,
                                                    out_dtype=torch.float32)
@@ -1079,7 +1087,7 @@ def check_decode_attention(card: str, dev) -> list:
                 row = dict(N=N, S=S, bridge=bridge, template=template, max_abs_err=err,
                            library_ms=None)
                 report.append(row)
-                if S != S_DECODE:
+                if S != S_DECODE and (N <= 8 or S not in (1024, 2048)):
                     continue
                 turn = itertools.cycle(range(L))
                 row["ms"] = cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw))
@@ -1091,7 +1099,7 @@ def check_decode_attention(card: str, dev) -> list:
                                  + cache_bytes(full, *layer(1).values()),
                                  2 * H * HD * (4 if bridge else 2) * needed_pairs(full)))
                 extra = ""
-                if N in (1, 8):
+                if S == S_DECODE and N in DA_ROWS_N:
                     row["plain_ms"] = cuda_ms(lambda: int8_decode_attention_plain(
                         q, **layer(next(turn)), **kw))
                     row["rows_err"] = check(f"{label} rows template",
@@ -1105,13 +1113,13 @@ def check_decode_attention(card: str, dev) -> list:
                       f"({row['bound_by']}) [{card}]")
         del bufs
         torch.cuda.empty_cache()
-    print(f"int8_decode_attention at S={S_DECODE} (ms, share of the bound: the "
-          "template it takes; the rows template): " + "; ".join(
-              f"N={r['N']} bridge={r['bridge']} {r['template']} {r['ms']:.4f} "
+    print("int8_decode_attention timed (ms, share of the bound: the template it takes; "
+          "the rows template): " + "; ".join(
+              f"N={r['N']} bridge={r['bridge']} S={r['S']} {r['template']} {r['ms']:.4f} "
               f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f})"
               + (f", rows {r['rows_ms']:.4f} ({r['bound_ms'] / r['rows_ms']:.1%})"
                  if "rows_ms" in r else "")
-              for r in report if r["S"] == S_DECODE) + f" [{card}]")
+              for r in report if "ms" in r) + f" [{card}]")
     return report
 
 
@@ -1119,9 +1127,10 @@ def check_decode_delta(card: str, dev) -> list:
     """B3 at a chat turn's text delta (phase 5): N = CHAT_BUCKET query rows
     at slots DELTA_AT onward over an int8 cache of S_CHAT slots (layer
     views of a stacked (2, ...) cache), delta_bias's causal offset and
-    gaps, bridge on and off; the rows template must take it. Against the
-    plain version on the same bf16 q, timed, with the share of the bound.
-    Returns phase 5's rows."""
+    gaps, bridge on and off; the wide template must take it. Against the
+    plain version on the same bf16 q, timed, with the share of the bound;
+    the rows template (the fallback, the parent's kernel for this call)
+    checked and timed beside it. Returns phase 5's rows."""
     from libra_tpu_torch.ops.decode_attention import (
         int8_decode_attention, int8_decode_attention_plain)
     L, N = 2, CHAT_BUCKET
@@ -1147,16 +1156,19 @@ def check_decode_delta(card: str, dev) -> list:
         template = decode_template(q, **layer(1))
         label = (f"int8_decode_attention chat delta N={N} S={S_CHAT} at slot {DELTA_AT} "
                  f"bridge={bridge} [{template}]")
-        if template != "rows":
+        if template != "wide":
             raise AssertionError(f"{label}: N = {N} took the {template} template")
         got = int8_decode_attention(q, **layer(1), **kw)
         torch.cuda.synchronize()
-        err = check(label, got, int8_decode_attention_plain(
-            q, **layer(1), **kw, out_dtype=torch.float32), card)
+        want = int8_decode_attention_plain(q, **layer(1), **kw, out_dtype=torch.float32)
+        err = check(label, got, want, card)
+        rows_err = check(f"{label} rows template", decode_rows(q, **layer(1), **kw), want,
+                         card)
         turn = itertools.cycle(range(L))
         row = dict(N=N, S=S_CHAT, bridge=bridge, template=template, max_abs_err=err,
-                   library_ms=None,
+                   rows_err=rows_err, library_ms=None,
                    ms=cuda_ms(lambda: int8_decode_attention(q, **layer(next(turn)), **kw)),
+                   rows_ms=cuda_ms(lambda: decode_rows(q, **layer(next(turn)), **kw)),
                    plain_ms=cuda_ms(lambda: int8_decode_attention_plain(
                        q, **layer(next(turn)), **kw)))
         # the cache at the slots some query needs; score and value products
@@ -1166,12 +1178,16 @@ def check_decode_delta(card: str, dev) -> list:
         row.update(bound(nbytes(q, *kw.values(), got) + cache_bytes(full, *layer(1).values()),
                          2 * H * HD * (4 if bridge else 2) * needed_pairs(full)))
         print(f"{label}: kernel {row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of "
-              f"the bound), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-              f"ms ({row['bound_by']}) [{card}]")
+              f"the bound), rows template {row['rows_ms']:.4f} ms "
+              f"({row['bound_ms'] / row['rows_ms']:.2%}), plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]")
         rows.append(row)
     del bufs
     torch.cuda.empty_cache()
     return rows
+
+
+DECODE_TEMPLATES = {0: "rows", 1: "decode", 2: "wide"}
 
 
 def decode_template(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None) -> str:
@@ -1184,14 +1200,16 @@ def decode_template(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None) -
     zeros = torch.zeros((1, 1), device=q.device)   # the flag and bias strides do not decide
     strides = DA._strides(q, kq, ks, zeros, zeros, zeros)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    return "decode" if fn(q.shape[1], kq.shape[2], (ctypes.c_longlong * DA.N_STRIDES)(*strides),
-                          ptr(q), ptr(kq), ptr(vq), ptr(kbq), ptr(vbq)) else "rows"
+    return DECODE_TEMPLATES[fn(q.shape[1], kq.shape[2],
+                               (ctypes.c_longlong * DA.N_STRIDES)(*strides),
+                               ptr(q), ptr(kq), ptr(vq), ptr(kbq), ptr(vbq))]
 
 
 def decode_rows(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None,
                 flag_q=None, kv_flag=None, bias=None):
     """The rows template alone: the C function int8_decode_attention_rows,
-    with int8_decode_attention's arguments (the parent's kernel)."""
+    with int8_decode_attention's arguments (the fallback for unaligned
+    operands; before the wide template, the kernel of every 8 < N call)."""
     from libra_tpu_torch.ops import _build, decode_attention as DA
     fq, fk, bias = DA._flags_bias(q, kq.shape[2], flag_q, kv_flag, bias)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -1201,13 +1219,13 @@ def decode_rows(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None, vbs=None,
     return out
 
 
-def decode_clusters(S: int, bridge: bool) -> int:
-    """The decode template's clusters that fit on the card at once for a
-    cache of S slots (cudaOccupancyMaxActiveClusters)."""
+def decode_clusters(S: int, bridge: bool, template: str = "decode") -> int:
+    """The clusters of the decode (or wide) template that fit on the card
+    at once for a cache of S slots (cudaOccupancyMaxActiveClusters)."""
     from libra_tpu_torch.ops import _build, decode_attention as DA
-    fn = _build.function(DA.SOURCE, "int8_decode_attention_clusters",
-                         (ctypes.c_int, ctypes.c_int))
-    n = fn(S, int(bridge))
+    name = {"decode": "int8_decode_attention_clusters",
+            "wide": "int8_decode_attention_wide_clusters"}[template]
+    n = _build.function(DA.SOURCE, name, (ctypes.c_int, ctypes.c_int))(S, int(bridge))
     if n < 1:
         raise AssertionError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {-n}")
     return n
@@ -1728,7 +1746,7 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
       1. the first, the main path: counted, launches derived from the
          turns (chat_counts); peak memory;
       2. the second: equal tokens in every turn; every int8_decode_
-         attention call of more than 8 rows on B3's rows template; then a
+         attention call of more than 8 rows on B3's wide template; then a
          prefill-only turn of turn 2's delta profiled (torch.profiler's
          split of a delta pass; its rows at slot 864 instead of 672);
          each turn's TTFT (its first token on the host) and turn 2's
@@ -1808,7 +1826,7 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
     S = sess.S
     del sess
 
-    # --- 2. a second session: equal tokens, B3's template, a profiled delta ---
+    # --- 2. a second session: equal tokens, B3's wide template, a profiled delta ---
     templates, prof = [], {}
     b3 = M.int8_decode_attention
 
@@ -1828,7 +1846,7 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
     same = all(torch.equal(a.tokens, b.tokens) and torch.equal(a.num_generated,
                                                                b.num_generated)
                for a, b in zip(results, again))
-    want_t = ([(CHAT_BUCKET, "rows")] * (cfg.num_hidden_layers * (len(turns) - 1))
+    want_t = ([(CHAT_BUCKET, "wide")] * (cfg.num_hidden_layers * (len(turns) - 1))
               if quant else [])
     print(f"{mode} chat second session: tokens equal to the first's in every turn "
           f"{same}; int8_decode_attention calls of more than 8 rows (N, template): "
@@ -3205,7 +3223,7 @@ def main() -> int:
                 pick, M=M_PACKED).items()))
             report[name].update({f"packed_{k}": packed[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms")})
-    # and the chat deltas' rows template: N = 64 at slot 672 of S = 1024
+    # and the chat deltas' wide template: N = 64 at slot 672 of S = 1024
     report["int8_decode_attention"].update(
         {f"chat_{k}": chat_da[0][k] for k in ("ms", "plain_ms", "bound_ms")})
 

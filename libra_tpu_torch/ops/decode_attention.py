@@ -12,16 +12,18 @@ layer:
 
 with ``cross[n, s] = flag_q[b, n] != kv_flag[b, s]`` and the probabilities
 rounded to q's dtype (bf16 on the card) before the value products, as the
-Pallas kernel's ``_weighted_v`` rounds them: both of the kernel's
-templates round the normalized softmax so (the rows template, for N > 8,
-in a second pass over the keys). The cache is the layout of
+Pallas kernel's ``_weighted_v`` rounds them: each of the kernel's three
+templates rounds the normalized softmax so. The cache is the layout of
 ``models/libra.init_cache(quantized=True)``: int8 (B, H, S, d) layer views
 with (B, H, S) fp32 scales.
 
 On a CUDA tensor `int8_decode_attention` launches the hand-written Hopper
-kernel in ``csrc/decode_attention.cu`` (its decode template for N <= 8,
-its rows template above) or raises; on a CPU tensor it runs
-`int8_decode_attention_plain`.
+kernel in ``csrc/decode_attention.cu`` or raises; on a CPU tensor it runs
+`int8_decode_attention_plain`. The kernel's C gate picks the template per
+call: the decode template for N <= 8 query rows (a decode step, a
+spec-decode verify pass), the wide one for 8 < N <= 64 (a chat turn's
+64-row text delta), both on the tensor cores and needing 8-byte q loads
+and 16-byte cache rows; the rows template (CUDA cores) for the rest.
 """
 
 from __future__ import annotations
@@ -159,9 +161,10 @@ def int8_decode_attention(q, kq, ks, vq, vs, kbq=None, kbs=None, vbq=None,
     fp32. Returns (B, N, H, d) in q's dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bfloat16 q, d == HEAD_DIM, N <= 64; the C function picks its decode
-    template for N <= 8 with aligned operands, else its rows template) and
-    add one to `int8_decode_attention.launches`."""
+    (bfloat16 q, d == HEAD_DIM, N <= 64; with aligned operands the C
+    function picks its decode template for N <= 8 and its wide template
+    for 8 < N <= 64, else its rows template) and add one to
+    `int8_decode_attention.launches`."""
     if q.device.type == "cpu":
         return int8_decode_attention_plain(q, kq, ks, vq, vs, kbq, kbs, vbq,
                                            vbs, flag_q, kv_flag, bias)

@@ -21,8 +21,10 @@ ranks, the 16-key unit, the pass length):
 * a change to a selector, the magic bias or the unit in the source text
   fails these checks.
 
-The rows template (8 < N <= 64) is emulated too: its two passes over the
-key tiles (each row's max and sum of exponentials first, then the
+The rows template (the fallback for operands the decode and wide
+templates do not take; the wide template has its own rehearsal,
+``test_torch_port_decode_attention_wide.py``) is emulated too: its two
+passes over the key tiles (each row's max and sum of exponentials first, then the
 normalized probabilities rounded to bf16 with their V scales, then the
 values), held against libra_tpu's Pallas kernel in interpret mode on
 bf16 q; the one-pass order with fp32 probabilities, which it replaced,
@@ -491,7 +493,7 @@ def test_variant_sources_apply(name, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The rows template (8 < N <= 64)
+# The rows template (any N <= 64: the fallback for unaligned operands)
 # ---------------------------------------------------------------------------
 
 ROWS_BS = int(re.search(r"constexpr int BS = (\d+);", SOURCE).group(1))   # keys a tile
