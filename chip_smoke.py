@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    projection shapes (4096->4096, 4096->11008, 11008->4096, 4096->32000
    lm_head) and on 4096->2752 (F not a multiple of the decode templates'
    128-column tile), the weight a layer view of a stacked (8, K, F)
-   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7, 8, 62 and 124
+   buffer: int8, and int4 in both a8 modes, at M = 1, 4, 7, 8, 16 (a spec
+   verify pass's B * (3 + 1) rows), 62 and 124
    (the serving engine's k = 1 and 2 pixels refills at a 128 bucket), 68
    (the merged chunk's packed rows, B + C = 4 + 64),
    128 (the split prompt pass's text rows) and 160 (the gate's limit), x with a zero
@@ -43,8 +44,8 @@ Phases, in order; any failure exits non-zero:
    timed beside it, with each one's share of the bound; at M = 128 on
    4096->4096 an x with an odd row pitch, which must take the chunked
    template;
-   torch._weight_int8pack_mm timed at M = 4, 68, 128 and 160, and
-   torch._weight_int4pack_mm for int4 weight-only at M = 4, 68 and 128; at
+   torch._weight_int8pack_mm timed at M = 4, 16, 68, 128 and 160, and
+   torch._weight_int4pack_mm for int4 weight-only at M = 4, 16, 68 and 128; at
    M = 128 on the four projection shapes also _a8_dot (torch._int_mm) on
    the same rows and the route the dense prompt pass takes for the
    projection at M = 2440 (_a8_dot for int8, the dequantized bf16 matmul
@@ -74,7 +75,18 @@ Phases, in order; any failure exits non-zero:
    kernel launches of each run checked against counts derived from the
    config, two greedy runs held equal, and on two layers at full width
    the logits with the kernels held against those with every kernel's
-   plain version patched in; torch.profiler's split of one prompt pass and
+   plain version patched in; then speculative decoding through the
+   Generator (spec_decode = 3, text decode) on the same prompts: the
+   bigram drafter (a warm-up, then the better of 2 runs) and drafts read
+   from the bigram run's own stream (oracle: the greedy stream under the
+   verify pass's numerics, as bench.py reads it; its tokens must equal
+   the bigram run's), decode tok/s beside the
+   standard run's and tokens a row a verify iteration, their tokens held
+   to the standard run's under a tie rule (at a row's first difference
+   the standard step's top-2 logit gap must be under 1% (bf16) or 5% of
+   the row's logit range), launches derived from their iterations with
+   the matmuls at M = 16 and B3 at N = 4, a verify iteration profiled;
+   torch.profiler's split of one prompt pass and
    of 4 decode steps by kernel. Then each tree's fused-pixels path
    (bench.py:523-556's shape: 32 random text ids and the 578-token image
    block at img_start = 8, the four seeded uint8 images, B = 4): the fused
@@ -88,7 +100,8 @@ Phases, in order; any failure exits non-zero:
    split of one fused prompt pass by kernel, split on and off, with the
    device time of CLIP + LFQ. Then each tree's multi-turn chat
    (chat.ChatSession, B = 4, max_len 1024, delta_bucket 64, the quantized
-   trees with the same options): three turns of 32 tokens, the fused
+   trees with the same options; in int8 also a spec session of two turns
+   held to the standard one under the tie rule): three turns of 32 tokens, the fused
    prompt from raw pixels (610 tokens, bucketed to 640) then two text
    deltas of 8 to 29 tokens a row (bucketed to 64); each turn's TTFT (its
    first token on the host) and turn 2's decode tok/s and the peak memory,
@@ -117,7 +130,10 @@ Phases, in order; any failure exits non-zero:
    and so every token of the first and the last k = 1 refill, each
    finishing on its budget, launch counts derived from the run's own
    schedule (its prefill groups and decode steps) and one decode chunk
-   under torch.cuda.set_sync_debug_mode("error"); an open-loop run of the same requests at seeded
+   under torch.cuda.set_sync_debug_mode("error"); in int8, a spec engine
+   (spec_decode = 3) on the lockstep requests held to the standard
+   engine's tokens under the tie rule, launches derived from its spec
+   chunks, one chunk under set_sync_debug_mode("error"); an open-loop run of the same requests at seeded
    exponential arrivals (TTFT p50 / p95 from arrival, tokens/s,
    requests/s, wall time a chunk against its device time, peak memory);
    on the int8 tree, ServingEngine.warmup once. Then the merged burst: the
@@ -201,10 +217,14 @@ MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 # the decode row counts 1, 4, 7, 8 (the templates' MT = 1, 4, 8 and a
 # ragged 7), 62 and 124 (the serving engine's k = 1 and 2 pixels refills
 # at a 128 bucket: k * (640 - 578) text rows, a ragged last n8 tile), 128
-# (the split prompt pass's text rows, B * 32) and 160; and 68 (M_PACKED,
-# the merged chunk's B decode tokens and ENGINE_C prompt tokens)
+# (the split prompt pass's text rows, B * 32) and 160; 68 (M_PACKED, the
+# merged chunk's B decode tokens and ENGINE_C prompt tokens); and 16
+# (M_VERIFY, a spec-decode verify pass's B * (SPEC_GAMMA + 1) rows)
 QUANT_SHAPES = MATMUL_SHAPES + [(4096, 2752)]
-QUANT_M = (1, 4, 7, 8, 62, 68, 124, 128, 160)
+# phase 6's speculative decode: SPEC_GAMMA bigram drafts a verify pass
+SPEC_GAMMA = 3
+M_VERIFY = B * (SPEC_GAMMA + 1)
+QUANT_M = (1, 4, 7, 8, M_VERIFY, 62, 68, 124, 128, 160)
 M_SPLIT = 128                                # B * (NQ - 578) text rows
 M_DENSE = B * NQ                             # the dense prompt pass's rows
 LAYERS_11B = 32
@@ -807,9 +827,10 @@ def check_matmuls(card: str, dev) -> dict:
                 bnd = bound(nbytes(x, *layer(3), got), 2 * M * K * F,
                             "int8" if a8 else "bf16")
                 lib_ms = None
-                if name == "int8_matmul" and M in (4, M_PACKED, M_SPLIT, 160):
+                if name == "int8_matmul" and M in (4, M_VERIFY, M_PACKED, M_SPLIT, 160):
                     lib_ms = int8_library_ms(x, q, s, want, label, card)
-                elif name == "int4_matmul" and M in (4, M_PACKED, M_SPLIT) and not a8:
+                elif (name == "int4_matmul" and M in (4, M_VERIFY, M_PACKED, M_SPLIT)
+                      and not a8):
                     lib_ms = int4_library_ms(x, packed, s4, 128, card)
                 row = dict(M=M, K=K, F=F, tag=tag, template=template, max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
@@ -857,14 +878,16 @@ def check_matmuls(card: str, dev) -> dict:
                   f"{r['dense_bound_ms']:.4f})"
                   for r in rows if r["M"] == M_SPLIT and "dense_ms" in r)
               + f" [{card}]")
-        print(f"{name} at M = {M_PACKED}, the merged chunk's packed rows (ms, share of "
-              f"the bound): " + "; ".join(
-                  f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
-                  f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), plain "
-                  f"{r['plain_ms']:.4f}, library "
-                  + ("none" if r["library_ms"] is None else
-                     f"{r['library_ms']:.4f} ({r['bound_ms'] / r['library_ms']:.1%})")
-                  for r in rows if r["M"] == M_PACKED) + f" [{card}]")
+        for m, what in ((M_VERIFY, "a spec-decode verify pass's rows"),
+                        (M_PACKED, "the merged chunk's packed rows")):
+            print(f"{name} at M = {m}, {what} (ms, share of "
+                  f"the bound): " + "; ".join(
+                      f"{r['K']}->{r['F']}{r['tag']} {r['template']} {r['ms']:.4f} "
+                      f"({r['bound_ms'] / r['ms']:.1%} of {r['bound_ms']:.4f}), plain "
+                      f"{r['plain_ms']:.4f}, library "
+                      + ("none" if r["library_ms"] is None else
+                         f"{r['library_ms']:.4f} ({r['bound_ms'] / r['library_ms']:.1%})")
+                      for r in rows if r["M"] == m) + f" [{card}]")
         for tag in sorted({r["tag"] for r in rows}):
             split = {(r["K"], r["F"]): r for r in rows
                      if r["M"] == M_SPLIT and r["tag"] == tag and "dense_ms" in r}
@@ -1326,11 +1349,14 @@ def plain_kernels():
 
 def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
               main: Counter):
-    """Chat, logit checks and TTFT/decode timing for one weight mode, then
-    its fused-pixels path, its multi-turn chat sessions (and, in bf16, a
-    ChatThread) and its serving-engine phase. Adds the main-path runs'
-    kernel launches to `main`; returns the prompt length, the fused path's,
-    the chat sessions' and the engine's figures."""
+    """Chat, logit checks and TTFT/decode timing for one weight mode, its
+    speculative decode (spec_path), then its fused-pixels path, its
+    multi-turn chat sessions (and, in bf16, a ChatThread) and its
+    serving-engine phase. Adds the main-path runs' kernel launches to
+    `main`; returns the prompt length, the fused path's, the chat
+    sessions', the engine's and the spec phase's figures (its seconds
+    summed over its three parts: spec_path, and in int8 spec_chat and
+    spec_engine)."""
     from libra_tpu_torch.generation import GenerationConfig
     from libra_tpu_torch.pipeline import LibraPipeline
     from libra_tpu_torch.tokenization import (ImageTokenizer, LibraTokenizer,
@@ -1416,8 +1442,11 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
         torch.cuda.synchronize()
         return time.perf_counter() - t, res
 
+    import libra_tpu_torch.generation as G
+    margins = []
     run(g1)
-    run(g64)                                    # warm-up
+    with logit_margins(G, margins, cfg.vocab_size):
+        _, r0 = run(g64)                        # warm-up: the steps' top-2 gaps
     zero_counts()
     ttft = min(run(g1)[0] for _ in range(2))
     (t64a, r1), (t64b, r2) = run(g64), run(g64)
@@ -1428,13 +1457,16 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
     t64 = min(t64a, t64b)
     tok_s = (MAX_NEW - 1) * B / (t64 - ttft)
     new = r1.sequences[:, :, N:]
-    if not torch.equal(r1.sequences, r2.sequences):
-        raise AssertionError("two greedy runs gave different tokens")
+    if not (torch.equal(r1.sequences, r2.sequences)
+            and torch.equal(r0.sequences, r1.sequences)):
+        raise AssertionError("three greedy runs gave different tokens")
     if bool((new >= cfg.vocab_size).any()):
         raise AssertionError("text positions emitted vision ids")
     print(f"{mode} VQA B={B} N={N} {qkw}: TTFT {ttft * 1e3:.3f} ms, decode "
           f"{tok_s:.3f} tok/s ({MAX_NEW} new tokens in {t64 * 1e3:.3f} ms) "
           f"[{card}]")
+    spec = spec_path(card, cfg, params, mode, pipe.generator, inputs, r1,
+                     torch.stack(margins).cpu(), ttft, tok_s, main)
     profile_paths(card, cfg, params, args, g64, mode)
     fused, seqs = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
                              torch.stack(images), main)
@@ -1444,7 +1476,227 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
         chat_thread(card, pipe, images, main)
     engine = engine_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
                          torch.stack(images), seqs, fused["on"]["ttft_ms"], main)
-    return N, fused, chat, engine
+    spec["phase_s"] += chat.get("spec", {}).get("phase_s", 0) + engine.get(
+        "spec", {}).get("phase_s", 0)
+    return N, fused, chat, engine, spec
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding
+# ---------------------------------------------------------------------------
+
+def logit_margins(module, sink: list, vocab: int):
+    """Patch module.sample_tokens so that each call also appends its
+    logits' top2_gap: the tie rule's gap and range at each emitted token
+    of a standard run."""
+    sample = module.sample_tokens
+
+    def record(logits, gen, generator=None):
+        sink.append(top2_gap(logits, vocab))
+        return sample(logits, gen, generator)
+    return mock.patch.object(module, "sample_tokens", record)
+
+
+def top2_gap(logits, vocab: int) -> torch.Tensor:
+    """Codebook 0's (top-1 minus top-2, max minus min) over the text vocab
+    of logits (Q, B, Vc): (B, 2) fp32, on the logits' device."""
+    t = logits[0, :, :vocab].float()
+    top = t.topk(2, dim=-1).values
+    return torch.stack([top[:, 0] - top[:, 1], top[:, 0] - t.amin(dim=-1)], -1)
+
+
+def tie_rule(label: str, got, want, margins, tol: float, card: str,
+             rows: Optional[list] = None) -> list:
+    """Spec tokens `got` against a standard run's `want` ((B, n) each), each
+    row (of `rows`, default all) up to its first difference, where the
+    standard step's top-2 logit gap (`margins` (n, B, 2): gap, range) must
+    be under tol of that row's logit range: a near tie, which the verify
+    pass's other summation order (B * (gamma + 1) matmul rows, gamma + 1
+    attention rows) may flip; past it the two streams continue from
+    different tokens. Returns the rows that are equal throughout."""
+    same = []
+    for b in range(got.shape[0]) if rows is None else rows:
+        diff = (got[b] != want[b]).nonzero()
+        if not len(diff):
+            same.append(b)
+            continue
+        t = int(diff[0])
+        gap, rng = (float(v) for v in margins[t, b])
+        print(f"{label}: row {b} first differs at new token {t} ({int(got[b, t])} "
+              f"against {int(want[b, t])}): the standard step's top-2 gap {gap:.6g} of "
+              f"its range {rng:.6g} ({gap / rng:.4%}; tol {tol:.0%}) [{card}]")
+        if not gap < tol * rng:
+            raise AssertionError(f"{label}: row {b} differs at token {t} where the "
+                                 f"standard step has no near tie")
+    return same
+
+
+def launch_shapes(sink: Counter):
+    """Patch the matmul and decode-attention wrappers where the model calls
+    them (ops.qlinear's module references, models.libra's name; the
+    wrappers' own modules keep theirs, which count the launches), so that
+    each call also counts (kernel, rows) in `sink`: a matmul's rows of x,
+    the decode attention's query rows N. qdot calls a matmul wrapper only
+    where its kernel takes the call."""
+    import types
+    from libra_tpu_torch.models import libra as M
+    from libra_tpu_torch.ops import qlinear
+
+    def recorded(fn, name, rows):
+        def wrapped(x, *a, **k):
+            sink[(name, rows(x))] += 1
+            return fn(x, *a, **k)
+        return wrapped
+
+    stack = contextlib.ExitStack()
+    for ref in ("i8", "i4"):
+        mod = getattr(qlinear, ref)
+        name = mod.__name__.rsplit(".", 1)[1]
+        proxy = types.SimpleNamespace(**vars(mod))
+        setattr(proxy, name, recorded(getattr(mod, name), name,
+                                      lambda x: x.numel() // x.shape[-1]))
+        stack.enter_context(mock.patch.object(qlinear, ref, proxy))
+    stack.enter_context(mock.patch.object(M, "int8_decode_attention", recorded(
+        M.int8_decode_attention, "int8_decode_attention", lambda q: q.shape[1])))
+    return stack
+
+
+def verify_counts(cfg, mode: str, kv_quant: bool, iterations: int,
+                  prompts: int = 0) -> Counter:
+    """(kernel, rows) of `iterations` spec verify passes: the 7
+    projections of every layer and lm_head at M_VERIFY rows, B3 at
+    SPEC_GAMMA + 1 query rows once a layer with the int8 cache; and of
+    `prompts` prompt passes' lm_head at the B last positions."""
+    L, mm = cfg.num_hidden_layers, MATMUL_KERNEL[mode]
+    want = Counter()
+    if mm:
+        want[(mm, M_VERIFY)] = iterations * (7 * L + 1)
+        if prompts:
+            want[(mm, B)] = prompts
+    if kv_quant:
+        want[("int8_decode_attention", SPEC_GAMMA + 1)] = iterations * L
+    return want
+
+
+def spec_path(card: str, cfg, params, mode: str, generate, inputs, r1, margins,
+              ttft: float, std_tok_s: float, main: Counter) -> dict:
+    """Speculative decoding through the Generator (gen.spec_decode =
+    SPEC_GAMMA, text decode, the quantized trees with kv_quant and
+    a8_prefill) on the VQA prompts `inputs`, beside the standard run `r1`
+    (its steps' top-2 gaps in `margins`, its TTFT `ttft`, its decode rate
+    `std_tok_s`):
+      a. the bigram drafter: a warm-up, then two counted runs of MAX_NEW
+         tokens, the better one's decode tok/s ((MAX_NEW - 1) * B over its
+         time less the standard TTFT) and tokens per verify iteration;
+         tokens held to r1's under the tie rule (tie_rule), the warm-up
+         and the two runs equal;
+      b. oracle drafts read from the bigram run's own stream, the greedy
+         stream under the verify pass's numerics (the script swaps
+         spec_decode._bigram_drafts, as bench.py does): two counted runs,
+         tokens equal to the bigram run's and held to r1's under the tie
+         rule, acceptance and tok/s;
+      c. each counted run's launches against those derived from its
+         iterations (expected_counts: a verify iteration launches what a
+         decode step does), and each launch's rows (verify_counts: the
+         matmuls at M_VERIFY, B3 at N = SPEC_GAMMA + 1);
+      d. torch.profiler over one spec_decode_loop of one verify
+         iteration from a prompt pass: its device and wall time.
+    Adds the counted runs' launches to `main`; returns the figures."""
+    import torch.nn.functional as F
+    import libra_tpu_torch.spec_decode as SD
+    from libra_tpu_torch.generation import GenerationConfig, _prefill
+    t_phase = time.perf_counter()
+    quant = mode != "bf16"
+    tol = E2E_TOL_QUANT if quant else E2E_TOL
+    qkw = dict(kv_quant=True, a8_prefill=True) if quant else {}
+    gen = GenerationConfig(max_new_tokens=MAX_NEW, eos_token_id=-1, decode_modality="text",
+                           spec_decode=SPEC_GAMMA, **qkw)
+    N = inputs["input_ids"].shape[-1]
+    want = r1.sequences[0, :, N:].cpu()
+
+    def counted(label, runs, exact=None):
+        shapes, out = Counter(), []
+        zero_counts()
+        with launch_shapes(shapes):
+            for _ in range(runs):
+                t = time.perf_counter()
+                res = generate(inputs, gen)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t, res))
+        got = read_counts()
+        main.update(got)
+        iters = sum(int(r.iterations) for _, r in out)
+        assert_counts(f"{mode} spec {label} ({runs} runs, {iters} verify iterations)",
+                      got, expected_counts(cfg, mode, quant, runs, iters), card)
+        want_shapes = verify_counts(cfg, mode, quant, iters, runs)
+        print(f"{mode} spec {label}: launches by (kernel, rows) {dict(shapes)} "
+              f"(expected {dict(want_shapes)}) [{card}]")
+        if shapes != want_shapes:
+            raise AssertionError(f"{mode} spec {label}: launch shapes {dict(shapes)}")
+        seqs = [r.sequences for _, r in out]
+        if not all(torch.equal(x, seqs[0]) for x in seqs):
+            raise AssertionError(f"{mode} spec {label}: two greedy runs differ")
+        if exact is not None and not torch.equal(seqs[0], exact):
+            raise AssertionError(f"{mode} spec {label}: tokens differ from the "
+                                 f"bigram run's, whose stream the drafts are")
+        t, res = min(out, key=lambda o: o[0])
+        ng = res.num_generated
+        if not bool((ng == MAX_NEW).all()):
+            raise AssertionError(f"{mode} spec {label}: num_generated {ng.tolist()}")
+        per_iter = float(ng.sum()) / B / int(res.iterations)
+        figs = dict(tok_s=(MAX_NEW - 1) * B / (t - ttft), ms=t * 1e3, tok_per_iter=per_iter,
+                    accept=(per_iter - 1) / SPEC_GAMMA, iterations=int(res.iterations))
+        same = tie_rule(f"{mode} spec {label}", res.sequences[0, :, N:].cpu(), want,
+                        margins, tol, card)
+        print(f"{mode} spec {label} B={B} gamma={SPEC_GAMMA} {qkw}: decode "
+              f"{figs['tok_s']:.3f} tok/s ({MAX_NEW} new tokens in {t * 1e3:.3f} ms; "
+              f"the standard run {std_tok_s:.3f} tok/s), {figs['iterations']} verify "
+              f"iterations, {per_iter:.4f} tokens a row an iteration (acceptance "
+              f"{figs['accept']:.4f}); rows equal to the standard run's throughout "
+              f"{same} [{card}]")
+        return figs
+
+    bigram = generate(inputs, gen)                           # warm-up
+    out = {"bigram": counted("bigram", 2, exact=bigram.sequences)}
+    # oracle drafts: the bigram run's own next tokens after each pending,
+    # the greedy stream under the verify pass's numerics (bench.py's
+    # design; the standard run's stream parts from it at its first near
+    # tie, after which its drafts are rejected)
+    oracle = F.pad(bigram.sequences[0, :, N:], (0, SPEC_GAMMA + 1))
+
+    def oracle_drafts(hist, valid, P, pending, gamma):
+        start = (P - N + 1).clamp_min(0)
+        return oracle.gather(1, start[:, None] + torch.arange(gamma, device=P.device))
+
+    with mock.patch.object(SD, "_bigram_drafts", oracle_drafts):
+        out["oracle"] = counted("oracle drafts", 2, exact=bigram.sequences)
+
+    # one spec_decode_loop of one verify iteration (max_new 2: the pending
+    # token and at least one more), profiled: torch.profiler's cost grows
+    # with the events it records
+    prof = {}
+    args = tuple(inputs[k] for k in ("input_ids", "attention_mask", "vision_indices",
+                                     "coninous_signal"))
+    with torch.inference_mode():
+        st = _prefill(params, *args, cfg=cfg, gen=gen, extra_cache=SPEC_GAMMA + 1)
+        hist = F.pad(st.tokens[0], (0, SPEC_GAMMA + 1))
+        pending = torch.argmax(st.logits[0], dim=-1)
+        hist[:, N] = pending
+        P = torch.full((B,), N, dtype=torch.int64, device=pending.device)
+        res = profiled(card, f"{mode} spec_decode_loop, one verify iteration "
+                       f"({M_VERIFY} rows a forward)",
+                       lambda: SD.spec_decode_loop(params, hist, st.mask_buf,
+                                                   st.cache._replace(index=P), pending,
+                                                   st.last_pos, P, cfg=cfg, gen=gen,
+                                                   max_new=2), out=prof)
+    n = int(res.iterations)
+    out.update(std_tok_s=std_tok_s, verify_device_ms=prof["device_ms"] / n,
+               verify_wall_ms=prof["wall_ms"] / n)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{mode} spec phase (Generator): a verify iteration {out['verify_device_ms']:.3f} "
+          f"ms device, {out['verify_wall_ms']:.3f} ms wall (profiled, {n} iterations); "
+          f"{out['phase_s']:.1f} s [{card}]")
+    return out
 
 
 def fused_inputs(cfg, dev, pixels):
@@ -1773,10 +2025,12 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
     qkw = dict(kv_quant=True, a8_prefill=True, decode_modality="text") if quant else {}
     gen = GenerationConfig(eos_token_id=-1, **qkw)
     turns = chat_turns(cfg, dev, pixels)
-    marks = []
+    marks, margins = [], None
     sample = CH.sample_tokens
 
     def first_token(logits, g, generator=None):
+        if margins is not None:          # the steps' top-2 gaps (spec_chat)
+            margins.append(top2_gap(logits, cfg.vocab_size))
         tok = sample(logits, g, generator)
         if marks and marks[-1] is None:     # a turn's first token, on the host
             torch.cuda.synchronize()
@@ -1837,6 +2091,7 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
         return b3(q, kq, ks, vq, vs, kbq=kbq, kbs=kbs, vbq=vbq, vbs=vbs, **kw)
 
     sess = session()
+    margins = [] if mode == "int8" else None
     with mock.patch.object(M, "int8_decode_attention", b3_template):
         again, _, ttft2, walls2 = converse(sess)
     profiled(card, f"{mode} chat delta pass of turn 2's input ({B} x {CHAT_BUCKET} rows "
@@ -1861,6 +2116,9 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
                                                               (walls2, ttft2)))
     out = dict(ttft_ms=[t * 1e3 for t in ttft], tok_s=tok_s, peak_gb=peak_gb,
                delta_device_ms=prof["device_ms"])
+    if margins is not None:
+        out["spec"] = spec_chat(card, cfg, params, gen, turns, vq_params, vq_cfg,
+                                again, torch.stack(margins).cpu(), main)
     print(f"{mode} chat session B={B} max_len {S_CHAT} (S = {S}) delta_bucket "
           f"{CHAT_BUCKET} {qkw}: turns of {[s[0] for s in shapes]} rows, {CHAT_NEW} "
           f"tokens each; TTFT (best of the two sessions) " + ", ".join(
@@ -1941,6 +2199,81 @@ def chat_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
     return out
 
 
+def spec_chat(card: str, cfg, params, gen, turns, vq_params, vq_cfg, std, margins,
+              main: Counter) -> dict:
+    """A spec ChatSession (gen.spec_decode = SPEC_GAMMA; the int8 tree) over
+    chat_turns' first two turns against the standard session's `std`
+    (TurnResults; its steps' top-2 gaps in `margins`, CHAT_NEW a turn):
+    turn 1's tokens under the tie rule; turn 2's against a standard
+    session whose turn-1 tokens are forced to the spec session's answers
+    (the same history; its turn-2 margins recorded), under the tie rule,
+    with equal slots used; every answer CHAT_NEW tokens; launches derived
+    from each turn's delta pass (chat_counts), its verify iterations (a
+    decode step's each) and its flush step (the 7 projections of every
+    layer and B3, no lm_head). Adds the launches to `main`."""
+    from libra_tpu_torch import chat as CH
+    t_phase = time.perf_counter()
+    L, mm = cfg.num_hidden_layers, MATMUL_KERNEL["int8"]
+    sess = CH.ChatSession(params, cfg, batch=B, max_len=S_CHAT,
+                          gen=dataclasses.replace(gen, spec_decode=SPEC_GAMMA),
+                          delta_bucket=CHAT_BUCKET, vq_params=vq_params, vq_cfg=vq_cfg)
+    iters, results, walls = [], [], []
+    loop = CH.spec_decode_loop
+
+    def counted_loop(*a, **k):
+        res = loop(*a, **k)
+        iters.append(int(res.iterations))
+        return res
+
+    zero_counts()
+    with mock.patch.object(CH, "spec_decode_loop", counted_loop):
+        for turn in turns[:2]:
+            t = time.perf_counter()
+            results.append(sess.ask(turn, max_new_tokens=CHAT_NEW))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+    got = read_counts()
+    main.update(got)
+    want = chat_counts(cfg, "int8", True, [(delta_width(t), 0, "pixels" in t)
+                                           for t in turns[:2]])
+    for n in iters:
+        want.update(expected_counts(cfg, "int8", True, 0, n))
+        want[mm] += 7 * L
+        want["int8_decode_attention"] += L
+    assert_counts(f"int8 spec chat session (2 turns, {iters} verify iterations)", got,
+                  want, card)
+    if not all(bool((r.num_generated == CHAT_NEW).all()) for r in results):
+        raise AssertionError("int8 spec chat: an answer is short")
+    same = [tie_rule("int8 spec chat turn 1", results[0].tokens[0].cpu(),
+                     std[0].tokens[0].cpu(), margins[:CHAT_NEW], E2E_TOL_QUANT, card)]
+    # turn 2 from the same history: a standard session whose turn-1 tokens
+    # are forced to the spec session's answers (its decode steps emit them
+    # in place of their own argmax), then its own turn 2, margins recorded
+    forced = iter(results[0].tokens.unbind(-1))
+    ref = CH.ChatSession(params, cfg, batch=B, max_len=S_CHAT, gen=gen,
+                         delta_bucket=CHAT_BUCKET, vq_params=vq_params, vq_cfg=vq_cfg)
+    with mock.patch.object(CH, "sample_tokens", lambda *a, **k: next(forced)):
+        ref.ask(turns[0], max_new_tokens=CHAT_NEW)
+    margins2 = []
+    with logit_margins(CH, margins2, cfg.vocab_size):
+        ref2 = ref.ask(turns[1], max_new_tokens=CHAT_NEW)
+    if ref.used != sess.used:
+        raise AssertionError(f"int8 spec chat: {sess.used} slots used, the standard "
+                             f"session {ref.used}")
+    same.append(tie_rule("int8 spec chat turn 2 (against the standard session with "
+                         "turn 1's answers forced to the spec session's)",
+                         results[1].tokens[0].cpu(), ref2.tokens[0].cpu(),
+                         torch.stack(margins2).cpu(), E2E_TOL_QUANT, card))
+    out = dict(tok_per_iter=[CHAT_NEW / n for n in iters], walls_s=walls,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"int8 spec chat session (gamma {SPEC_GAMMA}): turns of {CHAT_NEW} tokens in "
+          f"{iters} verify iterations ({', '.join(f'{x:.3f}' for x in out['tok_per_iter'])}"
+          f" tokens a row an iteration), walls {[round(w, 3) for w in walls]} s; rows "
+          f"equal to the standard session's throughout, turn 1 and turn 2: {same}; "
+          f"{out['phase_s']:.1f} s [{card}]")
+    return out
+
+
 def chat_thread(card: str, pipe, images, main: Counter) -> None:
     """LibraPipeline.start_chat: a ChatThread of B conversations, three
     turns of THREAD_NEW tokens (turn 1 the pipeline's image prompt, then
@@ -1990,11 +2323,17 @@ def engine_counts(cfg, mode: str, kv_quant: bool, eng, n_prompt: int,
     (group_sizes), with pixels a fused one with the split on, its text
     rows k * (n_prompt - 578); each decode step (n_decode chunks x
     decode_chunk, every slot stepping, idle ones too) a text-only decode
-    step of max_batch rows; each merged iteration (n_merged chunks x _Km)
-    packed_counts' launches."""
+    step of max_batch rows; each spec verify iteration (n_spec chunks x
+    decode_chunk) the same, and lm_head once more for the carried logits;
+    each merged iteration (n_merged chunks x _Km) packed_counts'
+    launches."""
     Mv = cfg.max_vision_token_length
     stats = eng.last_run_stats
-    want = expected_counts(cfg, mode, kv_quant, 0, stats["n_decode"] * eng.decode_chunk)
+    spec_iters = stats["n_spec"] * eng.decode_chunk
+    want = expected_counts(cfg, mode, kv_quant, 0,
+                           stats["n_decode"] * eng.decode_chunk + spec_iters)
+    if MATMUL_KERNEL[mode]:
+        want[MATMUL_KERNEL[mode]] += spec_iters
     for k in stats["group_sizes"]:
         want.update(expected_counts(cfg, mode, False, 1, 0, split_prefills=int(pixels),
                                     text_rows=k * (n_prompt - Mv)))
@@ -2256,7 +2595,11 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
     reqs = [Request(b, ids[:, b], vi[b], max_new_tokens=MAX_NEW, pixels=px[b],
                     img_start=IMG_T) for b in range(B)]
     eng = ServingEngine(params, cfg, max_len=NQ + MAX_NEW, **kw)
-    res, wall = counted("lockstep", eng, NQ, lambda: eng.run(reqs))
+    import libra_tpu_torch.serving as SV
+    margins = []
+    with (logit_margins(SV, margins, cfg.vocab_size) if mode == "int8"
+          else contextlib.nullcontext()):
+        res, wall = counted("lockstep", eng, NQ, lambda: eng.run(reqs))
     want = want_seqs[:, :, NQ:].cpu().numpy()
     equal = [bool(np.array_equal(r.tokens, want[:, b])) for b, r in enumerate(res)]
     print(f"{mode} engine lockstep: {B} pixels requests, one group of k = "
@@ -2266,6 +2609,10 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
     if eng.last_run_stats["group_sizes"] != [B] or not all(equal):
         raise AssertionError(f"{mode} engine lockstep differs from the Generator")
     del eng
+    spec = {}
+    if mode == "int8":
+        spec = spec_engine(card, cfg, params, reqs, res, torch.stack(margins).cpu(), kw,
+                           counted)
 
     # --- 2. the recycling burst ---
     budgets = [ENGINE_CHUNK * (i + 1) for i in range(ENGINE_N)]
@@ -2281,7 +2628,6 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
                                        out=refill)
     # the run keeps each request's first two logits: the prompt pass's from
     # its slot row, the first decode step's from the pool
-    import libra_tpu_torch.serving as SV
     firsts, pending, dispatch = {}, {}, []
     order = iter(range(ENGINE_N))       # one bucket, no arrivals: queue order
 
@@ -2369,8 +2715,45 @@ def engine_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixel
             raise AssertionError("warmup did not run every group size")
     del eng
     out["merged"] = merged_burst(card, cfg, params, mode, pixels, kw, main)
+    out["spec"] = spec
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{mode} engine phase: {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+def spec_engine(card: str, cfg, params, reqs, std, margins, kw: dict, counted) -> dict:
+    """A spec ServingEngine (gen.spec_decode = SPEC_GAMMA; the int8 tree)
+    on the lockstep requests `reqs` against the standard engine's results
+    `std` (its steps' top-2 gaps in `margins`): max_len NQ + MAX_NEW +
+    SPEC_GAMMA (the verify window's margin), every request MAX_NEW tokens
+    held to the standard engine's under the tie rule, launches derived
+    from its schedule (engine_counts, through `counted`), spec chunk
+    STRICT_CHUNK under set_sync_debug_mode("error")."""
+    import numpy as np
+    from libra_tpu_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+    skw = dict(kw, gen=dataclasses.replace(kw["gen"], spec_decode=SPEC_GAMMA))
+    eng = ServingEngine(params, cfg, max_len=NQ + MAX_NEW + SPEC_GAMMA, **skw)
+    eng._spec_decode = nth_call(eng._spec_decode, STRICT_CHUNK, no_sync)
+    res, wall = counted("spec lockstep", eng, NQ, lambda: eng.run(reqs))
+    rs = dict(eng.last_run_stats)
+    if rs["n_spec"] <= STRICT_CHUNK or any(r.tokens.shape[-1] != MAX_NEW for r in res):
+        raise AssertionError(f"int8 spec engine: {rs}, lengths "
+                             f"{[r.tokens.shape[-1] for r in res]}")
+    same = tie_rule("int8 spec engine lockstep",
+                    torch.from_numpy(np.stack([r.tokens[0] for r in res])),
+                    torch.from_numpy(np.stack([r.tokens[0] for r in std])),
+                    margins, E2E_TOL_QUANT, card)
+    out = dict(tok_s=rs["tokens"] / wall, tok_per_iter=rs["tokens"] / rs["active_iters"],
+               chunk_wall_ms=rs["t_spec"] / rs["n_spec"] * 1e3,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"int8 spec engine lockstep (gamma {SPEC_GAMMA}, max_len {eng.S}): {B} "
+          f"requests of {MAX_NEW} tokens in {wall:.3f} s, {out['tok_s']:.3f} tokens/s, "
+          f"{rs['n_spec']} spec chunks of {eng.decode_chunk} iterations "
+          f"({out['chunk_wall_ms']:.3f} ms wall a chunk), {out['tok_per_iter']:.4f} "
+          f"tokens a slot an active iteration; chunk {STRICT_CHUNK} under "
+          f"set_sync_debug_mode('error') passed; rows equal to the standard engine's "
+          f"throughout {same}; last_run_stats {rs}; {out['phase_s']:.1f} s [{card}]")
     return out
 
 
@@ -3217,15 +3600,21 @@ def main() -> int:
                 r[k] == v for k, v in dict(pick, M=M_SPLIT).items()))
             report[name].update({f"rows_{k}": split[k] for k in (
                 "ms", "chunked_ms", "plain_ms", "bound_ms", "library_ms")})
-            # and the merged chunk's packed rows, M = 68, in the main path's
-            # mode (int4: W4A8, which no library call computes)
-            packed = next(r for r in rows if all(r[k] == v for k, v in dict(
-                pick, M=M_PACKED).items()))
-            report[name].update({f"packed_{k}": packed[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms")})
-    # and the chat deltas' wide template: N = 64 at slot 672 of S = 1024
+            # and the merged chunk's packed rows, M = 68, and a spec verify
+            # pass's, M = 16, in the main path's mode (int4: W4A8, which no
+            # library call computes)
+            for key, m in (("packed", M_PACKED), ("verify", M_VERIFY)):
+                row = next(r for r in rows if all(r[k] == v for k, v in dict(
+                    pick, M=m).items()))
+                report[name].update({f"{key}_{k}": row[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")})
+    # and the chat deltas' wide template: N = 64 at slot 672 of S = 1024;
+    # and a spec verify pass's decode template, N = SPEC_GAMMA + 1
+    verify = next(r for r in da if all(r.get(k) == v for k, v in dict(
+        N=SPEC_GAMMA + 1, bridge=True, S=S_DECODE).items()))
     report["int8_decode_attention"].update(
-        {f"chat_{k}": chat_da[0][k] for k in ("ms", "plain_ms", "bound_ms")})
+        {f"chat_{k}": chat_da[0][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{f"verify_{k}": verify[k] for k in ("ms", "bound_ms")})
 
     from libra_tpu_torch.config import LibraConfig, VQGANConfig
     from libra_tpu_torch.models import vqgan
@@ -3241,13 +3630,21 @@ def main() -> int:
           f"{L} layers + lm_head = {7 * L + 1} matmul launches; with the int8 "
           f"cache, {L} decode-attention launches (1 a layer) [{card}]")
     main_counts = Counter()
-    fused, chat, engine = {}, {}, {}
+    fused, chat, engine, spec = {}, {}, {}, {}
     for mode in ("bf16", "int8", "int4"):
-        n_prompt, fused[mode], chat[mode], engine[mode] = full_path(
+        n_prompt, fused[mode], chat[mode], engine[mode], spec[mode] = full_path(
             card, dev, cfg, vq_cfg, vq_params, mode, main_counts)
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
         torch.cuda.empty_cache()
+    print(f"spec summary (gamma {SPEC_GAMMA}; decode tok/s standard, bigram, oracle "
+          "drafts; tokens a row a verify iteration, bigram and oracle; a verify "
+          "iteration's device / wall ms; phase s): " + "; ".join(
+              f"{mode} {v['std_tok_s']:.3f}, {v['bigram']['tok_s']:.3f}, "
+              f"{v['oracle']['tok_s']:.3f}; {v['bigram']['tok_per_iter']:.4f}, "
+              f"{v['oracle']['tok_per_iter']:.4f}; {v['verify_device_ms']:.3f} / "
+              f"{v['verify_wall_ms']:.3f}; {v['phase_s']:.1f}" for mode, v in spec.items())
+          + f" [{card}]")
     print("fused summary (TTFT ms, decode tok/s): " + "; ".join(
         f"{mode} split {k} {v['ttft_ms']:.3f} / {v['tok_s']:.3f}"
         for mode, runs in fused.items() for k, v in runs.items()) + f" [{card}]")

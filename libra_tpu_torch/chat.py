@@ -18,8 +18,16 @@ shared host index advances for all rows, so a turn takes max-over-rows
 slots. Every emitted token runs its forward, the last one and EOS
 included: its K/V must be in the cache for the next turn.
 
-Not ported yet: speculative turns (ROADMAP A8d) and the 2D modes (A10;
-LibraConfig refuses them); a tensor-parallel mesh raises (A13).
+Speculative turns (gen.spec_decode = gamma > 0, greedy text turns only):
+the same delta prefill, then spec_decode.spec_decode_loop against the
+resident cache at per-row indices, drafting from the conversation's
+codebook-0 history (earlier turns included); the final pending token is
+flushed into the cache and the index resyncs to the rows' maximum, one
+host read a turn. The cache holds gamma + 1 slots past max_len for the
+last verify window.
+
+Not ported yet: the 2D modes (A10; LibraConfig refuses them); a
+tensor-parallel mesh raises (A13).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from libra_tpu_torch.generation import (GenerationConfig, _last_position_logits,
                                         sample_tokens)
 from libra_tpu_torch.models import libra as M
 from libra_tpu_torch.ops.qlinear import a8_enabled
+from libra_tpu_torch.spec_decode import spec_decode_loop
 from libra_tpu_torch.training.fused import resolve_attn_impl
 
 
@@ -102,6 +111,62 @@ def _turn_impl(params, cache: M.KVCache, mask_buf, ids, vi, sig, pmask,
     return toks, num_gen, cache, pos_last
 
 
+def _spec_turn_impl(params, cache: M.KVCache, mask_buf, hist, ids, vi, sig,
+                    pmask, pos_last, vq_params=None, pixels=None,
+                    img_start=None, *, cfg: LibraConfig, gen: GenerationConfig,
+                    max_new: int, vq_cfg=None):
+    """A speculative turn: the same delta prefill, then the shared
+    draft/verify loop against the resident cache at PER-ROW indices, then
+    a lockstep resync.
+
+    `hist` (B, S) is the session's codebook-0 token history, carried
+    across turns so the drafter copies from earlier turns too (answers
+    quote the question and earlier answers); written in place. Rows
+    desync inside the loop; at the turn's end the final pending token's
+    K/V is flushed with one per-row step (every emitted token's K/V is in
+    the cache, as in the standard body) and the index resyncs to the
+    rows' maximum (one host read; the gap slots stay masked). Returns
+    (tokens, num_generated, cache, pos_last)."""
+    Q, B, Nb = ids.shape
+    Mv = cfg.max_vision_token_length
+    start = cache.index                                  # host int, lockstep
+    cache, logits, vi_last, pos_last = _delta_prefill(
+        params, cache, mask_buf, ids, vi, sig, pmask, pos_last, vq_params,
+        pixels, img_start, cfg=cfg, gen=gen, vq_cfg=vq_cfg)
+    # the delta's codebook-0 ids (its pad slots stay mask-invalid)
+    M._write_seq(hist, ids[0], start)
+    if max_new == 0:
+        return (ids.new_full((Q, B, 0), gen.pad_token_id),
+                torch.zeros((B,), dtype=torch.int64, device=ids.device),
+                cache, pos_last)
+
+    # text-mode greedy: codebook 0's combined-vocab argmax is the answer
+    pending = torch.argmax(logits[0], dim=-1).to(hist.dtype)       # (B,)
+    P0 = start + Nb                       # the pending token's slot
+    M._write_seq(hist, pending[:, None], P0)
+    P = torch.full((B,), P0, dtype=torch.int64, device=ids.device)
+    res = spec_decode_loop(params, hist, mask_buf, cache._replace(index=P),
+                           pending, pos_last, P, cfg=cfg, gen=gen,
+                           max_new=max_new)
+
+    # flush the final pending token (slot res.P, emitted, K/V absent) so
+    # that later turns attend to it, the EOS </s> separator included
+    xf = res.hist.gather(1, res.P[:, None])                         # (B, 1)
+    M._write_seq(res.mask_buf, torch.ones_like(xf), res.P)
+    outf = M.forward(params, cfg, xf[None].expand(Q, B, 1), res.mask_buf,
+                     torch.full((B, 1), Mv, dtype=torch.int64, device=ids.device),
+                     None, position_ids=res.last_pos[:, None] + 1,
+                     cache=res.cache, lang_only=True)
+    # the lockstep resync: the turn's one host read
+    cache = outf.cache._replace(index=int(res.P.max()) + 1)
+
+    # the turn's tokens: history slots [P0, P0 + max_new), pad past num_gen
+    seq = res.hist[:, P0:P0 + max_new]
+    seq = torch.where(torch.arange(max_new, device=ids.device)[None]
+                      < res.num_gen[:, None], seq, gen.pad_token_id)
+    return seq[None].expand(Q, B, max_new), res.num_gen, cache, res.last_pos + 1
+
+
 class ChatSession:
     """Batched incremental multi-turn generation over one resident cache.
 
@@ -122,12 +187,23 @@ class ChatSession:
                              "(raw-pixels turns need both)")
         self.cfg = cfg
         self.gen = gen or GenerationConfig()
+        if self.gen.spec_decode:
+            if self.gen.do_sample:
+                raise ValueError("speculative chat turns are greedy-only "
+                                 "(as Generator spec decode)")
+            if self.gen.decode_modality == "dual":
+                raise ValueError("spec_decode needs text-mode decode; "
+                                 "decode_modality='dual' never drafts from history")
         self.B = batch
         self.delta_bucket = max(delta_bucket, 1)
-        # libra_tpu's length: an int8 cache rounded up to 128 slots (its TPU
-        # kernel's gate), so the same turn runs out of slots in both; every
-        # slot is the conversation's (spec turns, A8d, reserve a margin)
-        self.S = -(-max_len // 128) * 128 if self.gen.kv_quant else max_len
+        # spec turns write up to gamma + 1 slots past a row's budget: the
+        # cache holds that margin past the conversation's slots. libra_tpu's
+        # length: an int8 cache rounded up to 128 slots (its TPU kernel's
+        # gate), so the same turn runs out of slots in both
+        extra = int(self.gen.spec_decode) + 1 if self.gen.spec_decode else 0
+        self.S = (-(-(max_len + extra) // 128) * 128 if self.gen.kv_quant
+                  else max_len + extra)
+        self._cap = self.S - extra      # the conversation's usable slots
         self.params = params
         self.vq_params = vq_params
         self.vq_cfg = vq_cfg
@@ -137,7 +213,8 @@ class ChatSession:
     # -- state -------------------------------------------------------------
 
     def reset(self) -> None:
-        """A fresh conversation: zeroed cache and mask, positions at -1."""
+        """A fresh conversation: zeroed cache and mask, positions at -1; a
+        spec session's token history zeroed."""
         with torch.inference_mode():
             self._cache = M.init_cache(self.cfg, self.B, self.S, device=self.device,
                                        quantized=self.gen.kv_quant)
@@ -145,6 +222,11 @@ class ChatSession:
                                          device=self.device)
             self._pos_last = torch.full((self.B,), -1, dtype=torch.int64,
                                         device=self.device)
+            # spec sessions carry the codebook-0 token history, so that the
+            # drafter copies from earlier turns
+            self._hist = (torch.zeros((self.B, self.S), dtype=torch.int64,
+                                      device=self.device)
+                          if self.gen.spec_decode else None)
 
     @property
     def used(self) -> int:
@@ -162,8 +244,10 @@ class ChatSession:
         and img_start (B,) for a raw-pixels turn, one image block a row.
         max_new_tokens=0 is a prefill-only turn. generator: the
         torch.Generator to sample from (one seeded with the used slots when
-        sampling without one). Returns the turn's tokens; the cache
-        advances in place."""
+        sampling without one). A spec session (gen.spec_decode) runs the
+        turn's decode as draft+verify iterations (_spec_turn_impl); a turn
+        whose delta ends inside an image block raises there. Returns the
+        turn's tokens; the cache advances in place."""
         cfg, gen, dev = self.cfg, self.gen, self.device
         Mv = cfg.max_vision_token_length
         max_new = gen.max_new_tokens if max_new_tokens is None else max_new_tokens
@@ -199,10 +283,10 @@ class ChatSession:
             if img_start is not None:
                 img_start = img_start + pad
         Nb = Nd + pad
-        if self.used + Nb + max_new > self.S:
+        if self.used + Nb + max_new > self._cap:
             raise ValueError(
                 f"turn needs {Nb}+{max_new} slots but only "
-                f"{self.S - self.used} of {self.S} remain; raise "
+                f"{self._cap - self.used} of {self._cap} remain; raise "
                 f"max_len or reset() the session")
 
         # the language-only decode body when every delta ends in text; a
@@ -212,6 +296,19 @@ class ChatSession:
             raise ValueError("decode_modality='text' needs deltas ending in text")
         lang_only = (ends_in_text if gen.decode_modality == "auto"
                      else gen.decode_modality == "text")
+        if gen.spec_decode:
+            if not lang_only:
+                raise ValueError(
+                    "a spec_decode session decodes text only; this turn "
+                    "resolved decode_modality='dual' (delta ends inside an "
+                    "image block): use a non-spec session for t2i turns")
+            with torch.inference_mode():
+                toks, num_gen, self._cache, self._pos_last = _spec_turn_impl(
+                    self.params, self._cache, self._mask_buf, self._hist, ids,
+                    vi, sig, pm, self._pos_last, self.vq_params, pixels,
+                    img_start, cfg=cfg, gen=gen, max_new=max_new,
+                    vq_cfg=self.vq_cfg)
+            return TurnResult(tokens=toks, num_generated=num_gen)
         if gen.do_sample and generator is None:
             generator = torch.Generator(device=dev).manual_seed(self.used)
         with torch.inference_mode():

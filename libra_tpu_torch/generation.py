@@ -7,6 +7,8 @@ forcing and vision-index auto-increment, the int8 KV cache (``kv_quant``)
 and the w8a8 prompt pass (``a8_prefill``), with a Python loop in place of
 ``lax.while_loop``. The loop stops once every row has finished and skips
 the forward after the last token it needs. Prompts must be LEFT-padded.
+With ``spec_decode`` = gamma > 0 (greedy text decode only) the loop is
+``spec_decode.py``'s: bigram drafts verified gamma + 1 tokens a forward.
 
 Given raw ``pixels`` and ``img_start`` (a Generator built with the
 tokenizer's ``vq_params``), the prompt pass runs CLIP + LFQ on the device,
@@ -53,6 +55,15 @@ class GenerationConfig:
     #   N positions. Exact: the routing merge discards the language
     #   outputs at vision positions. Off in addition_mode (the language
     #   path is needed everywhere).
+    spec_decode: int = 0  # gamma > 0 enables n-gram (prompt-lookup)
+    #   speculative decoding: each decode iteration drafts `gamma` tokens
+    #   by bigram lookup over the already-generated history (on the
+    #   device), verifies them in ONE (gamma+1)-token cached forward, and
+    #   emits the accepted prefix + the model's own next token: >= 1 token
+    #   an iteration for about one step's weight traffic. EXACT: every
+    #   emitted token is the model's greedy argmax. Requires greedy
+    #   (do_sample=False) and a text-mode decode (resolved
+    #   decode_modality == "text"); see libra_tpu_torch/spec_decode.py.
     decode_modality: str = "auto"  # "auto" | "text" | "dual": "text"
     #   decodes through the language path only (exact for prompts that end
     #   in text); "auto" resolves per call from the prompts' last tokens
@@ -94,6 +105,8 @@ def sample_tokens(logits: torch.Tensor, gen: GenerationConfig,
 class GenerateResult(NamedTuple):
     sequences: torch.Tensor      # (Q, B, prompt_len + max_new_tokens)
     num_generated: torch.Tensor  # (B,) tokens generated incl. EOS
+    iterations: Optional[torch.Tensor] = None  # decode-loop iterations
+    #   (spec decode only: tokens / iteration - 1 is the acceptance rate)
 
 
 def _last_position_logits(params, cfg: LibraConfig, hidden: torch.Tensor,
@@ -166,7 +179,7 @@ def fuse_pixels(cfg: LibraConfig, gen: GenerationConfig, vq_params, vq_cfg,
 
 class PrefillState(NamedTuple):
     tokens: torch.Tensor     # (Q, B, S) prompt written at [:, :, :N]
-    mask_buf: torch.Tensor   # (B, S)
+    mask_buf: torch.Tensor   # (B, S + extra_cache)
     cache: M.KVCache         # index == N
     logits: torch.Tensor     # (Q, B, Vc) last-prompt-position logits
     vi_last: torch.Tensor    # (B,)
@@ -176,10 +189,12 @@ class PrefillState(NamedTuple):
 def _prefill(params, input_ids, attention_mask, vision_indices,
              contiguous_signal, vq_params=None, pixels=None, img_start=None,
              *, cfg: LibraConfig, gen: GenerationConfig,
-             vq_cfg=None) -> PrefillState:
+             vq_cfg=None, extra_cache: int = 0) -> PrefillState:
     """The prompt pass: with pixels, the image encode (CLIP + LFQ) and its
     ids and signal rows written at img_start, all on the device; cache
-    init (N + max_new_tokens slots, int8 with gen.kv_quant); the prompt
+    init (N + max_new_tokens + extra_cache slots, int8 with gen.kv_quant:
+    spec decode's verify block may probe up to gamma slots past the
+    budget, so it asks for gamma + 1 more); the prompt
     forward (attention by gen.attn_impl, w8a8 with gen.a8_prefill, the
     language projections on the text rows with pixels and
     gen.split_prefill); last-position logits (weight-only). JAX rounds an
@@ -193,8 +208,9 @@ def _prefill(params, input_ids, attention_mask, vision_indices,
     if pixels is not None:
         input_ids, contiguous_signal, text_span = fuse_pixels(
             cfg, gen, vq_params, vq_cfg, input_ids, pixels, img_start)
-    cache = M.init_cache(cfg, B, S, device=device, quantized=gen.kv_quant)
-    mask_buf = torch.zeros((B, S), dtype=torch.int64, device=device)
+    Sc = S + extra_cache
+    cache = M.init_cache(cfg, B, Sc, device=device, quantized=gen.kv_quant)
+    mask_buf = torch.zeros((B, Sc), dtype=torch.int64, device=device)
     mask_buf[:, :N] = attention_mask
     pos = M.position_ids_from_mask(attention_mask)
     with a8_enabled(gen.a8_prefill):
@@ -302,9 +318,19 @@ class Generator:
                     sig = torch.cat([sig.new_zeros((B, pad, sig.shape[-1])), sig], 1)
                 if img_start is not None:
                     img_start = img_start + pad
+        impl = _generate_impl
+        if gen.spec_decode > 0:
+            if gen.do_sample or gen.decode_modality != "text":
+                raise ValueError(
+                    "spec_decode requires greedy decoding and a text-mode "
+                    "decode (resolved decode_modality == 'text'); got "
+                    f"do_sample={gen.do_sample!r}, "
+                    f"decode_modality={gen.decode_modality!r}")
+            from libra_tpu_torch.spec_decode import _spec_generate_impl
+            impl = _spec_generate_impl
         if gen.do_sample and generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         with torch.inference_mode():
-            return _generate_impl(self.params, ids, mask, vi, sig, generator,
+            return impl(self.params, ids, mask, vi, sig, generator,
                                   self.vq_params, pixels, img_start,
                                   cfg=self.cfg, gen=gen, vq_cfg=self.vq_cfg)

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over a recycling slot pool.
 
 The PyTorch counterpart of ``libra_tpu/serving.py``'s ``ServingEngine``,
-dedicated and merged chunked prefill included (speculative decode, the
+dedicated and merged chunked prefill and speculative decode included (the
 tensor-parallel mesh and the 2D modes are later slices). A fixed pool of
 ``max_batch`` slots, each owning an INDEPENDENT timeline of the pooled KV
 cache: the cache's index is a (B,) tensor of per-slot write offsets on
@@ -25,6 +25,12 @@ Three device phases, driven by a host scheduler:
     carried tensor on the device (inactive slots masked, per-slot budgets
     decremented there), and ONE host readback of the chunk's tokens and
     active flags at its end: nothing inside the chunk syncs.
+  * ``_spec_decode`` (``gen.spec_decode`` = gamma > 0, greedy text
+    streams): in place of ``_decode``, ``decode_chunk`` draft+verify
+    iterations, each slot emitting its pending token and the accepted
+    prefix of gamma bigram drafts from its own token history (1 to
+    gamma + 1 tokens), one (gamma + 1)-token forward an iteration; the
+    same single readback, of the emitted tokens and counts.
   * ``_merged`` (merged chunked prefill): when exactly one slot frees while
     the pool is busy, the next request's prompt is not prefilled in a pass
     that stalls every decoding slot. ``_install`` writes it into per-slot
@@ -76,6 +82,7 @@ from libra_tpu_torch.ops.norm import rms_norm
 from libra_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from libra_tpu_torch.ops.routed import routed_linear, routed_low_rank, select_by_flag
 from libra_tpu_torch.quantization import QuantizedArray
+from libra_tpu_torch.spec_decode import _bigram_drafts, _update_window
 
 
 @dataclass
@@ -111,6 +118,8 @@ class SlotState(NamedTuple):
     logits: torch.Tensor      # (Q, B, Vc) next-token logits
     vi_last: torch.Tensor     # (B,) vision index of the last token
     pos_last: torch.Tensor    # (B,) position of the last token
+    hist: Optional[torch.Tensor] = None   # (B, S) codebook-0 token history
+    #   (spec decode's drafting; None without spec decode)
 
 
 class PromptBuffers(NamedTuple):
@@ -159,11 +168,11 @@ class ServingEngine:
         padding inside the slot), so prompt passes come in few shapes.
         decode_chunk: decode steps between two host readbacks.
         vq_params/vq_cfg enable raw-pixels requests (fused encode).
-        merged_prefill: None = on where supported (the cache holds a
-        merged_chunk margin: max_len >= 2 * merged_chunk), as in
-        libra_tpu; True forces it (raising where unsupported); False
-        disables it. merged_chunk: the prompt tokens C each merged
-        iteration consumes. max_prefill_group caps the grouped refill's k.
+        merged_prefill: None = on where supported (no spec decode, and
+        the cache holds a merged_chunk margin: max_len >= 2 *
+        merged_chunk), as in libra_tpu; True forces it (raising where
+        unsupported); False disables it. merged_chunk: the prompt tokens
+        C each merged iteration consumes. max_prefill_group caps the grouped refill's k.
         The pool's length is max_len (libra_tpu rounds an int8 cache's up
         to 128 for its TPU kernel; the port's kernel needs no rounding),
         so merged_prefill=None resolves as libra_tpu's does wherever the
@@ -209,9 +218,20 @@ class ServingEngine:
                            if n_iters % d == 0)
         else:
             self._Km = self.decode_chunk
-        # libra_tpu's rule; the port has no spec decode and no 2D modes
-        # (config.py refuses them), so only the margin decides
-        supported = self._Np >= self._C
+        # speculative decoding (gen.spec_decode = gamma > 0): the decode
+        # chunk becomes draft+verify iterations emitting up to gamma + 1
+        # tokens a slot an iteration, with the Generator's restrictions
+        # (greedy, text-resolved streams)
+        self._gamma = int(self.gen.spec_decode or 0)
+        if self._gamma:
+            if self.gen.do_sample:
+                raise ValueError("spec_decode requires greedy decoding")
+            if self.gen.decode_modality == "dual":
+                raise ValueError("spec_decode is text-mode only (decode_modality "
+                                 "'text' or 'auto' over an all-text stream)")
+        # libra_tpu's rule; the port has no 2D modes (config.py refuses
+        # them), so spec decode and the margin decide
+        supported = self._gamma == 0 and self._Np >= self._C
         if merged_prefill and not supported:
             raise ValueError(
                 "merged_prefill needs spec_decode == 0, 1d prediction, "
@@ -236,7 +256,9 @@ class ServingEngine:
                                device=dev),
             vi_last=torch.full((B,), cfg.max_vision_token_length,
                                dtype=torch.int64, device=dev),
-            pos_last=torch.zeros((B,), dtype=torch.int64, device=dev))
+            pos_last=torch.zeros((B,), dtype=torch.int64, device=dev),
+            hist=(torch.zeros((B, S), dtype=torch.int64, device=dev)
+                  if self._gamma else None))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device: on the card through pinned
@@ -284,6 +306,10 @@ class ServingEngine:
         state.logits[:, slots] = st.logits
         state.vi_last[slots] = st.vi_last
         state.pos_last[slots] = st.last_pos
+        if state.hist is not None:
+            # codebook-0 token history for the drafter (the fused ids with
+            # pixels; the bucket's pad slots carry mask 0, never drafted)
+            state.hist[slots, :N] = st.tokens[0, :, :N]
         return state
 
     def _decode(self, state: SlotState, flags: torch.Tensor, lang_only: bool,
@@ -298,7 +324,7 @@ class ServingEngine:
         its active flags; the new state). Nothing here reads the device on
         the host: the caller's readback of `out` is the chunk's one sync."""
         cfg, gen, params = self.cfg, self.gen, self.params
-        cache, mask, logits, vi_last, pos_last = state
+        cache, mask, logits, vi_last, pos_last, hist = state
         active, budget = flags[0].bool(), flags[1]
         toks, acts = [], []
         for _ in range(self.decode_chunk):
@@ -315,7 +341,87 @@ class ServingEngine:
             acts.append(active)
             active = active_next
         out = torch.cat([torch.stack(toks), torch.stack(acts)[:, None].long()], 1)
-        return out, SlotState(cache, mask, logits, vi_last, pos_last)
+        return out, SlotState(cache, mask, logits, vi_last, pos_last, hist)
+
+    def _spec_decode(self, state: SlotState, flags: torch.Tensor):
+        """The speculative decode chunk: `decode_chunk` draft+verify
+        iterations. Each iteration, per slot: the PENDING token (the
+        argmax of the carried logits: known, its K/V not yet cached) is
+        emitted, gamma bigram drafts are taken from the slot's own token
+        history (spec_decode._bigram_drafts), and ONE (gamma+1)-token
+        cached forward verifies them; the accepted prefix is emitted too,
+        so an active slot emits 1 to gamma + 1 tokens an iteration.
+        Exactness: every emitted token is the model's own greedy argmax.
+
+        Unlike spec_decode._spec_generate_impl, the bonus token is not
+        emitted in the iteration that computes it: it becomes the next
+        iteration's pending through the carried logits, so refills need
+        no special case. Inactive slots run the verify on garbage confined
+        to their own rows (cnt = 0 puts their mask window back to zeros),
+        as in the standard chunk. flags: (2, B) int64 on the device, the
+        active flags and budgets. Returns (out (K, B, gamma + 2) int64 on
+        the device: each iteration's block of pending + drafts, then its
+        count of emitted tokens; the new state). Nothing here reads the
+        device on the host: the caller's readback of `out` is the chunk's
+        one sync."""
+        cfg, gen, params = self.cfg, self.gen, self.params
+        gamma, K = self._gamma, self._gamma + 1
+        Q, Mv = cfg.vision_codebook_num, cfg.max_vision_token_length
+        cache, mask, logits, vi_last, pos_last, hist = state
+        active, budget = flags[0].bool(), flags[1]
+        B, S = mask.shape
+        dev = mask.device
+        idx, ar = torch.arange(S, device=dev), torch.arange(K, device=dev)[None]
+        ones = torch.ones((K,), dtype=mask.dtype, device=dev)
+        vi_blk = torch.full((B, K), Mv, dtype=torch.int64, device=dev)
+        text_flag = torch.zeros((B,), dtype=torch.bool, device=dev)
+        text_vi = torch.full((B,), Mv, dtype=torch.int64, device=dev)
+        outs = []
+        for _ in range(self.decode_chunk):
+            P = cache.index                                           # (B,)
+            pending = torch.argmax(logits[0], dim=-1)
+            pending = torch.where(active, pending, gen.pad_token_id)
+            # pending at slot P, for the bigram matcher
+            _update_window(hist, pending[:, None], P, active[:, None])
+            valid = (mask > 0) | (idx[None] == P[:, None])
+            drafts = _bigram_drafts(hist, valid, P, pending, gamma)
+            x = torch.cat([pending[:, None], drafts], dim=1)          # (B, K)
+
+            # one (gamma+1)-token verify forward at per-row windows
+            _update_window(mask, ones, P)
+            out = M.forward(params, cfg, x[None].expand(Q, B, K), mask, vi_blk,
+                            None, position_ids=pos_last[:, None] + 1 + ar,
+                            cache=cache, lang_only=True)
+            c = torch.argmax(M.compute_text_logits(params, out.hidden_states), dim=-1)
+
+            # the accepted draft prefix; the emitted block is pending + it
+            ok = drafts == c[:, :gamma]
+            a = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+            eos_in = (x == gen.eos_token_id) & (ar <= a[:, None])
+            any_eos = eos_in.any(dim=1)
+            first_eos = eos_in.long().argmax(dim=1)
+            cnt = torch.where(any_eos, first_eos + 1, a + 1)
+            cnt = torch.minimum(cnt, budget)
+            cnt = torch.where(active, cnt, 0)
+            budget = budget - cnt
+            active = active & ~(any_eos & (first_eos < cnt)) & (budget > 0)
+
+            # the emitted tokens into the history; exactly cnt cached slots
+            keep = ar < cnt[:, None]
+            _update_window(hist, x, P, keep)
+            _update_window(mask, keep.to(mask.dtype), P)
+            cache = out.cache._replace(index=P + cnt)
+            pos_last = pos_last + cnt
+
+            # the next pending rides the carried logits: the verify output
+            # at the last kept position predicts the token after the
+            # accepted prefix (the bonus when nothing truncated)
+            h_sel = out.hidden_states.gather(1, (cnt - 1).clamp_min(0)[:, None, None]
+                                             .expand(B, 1, out.hidden_states.shape[-1]))
+            logits = _last_position_logits(params, cfg, h_sel, text_flag, text_vi,
+                                           lang_only=True)
+            outs.append(torch.cat([x, cnt[:, None]], dim=1))
+        return torch.stack(outs), SlotState(cache, mask, logits, vi_last, pos_last, hist)
 
     def _init_prompts(self) -> PromptBuffers:
         cfg, B, Np, dev = self.cfg, self.B, self._Np, self.device
@@ -440,7 +546,7 @@ class ServingEngine:
         prompt buffers are only read."""
         cfg, gen, params, B, C, Np = self.cfg, self.gen, self.params, self.B, self._C, self._Np
         Q, Mv = cfg.vision_codebook_num, cfg.max_vision_token_length
-        cache, mask, last_logits, vi_last, pos_last = state
+        cache, mask, last_logits, vi_last, pos_last, hist = state
         S, T, dev = mask.shape[1], B + C, mask.device
         active, budget = flags[0].bool(), flags[1]
         pf, pf_off, pf_len, pf_budget = flags[2].bool(), flags[3], flags[4], flags[5]
@@ -527,7 +633,7 @@ class ServingEngine:
             pf = pf & ~(rowsel & pf_done)
             park_off = torch.where(pf_done, off + C, park_off)
         out = torch.cat([torch.stack(toks), torch.stack(acts)[:, None].long()], 1)
-        return out, SlotState(cache, mask, last_logits, vi_last, pos_last)
+        return out, SlotState(cache, mask, last_logits, vi_last, pos_last, hist)
 
     def warmup(self, example: Request, max_new: Optional[int] = None):
         """Run `example`-shaped synthetic requests through run() in the
@@ -577,13 +683,14 @@ class ServingEngine:
         on the request's final event.
 
         last_run_stats: host wall time per branch (t_decode, t_merged,
-        t_prefill, t_install, t_sleep; the device time of a prefill or an
-        install lands on the next readback), counts (n_decode and n_merged
-        chunks, n_prefill passes, n_install installs, iters = decode and
-        merged iterations, active_iters = active slot-iterations, tokens =
-        tokens emitted), the group size of each prefill (group_sizes), and
-        libra_tpu's spec keys, which stay 0 here."""
-        cfg, gen, B, S = self.cfg, self.gen, self.B, self.S
+        t_spec, t_prefill, t_install, t_sleep; the device time of a prefill
+        or an install lands on the next readback), counts (n_decode,
+        n_merged and n_spec chunks, n_prefill passes, n_install installs,
+        iters = decode, merged and spec iterations, active_iters = active
+        slot-iterations (in a spec chunk those that emitted), tokens =
+        tokens emitted), and the group size of each prefill
+        (group_sizes)."""
+        cfg, gen, B, S, gamma = self.cfg, self.gen, self.B, self.S, self._gamma
         Q, Mv = cfg.vision_codebook_num, cfg.max_vision_token_length
         tails_text = [np.asarray(r.vision_indices)[-1] >= Mv for r in requests]
         if gen.decode_modality == "text":
@@ -597,6 +704,9 @@ class ServingEngine:
         # in text, this run's decode can be the exact lang-only body
         lang_only = (gen.decode_modality == "text"
                      or (gen.decode_modality == "auto" and all(tails_text)))
+        if self._gamma and not lang_only:
+            raise ValueError("spec_decode is text-mode only: this stream carries "
+                             "a request ending inside an image block")
         # validate up front: raising from inside the scheduling loop would
         # discard every already-completed Result
         for r in requests:
@@ -699,7 +809,7 @@ class ServingEngine:
             for r in queue[:n_arrived()]:
                 if n >= 2 * B:
                     break
-                if bucketed(r.input_ids.shape[-1]) + r.max_new_tokens > S:
+                if bucketed(r.input_ids.shape[-1]) + r.max_new_tokens + gamma > S:
                     continue    # try_fill rejects it; copy nothing
                 if r.request_id not in staged:
                     staged[r.request_id] = stage(r)
@@ -721,7 +831,9 @@ class ServingEngine:
                 na = n_arrived()
                 while na:
                     req = queue[0]
-                    if bucketed(req.input_ids.shape[-1]) + req.max_new_tokens <= S:
+                    # spec decode needs a gamma-slot margin: the last verify
+                    # window writes K/V at [P, P + gamma + 1)
+                    if bucketed(req.input_ids.shape[-1]) + req.max_new_tokens + gamma <= S:
                         break
                     # can never fit a slot: reject up front
                     queue.pop(0)
@@ -769,7 +881,7 @@ class ServingEngine:
                             or (r.pixels is not None) != has_px
                             # mixed image resolutions must not share a pass
                             or (has_px and r.pixels.shape != head.pixels.shape)
-                            or Nb + r.max_new_tokens > S):
+                            or Nb + r.max_new_tokens + gamma > S):
                         break
                     group.append(r)
                 k = max(g for g in self._group_sizes if g <= len(group))
@@ -875,6 +987,30 @@ class ServingEngine:
                                                - (slot_req[slot].arrival_s or 0.0))
                         emit_token(slot, toks_np[k, :, slot])
                 try_fill(limit=1 if (active.any() or pf_active.any()) else None)
+                continue
+            if gamma:
+                t_br = time.perf_counter()
+                flags = self._to_device(np.stack([active, budget]).astype(np.int64))
+                out, state = self._spec_decode(state, flags)
+                prestage()
+                out = out.cpu().numpy()       # (K, B, gamma + 2): the one read
+                t_now = time.perf_counter()
+                toks_np, cnts_np = out[..., :gamma + 1], out[..., gamma + 1]
+                rs["t_spec"] += t_now - t_br
+                rs["n_spec"] += 1
+                rs["iters"] += cnts_np.shape[0]
+                rs["active_iters"] += int((cnts_np > 0).sum())
+                for slot in range(B):
+                    for k in range(cnts_np.shape[0]):
+                        for j in range(int(cnts_np[k, slot]) if active[slot] else 0):
+                            if slot_ttft[slot] is None:
+                                slot_ttft[slot] = (t_now - t0
+                                                   - (slot_req[slot].arrival_s or 0.0))
+                            # text tokens are the same on every codebook
+                            emit_token(slot, np.full((Q,), toks_np[k, slot, j], np.int64))
+                            if not active[slot]:
+                                break
+                try_fill(limit=1 if active.any() else None)
                 continue
             t_br = time.perf_counter()
             flags = self._to_device(np.stack([active, budget]).astype(np.int64))

@@ -10,10 +10,11 @@ int4 + kv8 (head dim 128), so the quantized trees' decode steps and their
 deltas of at most 64 rows in multiples of 8 take the int8 decode
 attention's branch (its plain version here).
 
-Mirrors tests/test_chat_session.py less its speculative cases (ROADMAP
-A8d) and its 2D-RoPE case (A10). The port has no jit cache, so a turn's
-delta width and decode body are read from a wrapper on models/libra's
-forward.
+Mirrors tests/test_chat_session.py, its speculative cases included
+(spec turns held to JAX's spec session, to the port's plain session and
+to JAX's Generator over the history), less its 2D-RoPE case (A10). The
+port has no jit cache, so a turn's delta width and decode body are read
+from a wrapper on models/libra's forward.
 """
 
 import functools
@@ -46,12 +47,13 @@ ALL = list(TREES)
 KV8 = ["int8", "int4"]
 
 
-def _gen_kw(tree, eos=-1):
-    return dict(eos_token_id=eos, **TREES[tree][2])
+def _gen_kw(tree, eos=-1, spec=0):
+    return dict(eos_token_id=eos, spec_decode=spec, **TREES[tree][2])
 
 
-def _sessions(tree, B, max_len=128, delta_bucket=4, eos=-1, pixels=False):
-    """JAX's and the port's ChatSession on one tree."""
+def _sessions(tree, B, max_len=128, delta_bucket=4, eos=-1, pixels=False, spec=0):
+    """JAX's and the port's ChatSession on one tree (spec > 0: spec turns
+    at gamma = spec)."""
     cfg, jcfg, np_tree, params = _setup(tree)
     kw, tkw = {}, {}
     if pixels:
@@ -60,10 +62,10 @@ def _sessions(tree, B, max_len=128, delta_bucket=4, eos=-1, pixels=False):
         tkw = dict(vq_params=from_numpy_tree(vq_tree, device="cpu"),
                    vq_cfg=VQGANConfig.tiny())
     js = JChatSession(np_tree, jcfg, batch=B, max_len=max_len,
-                      gen=jgen.GenerationConfig(**_gen_kw(tree, eos)),
+                      gen=jgen.GenerationConfig(**_gen_kw(tree, eos, spec)),
                       delta_bucket=delta_bucket, **kw)
     ts = ChatSession(params, cfg, batch=B, max_len=max_len,
-                     gen=tgen.GenerationConfig(**_gen_kw(tree, eos)),
+                     gen=tgen.GenerationConfig(**_gen_kw(tree, eos, spec)),
                      delta_bucket=delta_bucket, **tkw)
     return js, ts
 
@@ -316,6 +318,86 @@ def test_prefill_only_turn(tree):
     t2 = _text_delta(jcfg, B, 3, seed=11)
     tok2, _ = _ask(js, ts, t2, 4)
     np.testing.assert_array_equal(tok2, _history_tokens(tree, [t1, t2], [], 4))
+
+
+@pytest.mark.parametrize("tree", ALL)
+def test_spec_session_matches_full_reprefill(tree, forwards):
+    """Spec turns (per-row acceptance inside the resident cache): each
+    turn's tokens, num_generated and used slots equal JAX's spec session,
+    the tokens equal the port's plain session, and turn 2's equal JAX's
+    Generator over the token history. Each turn is one delta pass, verify
+    passes of gamma + 1 rows and the flush step of one row."""
+    cfg, jcfg = _setup(tree)[:2]
+    B, max_new, gamma = 2, 6, 3
+    js, ts = _sessions(tree, B, spec=gamma)
+    plain = _sessions(tree, B)[1]
+    assert ts.S == js.S and ts._cap == js._cap
+    t1 = _turn1_inputs(jcfg, B)
+    a1 = _ask(js, ts, t1, max_new)
+    N1 = t1["input_ids"].shape[-1]
+    Nb1 = N1 + (-N1) % 4
+    assert forwards[0] == (Nb1, False) and forwards[-1] == (1, True)
+    assert set(forwards[1:-1]) == {(gamma + 1, True)}
+    forwards.clear()
+    p1 = plain.ask(t1, max_new_tokens=max_new)
+    np.testing.assert_array_equal(a1[0], p1.tokens.numpy())
+    np.testing.assert_array_equal(a1[1], p1.num_generated.numpy())
+
+    t2 = _text_delta(jcfg, B, 5, seed=9)
+    a2 = _ask(js, ts, t2, max_new)
+    np.testing.assert_array_equal(a2[0], plain.ask(t2, max_new_tokens=max_new).tokens.numpy())
+    np.testing.assert_array_equal(
+        a2[0], _history_tokens(tree, [t1, _left_pad(cfg, t2, 4)], [a1], max_new))
+
+
+@pytest.mark.parametrize("tree", ALL)
+def test_spec_session_eos(tree):
+    """A spec row stopping at EOS on its first token freezes as the
+    lockstep body does; the EOS stays visible to turn 2, which matches JAX's
+    spec session and JAX's Generator over the history (int8 and int4: the
+    verify passes at N = 3 through the decode-attention branch)."""
+    _, jcfg, np_tree, _ = _setup(tree)
+    t1 = _turn1_inputs(jcfg, 1, seed=3)
+    first = int(np.asarray(jgen.Generator(np_tree, jcfg)(t1, jgen.GenerationConfig(
+        max_new_tokens=1, **_gen_kw(tree))).sequences)[0, 0, -1])
+    js, ts = _sessions(tree, 1, delta_bucket=1, eos=first, spec=2)
+    tok1, num1 = _ask(js, ts, t1, 4)
+    assert int(num1[0]) == 1 and int(tok1[0, 0, 0]) == first
+    # the flush step wrote the EOS token's K/V: turn 2 starts after it
+    assert ts.used == t1["input_ids"].shape[-1] + 1
+
+    t2 = _text_delta(jcfg, 1, 3, seed=11)
+    tok2, num2 = _ask(js, ts, t2, 4)
+    want = _history_tokens(tree, [t1, t2], [(tok1[:, :, :1], np.ones((1,), np.int32))],
+                           4, eos=first)
+    n = int(num2[0])
+    np.testing.assert_array_equal(tok2[:, :, :n], want[:, :, :n])
+
+
+@pytest.mark.parametrize("tree", ["plain", "int8"])
+def test_spec_session_guards(tree):
+    """Spec sessions are greedy text-only in both packages: sampling and
+    an explicit dual decode raise at construction, a turn whose delta ends
+    at BOI (resolving to dual) raises at ask(). The margin: gamma + 1
+    slots past max_len, an int8 cache's S rounded up to 128 over them."""
+    cfg, jcfg, np_tree, params = _setup(tree)
+    for kw in (dict(do_sample=True), dict(decode_modality="dual")):
+        gkw = dict(_gen_kw(tree, spec=2), **kw)
+        with pytest.raises(ValueError, match="greedy" if "do_sample" in kw else "dual"):
+            JChatSession(np_tree, jcfg, batch=1, max_len=64,
+                         gen=jgen.GenerationConfig(**gkw))
+        with pytest.raises(ValueError, match="greedy" if "do_sample" in kw else "dual"):
+            ChatSession(params, cfg, batch=1, max_len=64,
+                        gen=tgen.GenerationConfig(**gkw))
+    js, ts = _sessions(tree, 1, max_len=64, delta_bucket=1, spec=2)
+    assert (ts.S, ts._cap) == (js.S, js._cap) == ((128, 125) if TREES[tree][2].get(
+        "kv_quant") else (67, 64))
+    t = _text_delta(jcfg, 1, 3, seed=0)
+    t["input_ids"][:, :, -1] = cfg.vocab_size + 1
+    t["vision_indices"][:, -1] = 0                # the delta ends at BOI
+    for s in (js, ts):
+        with pytest.raises(ValueError, match="dual"):
+            s.ask(t, max_new_tokens=2)
 
 
 @pytest.mark.parametrize("add_bos", [True, False])

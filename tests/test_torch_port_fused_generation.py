@@ -252,10 +252,8 @@ def test_attn_impl(monkeypatch):
 
 def test_generation_config_fields_match_jax():
     """The port's GenerationConfig has JAX's fields in JAX's order with
-    JAX's defaults, less spec_decode (prompt-lookup decoding, not ported
-    yet)."""
-    want = [(f.name, f.default) for f in dataclasses.fields(jgen.GenerationConfig)
-            if f.name != "spec_decode"]
+    JAX's defaults, all of them."""
+    want = [(f.name, f.default) for f in dataclasses.fields(jgen.GenerationConfig)]
     got = [(f.name, f.default) for f in dataclasses.fields(tgen.GenerationConfig)]
     assert got == want
 

@@ -25,10 +25,11 @@ from libra_tpu import generation as jgen
 from libra_tpu import serving as jserving
 from libra_tpu.models import libra as JM
 from libra_tpu.quantization import QuantizedArray as JQuantizedArray
+from libra_tpu_torch import generation as tgen
 from libra_tpu_torch.config import VQGANConfig
 from libra_tpu_torch.models import libra as TM
 from libra_tpu_torch.quantization import QuantizedArray
-from libra_tpu_torch.serving import PromptBuffers, Request, SlotState
+from libra_tpu_torch.serving import PromptBuffers, Request, ServingEngine, SlotState
 from tests.test_torch_port_serving import (_check_parity, _engine, _gen, _host_read,
                                            _jax_tree, _requests, _setup, _vq_tree,
                                            _want)
@@ -393,9 +394,9 @@ def test_engine_merged_prefill_eos_and_streaming():
 def test_engine_merged_fallback_when_bucket_incompatible():
     """Requests whose bucket is not a multiple of C keep the dedicated
     prefill (bucket 4, C = 8: Nb in {12, 16, 20}, only 16 is eligible).
-    libra_tpu's case also refuses merged_prefill=True with spec decode,
-    which the port has not yet (ROADMAP A8d); that ValueError waits for
-    it. test_engine_unported_options_raise holds the margin's."""
+    As in libra_tpu's case, merged_prefill=True with spec decode raises
+    ValueError in both packages (and None resolves off there).
+    test_engine_unported_options_raise holds the margin's."""
     cfg = _setup("plain")[0]
     reqs = _requests(cfg, 4)
     kw = dict(MERGED, max_len=64, prompt_bucket=4)
@@ -404,6 +405,18 @@ def test_engine_merged_fallback_when_bucket_incompatible():
     assert eng.stats["dedicated_prefills"] > 1, eng.stats
     _check_parity("plain", results, reqs)
     _check_jax_engine("plain", eng, results, reqs, **kw)
+    _, jcfg, np_tree, params = _setup("plain")
+    with pytest.raises(ValueError):
+        jserving.ServingEngine(np_tree, jcfg, max_batch=2, max_len=64,
+                               gen=jgen.GenerationConfig(eos_token_id=-1, spec_decode=2),
+                               merged_prefill=True)
+    with pytest.raises(ValueError, match="spec_decode == 0"):
+        ServingEngine(params, cfg, max_batch=2, max_len=64,
+                      gen=tgen.GenerationConfig(eos_token_id=-1, spec_decode=2),
+                      merged_prefill=True)
+    spec = ServingEngine(params, cfg, max_batch=2, max_len=64, merged_chunk=8,
+                         gen=tgen.GenerationConfig(eos_token_id=-1, spec_decode=2))
+    assert not spec._merged_on
 
 
 def test_engine_merged_mixed_with_pixels_fallback():

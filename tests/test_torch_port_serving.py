@@ -612,3 +612,159 @@ def _host_read(name):
     def read(self, *args, **kwargs):
         raise AssertionError(f"Tensor.{name} inside a decode chunk")
     return read
+
+
+# -- speculative decode -----------------------------------------------------
+
+
+def _spec_engines(tree, gamma, eos=-1, **kw):
+    """The port's standard and spec engines and JAX's spec engine on one
+    tree (text decode), with each spec chunk's counts recorded: the
+    port's from its (K, B, gamma + 2) readback, JAX's from its cnts."""
+    _, jcfg, np_tree, _ = _setup(tree)
+    gkw = dict(_gen(tree), eos_token_id=eos, decode_modality="text")
+    std = _engine(tree, gen=gkw, **kw)
+    spec = _engine(tree, gen=dict(gkw, spec_decode=gamma), **kw)
+    jspec_eng = jserving.ServingEngine(np_tree, jcfg,
+                                       gen=jgen.GenerationConfig(**gkw, spec_decode=gamma),
+                                       merged_prefill=False, **kw)
+    counts = {"port": [], "jax": []}
+    port_chunk = spec._spec_decode
+
+    def port_record(*a, **k):
+        out, state = port_chunk(*a, **k)
+        counts["port"].append(out[..., gamma + 1].clone())
+        return out, state
+    spec._spec_decode = port_record
+    jax_fn = jspec_eng._spec_decode()
+
+    def jax_record(*a, **k):
+        out = jax_fn(*a, **k)
+        counts["jax"].append(np.asarray(out[1]))
+        return out
+    jspec_eng._spec_decode = lambda: jax_record
+    return std, spec, jspec_eng, counts
+
+
+def _check_spec_run(std, spec, jspec_eng, counts, reqs):
+    """The spec engine's tokens and finish reasons equal the standard
+    engine's and JAX's spec engine's; every chunk's counts and the run
+    stats equal JAX's."""
+    r_std, r_spec, want = std.run(reqs), spec.run(reqs), jspec_eng.run(reqs)
+    assert [r.request_id for r in r_spec] == [r.request_id for r in reqs]
+    for a, b, w in zip(r_std, r_spec, want):
+        np.testing.assert_array_equal(b.tokens, a.tokens, err_msg=f"request {a.request_id}")
+        np.testing.assert_array_equal(b.tokens, np.asarray(w.tokens))
+        assert b.finish_reason == a.finish_reason == w.finish_reason
+    assert len(counts["port"]) == len(counts["jax"]) > 0
+    for got, w in zip(counts["port"], counts["jax"]):
+        np.testing.assert_array_equal(got.numpy(), w)
+    rs, jrs = spec.last_run_stats, jspec_eng.last_run_stats
+    for key in ("n_spec", "n_decode", "n_prefill", "iters", "active_iters"):
+        assert rs[key] == jrs[key], (key, rs[key], jrs[key])
+    assert rs["n_spec"] > 0 and rs["n_decode"] == 0
+    assert rs["tokens"] == sum(r.tokens.shape[-1] for r in r_spec)
+    return r_spec
+
+
+@pytest.mark.parametrize("tree", list(TREES))
+def test_engine_spec_decode_matches_standard(tree):
+    """gen.spec_decode = 2 turns the decode chunk into draft+verify
+    iterations: through slot refills (the slots' token-history rows are
+    rewritten at each refill) the tokens equal the standard engine's,
+    JAX's spec engine's and JAX's Generator's on each request alone; the
+    chunks' counts equal JAX's. The int8 and int4 trees' verify passes
+    take the decode-attention branch at N = 3 (its plain version here)."""
+    cfg = _setup(tree)[0]
+    reqs = _requests(cfg, 4, max_new=6)
+    engines = _spec_engines(tree, 2, max_batch=2, max_len=128)
+    results = _check_spec_run(*engines, reqs)
+    _check_parity(tree, results, reqs)
+
+
+def test_engine_spec_decode_eos():
+    """EOS inside an accepted block truncates exactly where the standard
+    engine stops (the device's count truncation equals the host's
+    replay), at gamma 3."""
+    cfg = _setup("plain")[0]
+    reqs = _requests(cfg, 2, max_new=8)
+    eos = int(_want("plain", reqs[0])[0, 3])      # a token the model emits
+    engines = _spec_engines("plain", 3, eos=eos, max_batch=2, max_len=128)
+    results = _check_spec_run(*engines, reqs)
+    assert results[0].finish_reason == "eos" and results[0].tokens.shape[-1] == 4
+
+
+def test_engine_spec_decode_int8_kv():
+    """Spec decode over the int8 head-major cache on the plain tree's
+    config (head dim 32: the dequantized-cache branch), per-slot quantized
+    K/V written at vector indices, gamma 2."""
+    cfg = _setup("plain")[0]
+    reqs = _requests(cfg, 4, max_new=5)
+    _, jcfg, np_tree, params = _setup("plain")
+    gkw = dict(eos_token_id=-1, decode_modality="text", kv_quant=True)
+    kw = dict(max_batch=2, max_len=128)
+    std = ServingEngine(params, cfg, gen=tgen.GenerationConfig(**gkw), **kw)
+    spec = ServingEngine(params, cfg, gen=tgen.GenerationConfig(**gkw, spec_decode=2), **kw)
+    want = jserving.ServingEngine(np_tree, jcfg, gen=jgen.GenerationConfig(
+        **gkw, spec_decode=2), **kw).run(reqs)
+    for a, b, w in zip(std.run(reqs), spec.run(reqs), want):
+        np.testing.assert_array_equal(b.tokens, a.tokens)
+        np.testing.assert_array_equal(b.tokens, np.asarray(w.tokens))
+
+
+def test_engine_spec_decode_rejects_non_text():
+    """Greedy text-mode only, as in libra_tpu: sampling and a dual decode
+    raise at construction; an 'auto' stream ending inside an image block
+    raises up front. The capacity margin: a request fits only if bucket +
+    max_new_tokens + gamma <= max_len."""
+    cfg = _setup("plain")[0]
+    Mv = cfg.max_vision_token_length
+    base = dict(eos_token_id=-1, spec_decode=2)
+    with pytest.raises(ValueError, match="greedy"):
+        _engine("plain", gen=dict(base, do_sample=True, temperature=1.0),
+                max_batch=1, max_len=64)
+    with pytest.raises(ValueError, match="text-mode"):
+        _engine("plain", gen=dict(base, decode_modality="dual"), max_batch=1, max_len=64)
+    with pytest.raises(ValueError, match="spec_decode == 0"):
+        _engine("plain", gen=base, max_batch=1, max_len=128, merged_prefill=True)
+    eng = _engine("plain", gen=base, max_batch=1, max_len=128)
+    assert not eng._merged_on
+    N = 5
+    ids = np.ones((cfg.vision_codebook_num, N), np.int64)
+    vi = np.full((N,), Mv, np.int64)
+    vi[-1] = 2                        # ends inside an image block
+    with pytest.raises(ValueError, match="text-mode"):
+        eng.run([Request(0, ids, vi, max_new_tokens=2)])
+    req = _requests(cfg, 1)[0]
+    n = req.input_ids.shape[-1]
+    for max_new, reason in ((128 - n - 2, "length"), (128 - n - 1, "capacity")):
+        req.max_new_tokens = max_new
+        res = eng.run([req])[0]
+        assert res.finish_reason == reason
+        assert res.tokens.shape[-1] == (max_new if reason == "length" else 0)
+
+
+def test_spec_chunk_reads_nothing_on_the_host(monkeypatch):
+    """A spec chunk (the int8 tree: verify passes through the decode
+    kernel's branch) reads no device value on the host: every
+    tensor-to-host conversion raises while it runs. On the card,
+    chip_smoke.py runs one under torch.cuda.set_sync_debug_mode("error")."""
+    cfg = _setup("int8")[0]
+    reqs = _requests(cfg, 2, max_new=6)
+    eng = _engine("int8", gen=_gen("int8", spec_decode=3, decode_modality="text"),
+                  max_batch=2, max_len=64, decode_chunk=2)
+    chunk, shapes = eng._spec_decode, []
+
+    def guarded(*args, **kwargs):
+        with monkeypatch.context() as m:
+            for name in ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
+                         "__float__", "__index__"):
+                m.setattr(torch.Tensor, name, _host_read(name))
+            out = chunk(*args, **kwargs)
+        shapes.append(out[0].shape)
+        return out
+
+    eng._spec_decode = guarded
+    results = eng.run(reqs)
+    assert shapes and all(s == (2, 2, 5) for s in shapes)
+    _check_parity("int8", results, reqs)
