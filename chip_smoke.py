@@ -139,16 +139,40 @@ Phases, in order; any failure exits non-zero:
    on the int8 tree, ServingEngine.warmup once. Then the merged burst: the
    same 8 requests pre-encoded (the image block's ids and signal rows
    from CLIP + LFQ, so 640 % 64 == 0 makes them merged-eligible), the
-   engine at merged_chunk 64 with merged_prefill resolving on: run once
-   with one merged chunk profiled, then beside the same burst with
-   merged_prefill=False, then again with equal tokens, installs and
-   merged chunks > 0, every request on its budget, launch counts derived
-   from the run's schedule (each packed iteration's matmuls at M = 68),
-   one merged chunk under set_sync_debug_mode("error"); TTFT p50 / p95 of
+   engine at merged_chunk 64 with merged_prefill resolving on: a warm-up
+   run until the first installed request's first token with one merged
+   chunk profiled, then beside the same burst with merged_prefill=False,
+   then again with the warm-up's tokens equal, installs and merged
+   chunks > 0, every request on its budget, launch counts derived from
+   the run's schedule (each packed iteration's matmuls at M = 68), one
+   merged chunk under set_sync_debug_mode("error"); TTFT p50 / p95 of
    the installed requests and tokens/s each way; on two layers at full
-   width each installed request's first two logits against the same run
-   with the plain versions (and, bf16, against merged_prefill=False with
-   the prompt pass's attention plain, as the chunk segment's is).
+   width each installed request's first two logits bit for bit those of
+   a second merged run, and against the same run with the plain
+   versions (and, bf16, against merged_prefill=False with the prompt
+   pass's attention plain, as the chunk segment's is). Then
+   each tree's HTTP server (libra_tpu_torch.serve: ServeApp + make_server
+   on a localhost port, the engine phase's settings, max_batch 4, bucket
+   128, max_len 768): /healthz, a malformed body (400), then at once four
+   POSTs to /v1/generate (two text prompts, two with an image's pixels as
+   JSON) and one server-sent-event stream, 16 tokens each; every answer
+   the decode of its request's tokens in the scheduler's waves, the
+   stream's deltas adding up to its text, each wave replayed through
+   ServingEngine.run with equal tokens and equal launches; B1 launched,
+   and B2 / B5 and B3 in the quantized trees; requests/s and TTFT p50
+   from each request's send (smoke figures of five requests).
+6c. checkpoint loading, once in bf16: a reference-layout checkpoint of
+   libra-11b at full width cut to 2 layers written to a temporary dir
+   (config.json, the decoder's state dict in two pytorch_model-*.bin
+   shards, vqgan.ckpt with the quant and post-quant convs, the conv
+   decoder at the default VQGANConfig and a loss.* key, the nested CLIP
+   ViT-L/14-336 dir; no YAML) from seeded, noised trees on the card by
+   the script's inverse mappings; loaded through the helper
+   LibraPipeline.from_pretrained calls: every leaf bit for bit its
+   source (the decoder bf16, CLIP and VQGAN fp32); a ServeApp over the
+   loaded trees answers a text and a pixels request, tokens equal to an
+   engine's over the source trees (CLIP and VQGAN widened to fp32); load
+   time and bytes.
 7. the training path: the fused pretrain step (CLIP + LFQ tokenizing inside
    the step, frozen-language AdamW, remat), libra-11b at full width cut to
    4 layers, B=8, N=120+578=698 (bench.py's train-step proxy), for remat
@@ -172,7 +196,7 @@ Phases, in order; any failure exits non-zero:
    shape; then the experiment's entry point,
    libra_tpu_torch.tools.exp_int4.main([]), all 21 rows.
 
-Each phase-6, phase-7 and phase-8 run sets every kernel's launch count
+Each phase-6, 6c, phase-7 and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
 kernel report as JSON, with the launches summed over those runs and each
 kernel's bound (bytes over HBM's 3.35 TB/s or operations over the dense
@@ -198,6 +222,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -1478,7 +1503,8 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
                          torch.stack(images), seqs, fused["on"]["ttft_ms"], main)
     spec["phase_s"] += chat.get("spec", {}).get("phase_s", 0) + engine.get(
         "spec", {}).get("phase_s", 0)
-    return N, fused, chat, engine, spec
+    serve = serve_path(card, cfg, vq_cfg, pipe, mode, images, main)
+    return N, fused, chat, engine, spec, serve
 
 
 # ---------------------------------------------------------------------------
@@ -2460,7 +2486,8 @@ def rel_l2(a, b) -> float:
 
 
 class FirstStep(Exception):
-    """Ends a Generator run once burst_parity holds what it checks."""
+    """Ends a run once its caller holds what it checks (burst_parity's
+    Generator run, merged_burst's warm-up)."""
 
 
 def burst_parity(card: str, cfg, params, vq_cfg, vq_params, mode: str, reqs, results,
@@ -2868,14 +2895,19 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
     while the others decode, the next prompt is installed and rides the
     merged chunks, 64 tokens an iteration (_Km = 2 iterations a chunk, the
     largest divisor of 128 / 64 within 8).
-      1. warm-up run, one merged chunk profiled (device and wall ms);
+      1. warm-up: the merged run until the first installed request's
+         first token (FirstStep), merged chunk 1 profiled (device and wall
+         ms), the tokens emitted until then kept;
       2. the same burst with merged_prefill=False (k = 1 refills);
-      3. the merged run again: tokens equal to run 1, installs and merged
-         chunks > 0, every request its budget with "length", launches as
-         derived from the run's schedule (engine_counts), merged chunk
-         STRICT_MERGED under set_sync_debug_mode("error");
+      3. the merged run again: every token of the warm-up equal at full
+         depth (the prefill group, the decode chunks, the first install's
+         merged chunks), installs and merged chunks > 0, every request its
+         budget with "length", launches as derived from the run's
+         schedule (engine_counts), merged chunk STRICT_MERGED under
+         set_sync_debug_mode("error");
       4. two layers at full width, decode chunks of one step (PARITY_
-         BUDGETS): each installed request's first two logits within
+         BUDGETS): the merged run twice, each installed request's first
+         two logits equal bit for bit (the two-run check), and within
          E2E_TOL (E2E_TOL_QUANT) of the same merged run with the plain
          versions and, in bf16, of merged_prefill=False with the prompt
          pass's attention plain, as the chunk segment's is (libra_tpu's
@@ -2927,21 +2959,37 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
     if not (eng._merged_on and eng._Np == ENGINE_MAX_LEN - ENGINE_C and eng._Km == km):
         raise AssertionError(f"merged prefill: on {eng._merged_on}, Np {eng._Np}, "
                              f"Km {eng._Km}")
-    # --- 1. warm-up, one merged chunk profiled (every chunk has one shape:
-    # _Km iterations of M_PACKED rows; profiling all of them costs seconds
-    # each in the profiler's bookkeeping) ---
-    chunk = {}
+    # --- 1. warm-up: the merged run until the first installed request's
+    # first token, merged chunk 1 profiled (every chunk has one shape: _Km
+    # iterations of M_PACKED rows; profiling costs seconds a chunk in the
+    # profiler's bookkeeping), the tokens emitted until then kept ---
+    chunk, early, warm_installed = {}, {}, []
     profile = functools.partial(profiled, card, f"{mode} merged chunk ({eng._Km} "
                                 f"iterations of T = {M_PACKED} packed rows, "
                                 f"{cfg.num_hidden_layers} layers)", out=chunk)
-    with mock.patch.object(eng, "_merged", nth_call(eng._merged, 1, profile)):
-        t = time.perf_counter()
-        first = eng.run(reqs)
-        t_first = time.perf_counter() - t
-    check_run(f"{mode} merged burst (warm-up)", eng, first, True)
-    print(f"{mode} merged burst warm-up: {t_first:.3f} s; the profiled merged chunk "
-          f"{chunk['device_ms']:.3f} ms device ({chunk['device_ms'] / eng._Km:.3f} ms an "
-          f"iteration), {chunk['wall_ms']:.3f} ms wall [{card}]")
+
+    def keep(rid, tok, reason):
+        early.setdefault(rid, []).append(np.asarray(tok).copy())
+        if rid in warm_installed:
+            raise FirstStep
+    t = time.perf_counter()
+    with dispatch_order(eng, ENGINE_N, warm_installed), \
+            mock.patch.object(eng, "_merged", nth_call(eng._merged, 1, profile)):
+        try:
+            eng.run(reqs, on_token=keep)
+            raise AssertionError(f"{mode} merged burst warm-up: no installed request "
+                                 f"emitted a token")
+        except FirstStep:
+            pass
+    t_first = time.perf_counter() - t
+    if "device_ms" not in chunk:
+        raise AssertionError(f"{mode} merged burst warm-up: no merged chunk profiled")
+    n_early = sum(len(v) for v in early.values())
+    print(f"{mode} merged burst warm-up, until installed request {warm_installed[0]}'s "
+          f"first token: {t_first:.3f} s, {n_early} tokens of requests {sorted(early)}; "
+          f"the profiled merged chunk {chunk['device_ms']:.3f} ms device "
+          f"({chunk['device_ms'] / eng._Km:.3f} ms an iteration), {chunk['wall_ms']:.3f} "
+          f"ms wall [{card}]")
 
     # --- 2. the same burst, dedicated prefill ---
     ded = engine(params, cfg, False)
@@ -2950,16 +2998,21 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
     ded_rs = dict(ded.last_run_stats)
     del ded
 
-    # --- 3. merged again: counted, one chunk with no sync allowed ---
+    # --- 3. merged again: counted, one chunk with no sync allowed; every
+    # token the warm-up emitted equal ---
     installed = []
     with dispatch_order(eng, ENGINE_N, installed), \
             mock.patch.object(eng, "_merged", nth_call(eng._merged, STRICT_MERGED, no_sync)):
         second, wall = counted(f"{mode} engine merged burst", eng, lambda: eng.run(reqs),
                                True)
     rs = dict(eng.last_run_stats)
-    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(first, second))
-    if not same:
-        raise AssertionError(f"{mode} merged burst: two runs gave different tokens")
+    by_id = {r.request_id: r for r in second}
+    if warm_installed != installed[:len(warm_installed)] or not all(
+            np.array_equal(np.stack(toks, -1), by_id[rid].tokens[:, :len(toks)])
+            for rid, toks in early.items()):
+        raise AssertionError(f"{mode} merged burst: the counted run parted from the "
+                             f"warm-up's {n_early} tokens (installs {warm_installed} then "
+                             f"{installed})")
     if rs["n_install"] != len(installed) or not installed:
         raise AssertionError(f"{mode} merged burst: installs {installed}, stats {rs}")
     del eng
@@ -2976,11 +3029,11 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
                tok_s=rs["tokens"] / wall, ded_tok_s=ded_rs["tokens"] / ded_wall)
     print(f"{mode} merged burst: {ENGINE_N} pre-encoded requests, budgets {budgets}, "
           f"bucket {ENGINE_BUCKET} (N = {n_bucket}), max_len {ENGINE_MAX_LEN}, "
-          f"merged_chunk {ENGINE_C}: tokens equal to the warm-up run's, merged chunk "
+          f"merged_chunk {ENGINE_C}: the warm-up's {n_early} tokens equal, merged chunk "
           f"{STRICT_MERGED} under set_sync_debug_mode('error') passed; installed "
           f"requests {installed} ({out['install_wall_ms']:.3f} ms wall an install), "
           f"{rs['n_merged']} merged chunks ({out['chunk_wall_ms']:.3f} ms wall each, "
-          f"{out['chunk_device_ms']:.3f} ms device in the profiled run), "
+          f"{out['chunk_device_ms']:.3f} ms device in the warm-up's profile), "
           f"{rs['n_decode']} decode chunks, prefill groups {rs['group_sizes']}; "
           f"{wall:.3f} s, {out['tok_s']:.3f} generated tokens/s, installed requests' "
           f"TTFT p50 {out['ttft_ms'][0]:.3f} ms, p95 {out['ttft_ms'][1]:.3f} ms; "
@@ -2991,13 +3044,15 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
           f"{out['ded_ttft_ms'][0]:.3f} ms, p95 {out['ded_ttft_ms'][1]:.3f} ms; tokens "
           f"equal to the merged run's: {agree:.4f} of them [{card}]")
 
-    # --- 4. two layers at full width: kernels vs plain, merged vs dedicated ---
+    # --- 4. two layers at full width: merged twice, kernels vs plain,
+    # merged vs dedicated ---
     small_cfg = cfg.replace(num_hidden_layers=2)
     small = decoder_params(small_cfg, pixels.device, mode)
     parity = [dataclasses.replace(r, max_new_tokens=b)
               for r, b in zip(reqs, PARITY_BUDGETS)]
     two = []                                    # the installed requests
     got = first_logits(engine(small, small_cfg, None, 1), parity, two)
+    again = first_logits(engine(small, small_cfg, None, 1), parity)
     with plain_kernels():
         want = first_logits(engine(small, small_cfg, None, 1), parity)
     ded_l = first_logits(engine(small, small_cfg, False, 1), parity)
@@ -3015,7 +3070,8 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
         return {i: [round(rel_l2(a, b), 6) for a, b in zip(got[i], ref[i])] for i in two}
     vs_plain, vs_ded, vs_ded_plain = dist(want), dist(ded_l), dist(ded_plain)
     print(f"{mode} merged burst, 2 layers at full width, budgets {list(PARITY_BUDGETS)}: "
-          f"installed requests' (prompt end, first decode step) logits, relative L2 "
+          f"installed requests' (prompt end, first decode step) logits bit for bit "
+          f"those of a second merged run; relative L2 "
           f"against the plain versions {vs_plain} (tol {tol}); against "
           f"merged_prefill=False {vs_ded}, and with the prompt pass's attention plain "
           f"{vs_ded_plain}" + (f" (tol {tol} on the latter: the former also has fp32 "
@@ -3024,6 +3080,9 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
                                " (not bounded: the kernels at M = 68 against the dense "
                                "route at M = 640 compute another function)")
           + f" [{card}]")
+    if not all(torch.equal(a, b) for i in two for a, b in zip(got[i], again[i])):
+        raise AssertionError(f"{mode} merged 2-layer run: two runs of one schedule "
+                             "gave different logits")
     if any(len(got[i]) != 2 for i in two) or not all(v < tol for i in two
                                                        for v in vs_plain[i]):
         raise AssertionError(f"{mode} merged 2-layer logits differ from the plain "
@@ -3129,6 +3188,510 @@ def _tensors(tree):
         yield from (tree.packed, tree.scale)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# HTTP serving (serve.py) and checkpoint loading (checkpoint.py)
+# ---------------------------------------------------------------------------
+
+SERVE_NEW = 16                                # tokens a served request asks for
+SERVE_POSTS = 4                               # concurrent POSTs, then one SSE stream
+CKPT_LAYERS = 2                               # the checkpoint phase's depth
+CLIP_DIR = "openai-clip-vit-large-patch14-336"
+
+
+def recorded_waves(app, starts: Optional[dict] = None) -> list:
+    """Patch app.engine.run on the instance (the scheduler thread reads it
+    at each wave) so that each wave's requests and results are kept;
+    `starts` receives each request's wave start (perf_counter)."""
+    waves = []
+    run = app.engine.run
+
+    def wrapped(requests, on_token=None):
+        if starts is not None:
+            starts.update((r.request_id, time.perf_counter()) for r in requests)
+        results = run(requests, on_token=on_token)
+        waves.append((list(requests), results))
+        return results
+    app.engine.run = wrapped
+    return waves
+
+
+def replay_waves(label: str, app, waves, card: str) -> Counter:
+    """Each served wave again through ServingEngine.run: the same requests
+    in the same composition, so the same schedule (prefill groups, merged
+    chunks, decode chunks) on the same engine. Every request's tokens and
+    finish reason must equal the served ones exactly: a replay repeats
+    every reduction in its order, so no near tie can flip (tie_rule is for
+    runs that change the order). Returns the replay's launches."""
+    import numpy as np
+    run = type(app.engine).run.__get__(app.engine)      # the unpatched run
+    zero_counts()
+    for i, (reqs, served) in enumerate(waves):
+        again = run(reqs)
+        for a, b in zip(served, again):
+            if (a.request_id, a.finish_reason) != (b.request_id, b.finish_reason) \
+                    or not np.array_equal(a.tokens, b.tokens):
+                diff = np.nonzero(a.tokens[0][:b.tokens.shape[-1]]
+                                  != b.tokens[0][:a.tokens.shape[-1]])[0]
+                raise AssertionError(
+                    f"{label}: wave {i} request {a.request_id}: served {a.finish_reason} "
+                    f"{a.tokens[0].tolist()}, ServingEngine.run {b.finish_reason} "
+                    f"{b.tokens[0].tolist()} (first difference at {diff[:1].tolist()})")
+    torch.cuda.synchronize()
+    return read_counts()
+
+
+def http(url: str, body: Optional[bytes] = None, stream: bool = False, timeout=900):
+    """A GET (no body) or a JSON POST to the app's server: (status, parsed
+    reply, seconds to the first server-sent event or None); a stream's
+    reply is its list of events."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            if not stream:
+                return r.status, json.loads(r.read()), None
+            if r.headers["Content-Type"] != "text/event-stream":
+                raise AssertionError(f"stream Content-Type {r.headers['Content-Type']}")
+            events, first = [], None
+            for line in r:
+                if line.startswith(b"data: "):
+                    first = first if first is not None else time.perf_counter() - t0
+                    events.append(json.loads(line[len(b"data: "):]))
+            return r.status, events, first
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), None
+
+
+def serve_path(card: str, cfg, vq_cfg, pipe, mode: str, images, main: Counter) -> dict:
+    """libra_tpu_torch.serve over this tree (`pipe`, full_path's pipeline,
+    full width and depth; the quantized trees with the engine phase's
+    kv_quant, a8_prefill and text decode): ServeApp + make_server on a
+    free localhost port, then GET /healthz, a malformed body (400), and
+    at once SERVE_POSTS POSTs to /v1/generate (two text prompts, two with
+    the pixels of two of the images, CLIP-normalized, as JSON) and one
+    SSE stream, SERVE_NEW tokens each. Each answer's text must be the
+    decode of its request's tokens in the engine's results (the waves the
+    scheduler ran, recorded), the stream's deltas must add up to its final
+    text, and each wave replayed through ServingEngine.run must give the
+    same tokens and the same launches (replay_waves). Launches counted
+    over the traffic: B1 in every tree, B2 / B5 and B3 in the quantized
+    ones. Returns requests/s, TTFT p50 from each request's send (its
+    wave's start plus the engine's ttft_s, less the time its POST was
+    sent, on this process's clock), the stream's first event and the
+    phase's seconds. Five requests in two or three waves: smoke figures,
+    not a serving metric."""
+    from libra_tpu_torch.serve import ServeApp, make_server
+    from libra_tpu_torch.training.fused import maybe_normalize_pixels
+    t_phase = time.perf_counter()
+    quant = mode != "bf16"
+    qkw = dict(kv_quant=True, a8_prefill=True, decode_modality="text") if quant else {}
+    app = ServeApp(pipe, max_batch=B, max_len=ENGINE_MAX_LEN, prompt_bucket=ENGINE_BUCKET,
+                   decode_chunk=ENGINE_CHUNK, max_new_default=SERVE_NEW, **qkw)
+    starts = {}
+    waves = recorded_waves(app, starts)
+    srv = make_server(app, "127.0.0.1", 0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    pixels = [maybe_normalize_pixels(vq_cfg, im).cpu().numpy().tolist() for im in images[:2]]
+    payloads = [{"prompt": QUESTIONS[0]}, {"prompt": QUESTIONS[1], "pixels": pixels[0]},
+                {"prompt": QUESTIONS[2]}, {"prompt": QUESTIONS[3], "pixels": pixels[1]},
+                {"prompt": FOLLOW_UPS[0][0], "stream": True}]
+    bodies = [json.dumps(dict(p, max_new_tokens=SERVE_NEW)).encode() for p in payloads]
+    replies, sent = [None] * len(bodies), [None] * len(bodies)
+
+    def post(i):
+        sent[i] = time.perf_counter()
+        try:
+            replies[i] = http(url + "/v1/generate", bodies[i], stream=i == SERVE_POSTS)
+        except Exception as e:            # noqa: BLE001 -- reported below
+            replies[i] = (None, repr(e), None)
+
+    try:
+        health = http(url + "/healthz")
+        bad = http(url + "/v1/generate", b"{not json")
+        zero_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        got = read_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        app.close()
+    main.update(got)
+    if health[0] != 200 or health[1].get("ok") is not True:
+        raise AssertionError(f"{mode} serve /healthz: {health}")
+    if bad[0] != 400:
+        raise AssertionError(f"{mode} serve malformed body: {bad[0]} {bad[1]}, expected 400")
+    failed = [(i, r[:2]) for i, r in enumerate(replies) if r[0] != 200]
+    if failed:
+        raise AssertionError(f"{mode} serve: requests failed {failed}")
+    results = {r.request_id: r for _, res in waves for r in res}
+    post_ids = [replies[i][1]["id"] for i in range(SERVE_POSTS)]
+    stream_ids = sorted(set(results) - set(post_ids))
+    if len(results) != len(bodies) or len(stream_ids) != 1:
+        raise AssertionError(f"{mode} serve: engine results {sorted(results)} for POSTs "
+                             f"{post_ids} and one stream")
+    for i, rid in enumerate(post_ids):
+        ans, res = replies[i][1], results[rid]
+        if (ans["text"], ans["finish_reason"]) != (app.text(res), res.finish_reason):
+            raise AssertionError(f"{mode} serve: request {rid} answered {ans}, the engine "
+                                 f"gave {res.finish_reason} {res.tokens[0].tolist()}")
+    events, first_event = replies[SERVE_POSTS][1:]
+    res = results[stream_ids[0]]
+    final = events[-1]
+    if (final.get("finish_reason") != res.finish_reason
+            or final["text"] != app.text(res)
+            or "".join(e.get("delta", "") for e in events[:-1]) != final["text"]):
+        raise AssertionError(f"{mode} serve: stream events {events} against the engine's "
+                             f"{res.finish_reason} {res.tokens[0].tolist()}")
+    if any(r.tokens.shape[-1] > SERVE_NEW or r.finish_reason not in ("eos", "length")
+           for r in results.values()):
+        raise AssertionError(f"{mode} serve: finish "
+                             f"{[(r.finish_reason, r.tokens.shape) for r in results.values()]}")
+    want = {"flash_bridged_attention"} | ({MATMUL_KERNEL[mode], "int8_decode_attention"}
+                                          if quant else set())
+    if not all(got[k] > 0 for k in want):
+        raise AssertionError(f"{mode} serve: launches {dict(got)}; each of {sorted(want)} "
+                             "must launch")
+    again = replay_waves(f"{mode} serve replay", app, waves, card)
+    if again != got:
+        raise AssertionError(f"{mode} serve: the replay launched {dict(again)}, the served "
+                             f"waves {dict(got)}")
+    sent_at = dict(zip(post_ids + stream_ids, sent))
+    ttft = [(starts[rid] + r.ttft_s - sent_at[rid]) * 1e3 for rid, r in results.items()
+            if r.ttft_s is not None]
+    out = dict(req_s=len(bodies) / wall, ttft_p50_ms=statistics.median(ttft),
+               first_event_ms=first_event * 1e3, wall_s=wall,
+               waves=[[r.request_id for r in reqs] for reqs, _ in waves],
+               phase_s=time.perf_counter() - t_phase)
+    print(f"{mode} serve: /healthz {health[1]}, malformed body {bad[0]}; {SERVE_POSTS} POSTs "
+          f"(2 text, 2 pixels) and one SSE stream at once, {SERVE_NEW} tokens each, in "
+          f"{wall:.3f} s: {out['req_s']:.4f} requests/s, TTFT p50 {out['ttft_p50_ms']:.3f} ms "
+          f"(from each request's send: its wave's start + the engine's ttft_s), the "
+          f"stream's first event at "
+          f"{out['first_event_ms']:.3f} ms from its POST; waves {out['waves']}; answers equal "
+          f"to the engine's results, the replay's tokens and launches equal to the served "
+          f"waves'; launches {dict(got)}; {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+def noised(tree, g: torch.Generator):
+    """A copy of a parameter tree with N(0, 0.02) added to every leaf (in
+    its dtype), so that no two leaves a mapping could swap are equal
+    (zero biases, unit norm scales)."""
+    if isinstance(tree, dict):
+        return {k: noised(v, g) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [noised(v, g) for v in tree]
+    return tree + (torch.randn(tree.shape, generator=g, device=tree.device) * 0.02).to(tree.dtype)
+
+
+def vq_decoder_tree(vq_cfg, g: torch.Generator, dtype) -> dict:
+    """Seeded post_quant_conv and conv decoder at vq_cfg's shapes, in the
+    port's layout (HWIO convs), walking the ported decoder_plan."""
+    from libra_tpu_torch.models.vqgan import decoder_plan
+    dev = g.device
+
+    def randn(*shape, std=0.02):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    def conv(k, cin, cout):
+        return {"w": randn(k, k, cin, cout, std=(k * k * cin) ** -0.5), "b": randn(cout)}
+
+    def gn(c):
+        return {"scale": 1 + randn(c), "bias": randn(c)}
+
+    def resnet(cin, cout):
+        p = {"norm1": gn(cin), "conv1": conv(3, cin, cout), "norm2": gn(cout),
+             "conv2": conv(3, cout, cout)}
+        if cin != cout:
+            p["nin_shortcut"] = conv(1, cin, cout)
+        return p
+
+    def attn(c):
+        return {"norm": gn(c), **{n: conv(1, c, c) for n in ("q", "k", "v", "proj_out")}}
+
+    levels, final = decoder_plan(vq_cfg)
+    mid = vq_cfg.ch * vq_cfg.ch_mult[-1]
+    dec = {"conv_in": conv(3, vq_cfg.z_channels, mid), "mid_block_1": resnet(mid, mid),
+           "mid_attn_1": attn(mid), "mid_block_2": resnet(mid, mid), "norm_out": gn(final),
+           "conv_out": conv(3, final, vq_cfg.out_ch), "up": []}
+    if vq_cfg.norm_first:
+        dec["first_norm"] = gn(vq_cfg.z_channels)
+    for lev in levels:
+        cin, entry = lev["block_in"], {"block": [], "attn": []}
+        for _ in range(vq_cfg.num_res_blocks + 1):
+            entry["block"].append(resnet(cin, lev["block_out"]))
+            cin = lev["block_out"]
+            if lev["has_attn"]:
+                entry["attn"].append(attn(cin))
+        if lev["up_scale"] is not None:
+            entry["upsample_conv"] = conv(3, cin, cin)
+        dec["up"].append(entry)
+    return {"post_quant_conv": conv(1, vq_cfg.embed_dim, vq_cfg.z_channels), "decoder": dec}
+
+
+def host(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous CPU copy of t (a view saves alone, not its storage)."""
+    return t.detach().contiguous().cpu()
+
+
+def export_decoder(p, cfg) -> dict:
+    """The decoder tree under the reference LibraForCausalLM's names, the
+    inverse of checkpoint.convert_libra_state_dict: x @ W weights back to
+    torch's (out, in), layers unstacked."""
+    sd, lay = {}, p["layers"]
+    lows = {f"vision_{n}": f"vision_{n}_proj" for n in "qkvo"}
+    lows |= {f"{n}_bridge_{s}": f"vision_{n}_bridge_on_{w}" for n in "kv"
+             for s, w in (("lang", "language"), ("vis", "vision"))}
+    for i in range(cfg.num_hidden_layers):
+        for part, names, low in (
+                ("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj"), lows),
+                ("mlp", ("gate_proj", "up_proj", "down_proj"),
+                 {f"vision_{n}": f"vision_{n}_proj" for n in ("gate", "up", "down")})):
+            src = lay["attn" if part == "self_attn" else "mlp"]
+            pre = f"model.layers.{i}.{part}"
+            for n in names:
+                sd[f"{pre}.{n}.weight"] = host(src[n][i].T)
+            for n, ref in low.items():
+                if n in src:
+                    sd[f"{pre}.{ref}.weight_A"] = host(src[n]["wa"][i].T)
+                    sd[f"{pre}.{ref}.weight_B"] = host(src[n]["wb"][i].T)
+        for n in ("input_layernorm", "post_attention_layernorm", "vision_input_layernorm",
+                  "vision_post_attention_layernorm"):
+            sd[f"model.layers.{i}.{n}.weight"] = host(lay[n][i])
+    sd["model.embed_tokens.weight"] = host(p["embed_tokens"])
+    for q in range(cfg.vision_codebook_num):
+        sd[f"model.vision_embed_tokens.{q}.weight"] = host(p["vision_embed_tokens"][q])
+        sd[f"vision_lm_head.heads.{q}.weight"] = host(p["vision_lm_head"][q].T)
+    sd["model.norm.weight"] = host(p["norm"])
+    sd["model.vision_norm.weight"] = host(p["vision_norm"])
+    sd["lm_head.weight"] = host(p["lm_head"].T)
+    sd["model.vision_contiguous_signal_processor.weight"] = host(p["signal_proj"].T)
+    if "signal_norm" in p:
+        sd["model.vision_signal_norm.weight"] = host(p["signal_norm"])
+    return sd
+
+
+def export_clip(c, ccfg) -> dict:
+    """The CLIP tree under HF CLIPVisionModel's names (vision_model.*)."""
+    pre, P, D = "vision_model.", ccfg.patch_size, ccfg.hidden_size
+    sd = {pre + "embeddings.class_embedding": host(c["class_embedding"]),
+          pre + "embeddings.patch_embedding.weight": host(
+              c["patch_embedding"].reshape(P, P, 3, D).permute(3, 2, 0, 1)),
+          pre + "embeddings.position_embedding.weight": host(c["position_embedding"])}
+    for ours, theirs in (("pre_layernorm", "pre_layrnorm"), ("post_layernorm", "post_layernorm")):
+        sd[f"{pre}{theirs}.weight"] = host(c[ours]["scale"])
+        sd[f"{pre}{theirs}.bias"] = host(c[ours]["bias"])
+    lay = c["layers"]
+    for i in range(ccfg.num_hidden_layers):
+        b = f"{pre}encoder.layers.{i}"
+        for ours, theirs in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            sd[f"{b}.{theirs}.weight"] = host(lay[ours]["scale"][i])
+            sd[f"{b}.{theirs}.bias"] = host(lay[ours]["bias"][i])
+        for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                             ("v", "self_attn.v_proj"), ("o", "self_attn.out_proj"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            sd[f"{b}.{theirs}.weight"] = host(lay[ours]["w"][i].T)
+            sd[f"{b}.{theirs}.bias"] = host(lay[ours]["b"][i])
+    return sd
+
+
+def export_vqgan(tree, vq_cfg) -> dict:
+    """quant_conv, post_quant_conv and the conv decoder under the
+    reference VQModel's names (HWIO -> OIHW), with a loss.* key that the
+    loader must drop."""
+    from libra_tpu_torch.models.vqgan import decoder_plan
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = host(p["w"].permute(3, 2, 0, 1))
+        sd[f"{name}.bias"] = host(p["b"])
+
+    def gn(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = host(p["scale"]), host(p["bias"])
+
+    def block(name, p):
+        for n, v in p.items():
+            (gn if n.startswith("norm") else conv)(f"{name}.{n}", v)
+
+    conv("quant_conv", tree["quant_conv"])
+    conv("post_quant_conv", tree["post_quant_conv"])
+    dec = tree["decoder"]
+    for n in ("conv_in", "conv_out"):
+        conv(f"decoder.{n}", dec[n])
+    for n in ("norm_out", "first_norm"):
+        if n in dec:
+            gn(f"decoder.{n}", dec[n])
+    for n in ("block_1", "attn_1", "block_2"):
+        block(f"decoder.mid.{n}", dec[f"mid_{n}"])
+    levels, _ = decoder_plan(vq_cfg)
+    for lev, entry in zip(levels, dec["up"]):
+        i = lev["i_level"]
+        for kind in ("block", "attn"):
+            for j, p in enumerate(entry[kind]):
+                block(f"decoder.up.{i}.{kind}.{j}", p)
+        if "upsample_conv" in entry:
+            conv(f"decoder.up.{i}.upsample.conv", entry["upsample_conv"])
+    sd["loss.discriminator.main.0.weight"] = torch.zeros(64, 3, 4, 4)
+    return sd
+
+
+def widened(tree):
+    """A copy of a parameter tree with every leaf in fp32."""
+    if isinstance(tree, dict):
+        return {k: widened(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [widened(v) for v in tree]
+    return tree.float()
+
+
+def same_tree(label: str, got, want, dtype) -> int:
+    """got's structure equal to want's and every leaf of got of `dtype` and
+    bit for bit want's leaf in that dtype (an exact cast: bf16 sources).
+    Returns the leaves compared."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{label}: keys {sorted(got)} != {sorted(want)}")
+        return sum(same_tree(f"{label}/{k}", got[k], want[k], dtype) for k in want)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{label}: {len(got)} entries, {len(want)} written")
+        return sum(same_tree(f"{label}[{i}]", g, w, dtype)
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if got.dtype != dtype or got.device != want.device or not torch.equal(got, want.to(dtype)):
+        raise AssertionError(f"{label}: loaded {got.dtype} {tuple(got.shape)} on {got.device} "
+                             f"differs from the {want.dtype} {tuple(want.shape)} written")
+    return 1
+
+
+def checkpoint_path(card: str, dev, cfg, vq_cfg, vq_params, main: Counter) -> dict:
+    """LibraPipeline.from_pretrained's loading, once in bf16: a checkpoint
+    dir in the reference layout written to a temporary dir at full width
+    and CKPT_LAYERS layers, from seeded trees on the card (noised, so no
+    two leaves a mapping could swap are equal) through this script's
+    inverse mappings: config.json, the decoder's state dict in two
+    pytorch_model-*.bin shards, vqgan.ckpt (quant and post-quant convs and
+    the conv decoder at the default VQGANConfig's shapes, from the ported
+    decoder_plan, and a loss.* key), the nested CLIP ViT-L/14-336 dir
+    (config.json + weights); no YAML (the card has no PyYAML): the YAML
+    loader is patched to give the spec the YAML would (the two-tap
+    select_layer, the nested dir). Loaded through
+    pipeline._load_pretrained (what from_pretrained calls, with a
+    SimpleTextTokenizer: the card has no transformers): every decoder
+    leaf bit for bit its source in bf16, every CLIP and VQGAN leaf its
+    source widened to fp32 (libra_tpu's dtypes). Then a ServeApp over the
+    loaded trees answers one text and one pixels request (the fp32 CLIP
+    tree beside the bf16 decoder): each request's tokens equal to a
+    ServingEngine's over the source trees (CLIP and VQGAN widened to
+    fp32), each wave's equal to its replay; launches counted (B1).
+    Returns the load's seconds, the checkpoint's bytes and the phase's
+    seconds."""
+    import tempfile
+    from libra_tpu_torch.config import VisionTokenizerSpec
+    from libra_tpu_torch.pipeline import LibraPipeline, _load_pretrained
+    from libra_tpu_torch.serve import ServeApp
+    from libra_tpu_torch.serving import ServingEngine
+    from libra_tpu_torch.tokenization import SimpleTextTokenizer
+    from libra_tpu_torch.training.fused import maybe_normalize_pixels
+    t_phase = time.perf_counter()
+    small = cfg.replace(num_hidden_layers=CKPT_LAYERS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    with torch.no_grad():
+        src = noised(decoder_params(small, dev), g)
+        clip_src = noised(vq_params["clip"], g)
+        vq_src = {"quant_conv": noised(vq_params["quant_conv"], g),
+                  **vq_decoder_tree(vq_cfg, g, torch.bfloat16)}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        (d / "config.json").write_text(json.dumps(small.to_dict()))
+        sd = export_decoder(src, small)
+        keys = sorted(sd)
+        for i, part in enumerate((keys[:len(keys) // 2], keys[len(keys) // 2:])):
+            torch.save({k: sd[k] for k in part}, str(d / f"pytorch_model-0000{i + 1}-of-00002.bin"))
+        del sd
+        torch.save({"state_dict": export_vqgan(vq_src, vq_cfg), "epoch": 0},
+                   str(d / "vqgan.ckpt"))
+        (d / CLIP_DIR).mkdir()
+        (d / CLIP_DIR / "config.json").write_text(json.dumps(
+            {"model_type": "clip", "vision_config": dataclasses.asdict(vq_cfg.clip)}))
+        torch.save(export_clip(clip_src, vq_cfg.clip), str(d / CLIP_DIR / "pytorch_model.bin"))
+        write_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        spec = VisionTokenizerSpec(vq_cfg, str(d / "vqgan.ckpt"), None, str(d / CLIP_DIR))
+        t0 = time.perf_counter()
+        with mock.patch("libra_tpu_torch.config.load_vision_tokenizer_config",
+                        return_value=spec):
+            lcfg, params, tok = _load_pretrained(str(d), SimpleTextTokenizer(cfg.vocab_size),
+                                                 device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    img = tok.image_tokenizer
+    if lcfg != small or img.cfg != vq_cfg or img.downsample_ratio is not None:
+        raise AssertionError(f"loaded configs {lcfg}, {img.cfg} differ from those written")
+    n = same_tree("decoder", params, src, torch.bfloat16)
+    n += same_tree("vqgan", img.params, dict(vq_src, clip=clip_src), torch.float32)
+    print(f"checkpoint: {n_bytes / 1e9:.3f} GB written in {write_s:.2f} s (config.json, "
+          f"2 .bin shards of the {CKPT_LAYERS}-layer decoder, vqgan.ckpt with the "
+          f"decoder at the default VQGANConfig and a loss.* key, the nested CLIP dir), "
+          f"loaded in {load_s:.2f} s (warm page cache) through _load_pretrained: {n} "
+          f"leaves bit for bit their sources (decoder bf16, CLIP and VQGAN fp32) [{card}]")
+
+    pipe = LibraPipeline(lcfg, params, tok, functools.partial(maybe_normalize_pixels, vq_cfg))
+    app = ServeApp(pipe, max_batch=B, max_len=ENGINE_MAX_LEN, prompt_bucket=ENGINE_BUCKET,
+                   decode_chunk=ENGINE_CHUNK, max_new_default=SERVE_NEW)
+    waves = recorded_waves(app)
+    pixels = maybe_normalize_pixels(vq_cfg, torch.randint(
+        0, 256, (vq_cfg.clip.image_size,) * 2 + (3,), generator=g, device=dev,
+        dtype=torch.uint8)).cpu().numpy()
+    try:
+        zero_counts()
+        answers = [app.handle({"prompt": QUESTIONS[0]}), app.handle(
+            {"prompt": QUESTIONS[1], "pixels": pixels})]
+        torch.cuda.synchronize()
+        got = read_counts()
+        main.update(got)
+        replay_waves("checkpoint serve replay", app, waves, card)
+    finally:
+        app.close()
+    # the source trees' engine, CLIP and VQGAN widened to fp32 as the loader
+    # widens them (bit for bit the loaded leaves): each wave's tokens equal
+    ref = ServingEngine(src, small, max_batch=B, max_len=ENGINE_MAX_LEN,
+                        prompt_bucket=ENGINE_BUCKET, decode_chunk=ENGINE_CHUNK,
+                        gen=app.gen, vq_params=widened(dict(vq_src, clip=clip_src)),
+                        vq_cfg=vq_cfg)
+    import numpy as np
+    for kind, ((req,), (res,)) in zip(("text", "pixels"), waves):
+        want = ref.run([req])[0]
+        if not np.array_equal(want.tokens, res.tokens):
+            raise AssertionError(f"checkpoint: the loaded trees answered the {kind} request "
+                                 f"{res.tokens[0]}, the source trees {want.tokens[0]}")
+    del ref
+    if got["flash_bridged_attention"] != 2 * CKPT_LAYERS or len(waves) != 2 or any(
+            a["text"] != app.text(res[0]) for a, (_, res) in zip(answers, waves)):
+        raise AssertionError(f"checkpoint serve: launches {dict(got)}, waves "
+                             f"{len(waves)}, answers {answers}")
+    out = dict(load_s=load_s, write_s=write_s, gb=n_bytes / 1e9,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"checkpoint serve: a text and a pixels request through ServeApp over the "
+          f"loaded trees ({[a['finish_reason'] for a in answers]}, "
+          f"{[len(a['text'].split()) for a in answers]} words); both requests' tokens "
+          f"equal to the source trees' engine, each wave equal to its replay; launches "
+          f"{dict(got)}; phase {out['phase_s']:.1f} s [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3630,9 +4193,9 @@ def main() -> int:
           f"{L} layers + lm_head = {7 * L + 1} matmul launches; with the int8 "
           f"cache, {L} decode-attention launches (1 a layer) [{card}]")
     main_counts = Counter()
-    fused, chat, engine, spec = {}, {}, {}, {}
+    fused, chat, engine, spec, serve = {}, {}, {}, {}, {}
     for mode in ("bf16", "int8", "int4"):
-        n_prompt, fused[mode], chat[mode], engine[mode], spec[mode] = full_path(
+        n_prompt, fused[mode], chat[mode], engine[mode], spec[mode], serve[mode] = full_path(
             card, dev, cfg, vq_cfg, vq_params, mode, main_counts)
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
@@ -3670,6 +4233,14 @@ def main() -> int:
               f"{m['ded_tok_s']:.3f}"
               for mode, m in ((mode, v["merged"]) for mode, v in engine.items()))
           + f" [{card}]")
+    print("serve summary, smoke figures of 5 requests (requests/s; TTFT p50 ms from each "
+          "request's send; the SSE stream's first event ms; phase s): " + "; ".join(
+              f"{mode} {v['req_s']:.4f}; {v['ttft_p50_ms']:.3f}; {v['first_event_ms']:.3f}; "
+              f"{v['phase_s']:.1f}" for mode, v in serve.items()) + f" [{card}]")
+    ckpt = checkpoint_path(card, dev, cfg, vq_cfg, vq_params, main_counts)
+    print(f"checkpoint summary: {ckpt['gb']:.3f} GB written in {ckpt['write_s']:.2f} s, "
+          f"loaded in {ckpt['load_s']:.2f} s; phase {ckpt['phase_s']:.1f} s [{card}]")
+    torch.cuda.empty_cache()
     train = train_path(card, dev, vq_cfg, vq_params, main_counts)
     print("train summary: " + "; ".join(
         f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "

@@ -2,16 +2,19 @@
 
 The same frozen dataclasses, fields and defaults as ``libra_tpu.config``
 (a test holds the two equal), with a torch dtype table in place of the
-JAX one. The port cannot import the JAX module: it imports ``jax.numpy``
-for its dtype table.
+JAX one, and the same loaders of a checkpoint's ``config.json`` and
+``vision_tokenizer_config.yaml``. The port cannot import the JAX module:
+it imports ``jax.numpy`` for its dtype table.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from pathlib import Path
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -141,6 +144,12 @@ class LibraConfig:
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 
+    @classmethod
+    def from_pretrained(cls, path: str) -> "LibraConfig":
+        """Load from an HF-style checkpoint dir containing config.json."""
+        with open(Path(path) / "config.json") as f:
+            return cls.from_dict(json.load(f))
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -186,12 +195,22 @@ class CLIPVisionConfig:
         base.update(kw)
         return cls(**base)
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "CLIPVisionConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d)
+        for k in ("image_mean", "image_std"):
+            if k in d and isinstance(d[k], list):
+                d[k] = tuple(d[k])
+        return cls(**{k: v for k, v in d.items() if k in known})
+
 
 @dataclass(frozen=True)
 class VQGANConfig:
     """Vision tokenizer: CLIP encoder tap + 1x1 quant conv + LFQ. The
-    decoder fields are kept for parity with the JAX config; the decoder
-    itself is not ported yet (ROADMAP A10)."""
+    decoder fields shape the checkpoint converter's decoder tree
+    (models/vqgan.decoder_plan); the decoder's forward pass is not ported
+    yet (ROADMAP A10)."""
 
     embed_dim: int = 18                 # LFQ input dim = num_codebooks * log2(codebook)
     codebook_size: int = 512
@@ -247,3 +266,74 @@ class VQGANConfig:
         )
         base.update(kw)
         return cls(**base)
+
+    @classmethod
+    def from_yaml_dict(cls, d: Dict[str, Any]) -> "VQGANConfig":
+        """Build from a parsed ``vision_tokenizer_config.yaml`` dict:
+        top-level ``{ckpt_path, max_vision_token_length, freeze, params:
+        {embed_dim, codebook_size, num_codebook, ckpt_path, ddconfig:
+        {encoder_name, select_layer, z_channels, resolution,
+        initial_resolution, ch, ch_mult, num_res_blocks, attn_resolutions,
+        out_ch, dropout, norm_first, num_attn_head}}}``."""
+        params = dict(d.get("params", {}))
+        dd = dict(params.get("ddconfig", {}))
+        kw: Dict[str, Any] = {k: params[k] for k in
+                              ("embed_dim", "codebook_size", "num_codebook")
+                              if k in params}
+        for k in ("z_channels", "resolution", "initial_resolution", "ch",
+                  "num_res_blocks", "out_ch", "dropout", "norm_first",
+                  "select_layer"):
+            if k in dd and dd[k] is not None:
+                kw[k] = dd[k]
+        if isinstance(kw.get("select_layer"), list):
+            kw["select_layer"] = tuple(kw["select_layer"])
+        if "ch_mult" in dd:
+            kw["ch_mult"] = tuple(dd["ch_mult"])
+        if "attn_resolutions" in dd:
+            kw["attn_resolutions"] = tuple(dd["attn_resolutions"])
+        if "num_attn_head" in dd:
+            kw["attn_num_heads"] = dd["num_attn_head"]
+        if "encoder_name" in dd and dd["encoder_name"] is not None:
+            # the reference stores a path or an HF id; only the "clip"
+            # substring matters
+            kw["encoder_name"] = ("clip" if "clip" in str(dd["encoder_name"])
+                                  else "conv")
+        return cls(**kw)
+
+
+class VisionTokenizerSpec(NamedTuple):
+    """Parsed ``vision_tokenizer_config.yaml``: the VQGAN config, the
+    resolved weight path, the optional max_vision_token_length override,
+    and the resolved nested CLIP checkpoint dir (None when the encoder is
+    the conv variant or the YAML names no path)."""
+    vq_cfg: VQGANConfig
+    ckpt_path: str
+    max_vision_token_length: Optional[int]
+    clip_dir: Optional[str]
+
+
+def load_vision_tokenizer_config(checkpoint_dir: str) -> VisionTokenizerSpec:
+    """Parse ``<ckpt>/vision_tokenizer_config.yaml`` into a
+    VisionTokenizerSpec. Relative ``ckpt_path`` entries resolve against
+    the checkpoint dir, and so does ``ddconfig.encoder_name``, the nested
+    CLIP dir's path. Without the YAML: the default VQGANConfig and
+    ``<ckpt>/vqgan.ckpt``."""
+    root = Path(checkpoint_dir)
+    yaml_path = root / "vision_tokenizer_config.yaml"
+    if not yaml_path.exists():
+        return VisionTokenizerSpec(VQGANConfig(), str(root / "vqgan.ckpt"),
+                                   None, None)
+    import yaml
+    with open(yaml_path) as f:
+        d = yaml.safe_load(f) or {}
+    cfg = VQGANConfig.from_yaml_dict(d)
+    rel = d.get("ckpt_path") or (d.get("params") or {}).get("ckpt_path") \
+        or "vqgan.ckpt"
+    ckpt_path = rel if Path(rel).is_absolute() else str(root / rel)
+    clip_dir = None
+    enc = ((d.get("params") or {}).get("ddconfig") or {}).get("encoder_name")
+    if enc and "clip" in str(enc):
+        p = Path(enc)
+        clip_dir = str(p if p.is_absolute() else root / p)
+    return VisionTokenizerSpec(cfg, ckpt_path,
+                               d.get("max_vision_token_length"), clip_dir)

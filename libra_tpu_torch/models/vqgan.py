@@ -1,10 +1,11 @@
 """VQGAN vision tokenizer, encode side: CLIP feature tap -> 1x1 quant conv
--> LFQ. The conv decoder and the post-quant conv wait for text-to-image
-(ROADMAP A10)."""
+-> LFQ. The conv decoder's and the conv encoder's forward passes wait for
+text-to-image (ROADMAP A10); their static plans (decoder_plan,
+encoder_plan) are here, for the checkpoint converter."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -34,6 +35,50 @@ def init_params(gen: torch.Generator, cfg: VQGANConfig, device="cuda",
                        "b": torch.zeros((cfg.embed_dim,), dtype=dtype,
                                         device=device)},
     }
+
+
+def decoder_plan(cfg: VQGANConfig):
+    """Static structure of the taming Decoder's upsampling stack: per
+    level (top-down construction order, bottom-up execution), channels and
+    whether attention and upsampling apply. Returns (levels, the last
+    level's channels)."""
+    n_lev = len(cfg.ch_mult)
+    block_in = cfg.ch * cfg.ch_mult[-1]
+    curr_res = cfg.initial_resolution
+    levels = []
+    for i_level in reversed(range(n_lev)):
+        block_out = cfg.ch * cfg.ch_mult[i_level]
+        has_attn = curr_res in cfg.attn_resolutions
+        if i_level > 1:
+            up_scale: Optional[float] = 2.0
+            curr_res *= 2
+        elif i_level == 1:
+            up_scale = cfg.resolution / curr_res
+        else:
+            up_scale = None
+        levels.append(dict(i_level=i_level, block_in=block_in,
+                           block_out=block_out, has_attn=has_attn,
+                           up_scale=up_scale))
+        block_in = block_out
+    return levels, block_in
+
+
+def encoder_plan(cfg: VQGANConfig):
+    """Static structure of the taming Encoder's downsampling stack (the
+    conv-encoder variant). Returns (levels, the last level's channels)."""
+    n_lev = len(cfg.ch_mult)
+    in_ch_mult = (1,) + tuple(cfg.ch_mult)
+    curr_res = cfg.resolution
+    levels = []
+    for i_level in range(n_lev):
+        has_attn = curr_res in cfg.attn_resolutions
+        has_down = i_level != n_lev - 1
+        if has_down:
+            curr_res //= 2
+        levels.append(dict(block_in=cfg.ch * in_ch_mult[i_level],
+                           block_out=cfg.ch * cfg.ch_mult[i_level],
+                           has_attn=has_attn, has_down=has_down))
+    return levels, cfg.ch * cfg.ch_mult[-1]
 
 
 class EncodeOutput(NamedTuple):

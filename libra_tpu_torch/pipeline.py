@@ -1,14 +1,15 @@
 """High-level inference pipeline: single-image VQA and captioning.
 
-    pipe = LibraPipeline(cfg, params, tokenizer, image_processor)
+    pipe = LibraPipeline.from_pretrained("/path/to/libra-11b-chat",
+                                         quantize="int8")
     answers = pipe.chat(["What is in this image?"], images=[image])
 
 Covers v1 conversation prompt assembly with the 578-token image
 placeholder block and left-padded batched generation with the KV cache,
 and incremental multi-turn chat (``start_chat``: a ChatThread over a
-chat.ChatSession, whose later turns prefill only their own tokens).
-Loading a checkpoint (``from_pretrained``) waits for the checkpoint
-converter's port (ROADMAP A8e).
+chat.ChatSession, whose later turns prefill only their own tokens), and
+loading a checkpoint in the reference layout (``from_pretrained``:
+checkpoint.py's converters, the checkpoint's fast tokenizer).
 """
 
 from __future__ import annotations
@@ -54,6 +55,25 @@ class LibraPipeline:
 
     def __post_init__(self):
         self.generator = Generator(self.params, self.cfg)
+
+    @classmethod
+    def from_pretrained(cls, path: str, mesh=None, quantize=False,
+                        device="cuda") -> "LibraPipeline":
+        """Load a checkpoint dir in the reference layout onto `device`.
+        quantize: True or "int8" = weight-only int8 (quantization.
+        quantize_params); "int4" = group-int4 projections with embeddings
+        and heads int8. Needs `transformers` (the fast tokenizer) and PIL
+        (the default image processor, LibraEvalImageProcessor on the
+        loaded CLIP config)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "LibraPipeline.from_pretrained(mesh=...): tensor-parallel "
+                "serving is ROADMAP A13; the port loads onto one device")
+        from libra_tpu_torch.data.processors import LibraEvalImageProcessor
+        cfg, params, tokenizer = _load_pretrained(path, quantize=quantize,
+                                                  device=device)
+        return cls(cfg, params, tokenizer, LibraEvalImageProcessor(
+            tokenizer.image_tokenizer.cfg.clip))
 
     def _tokenize(self, prompts: Sequence[str], images) -> Dict[str, Any]:
         text_tok = self.tokenizer.text_tokenizer
@@ -120,6 +140,38 @@ class LibraPipeline:
         session = ChatSession(self.params, self.cfg, batch=n_parallel,
                               max_len=max_len, gen=gen, delta_bucket=delta_bucket)
         return ChatThread(self, session, template)
+
+
+def _load_pretrained(path: str, text_tokenizer=None, quantize=False,
+                     device="cuda"):
+    """The trees and tokenizers of a checkpoint dir, as from_pretrained
+    loads them: (cfg, params, LibraTokenizer). text_tokenizer: None builds
+    the dir's HFTextTokenizer."""
+    from libra_tpu_torch import checkpoint as ckpt
+    from libra_tpu_torch.config import load_vision_tokenizer_config
+    from libra_tpu_torch.tokenization import HFTextTokenizer, ImageTokenizer
+
+    cfg = LibraConfig.from_pretrained(path)
+    params = ckpt.convert_libra_state_dict(ckpt.load_torch_state_dict(path), cfg,
+                                           device)
+    if text_tokenizer is None:
+        text_tokenizer = HFTextTokenizer(path)
+    vq_cfg, vq_ckpt, max_vt, clip_dir = load_vision_tokenizer_config(path)
+    clip_params = None
+    if vq_cfg.encoder_name == "clip" and clip_dir is not None:
+        # the CLIP tower lives in a nested dir of the checkpoint, named by
+        # ddconfig.encoder_name, not inside vqgan.ckpt
+        vq_cfg, clip_params = ckpt.load_nested_clip(clip_dir, vq_cfg, device)
+    vq_params = ckpt.convert_vqgan_state_dict(ckpt.load_torch_state_dict(vq_ckpt),
+                                              vq_cfg, clip_params, device)
+    img_tok = ImageTokenizer(
+        vq_cfg, vq_params, token_offset=cfg.vocab_size,
+        max_vision_token_length=max_vt or cfg.max_vision_token_length,
+        downsample_ratio=ImageTokenizer.infer_downsample_ratio(vq_ckpt))
+    if quantize:
+        from libra_tpu_torch.quantization import quantize_params
+        params = quantize_params(params, bits=4 if quantize == "int4" else 8)
+    return cfg, params, LibraTokenizer(text_tokenizer, img_tok)
 
 
 class ChatThread:

@@ -4,7 +4,8 @@
         {input_ids (Q, B, N), attention_mask (B, N), vision_indices (B, N),
          coninous_signal (B, N, C) or None}
 
-Text runs host-side through a pluggable text tokenizer; images run through
+Text runs host-side through a pluggable text tokenizer (SimpleTextTokenizer,
+or HFTextTokenizer over a checkpoint's fast tokenizer); images run through
 the VQGAN encode on the image tokenizer's device. Vision ids are offset by
 the text vocab size; each image becomes <BOI> + g*g tokens + <EOI>,
 scattered into the `<img_ph>` positions of the text. `vision_indices` is
@@ -15,6 +16,7 @@ JAX package.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -83,13 +85,45 @@ class SimpleTextTokenizer:
                         if not (skip_special_tokens and int(i) in special))
 
 
+class HFTextTokenizer:
+    """A checkpoint's LLaMA fast tokenizer with Libra's added tokens
+    (<img_ph>, <img_gen>; pad = unk). Needs `transformers`, imported when
+    one is built."""
+
+    def __init__(self, pretrained_model_path: str, **kwargs):
+        from transformers import AutoTokenizer
+        tok = AutoTokenizer.from_pretrained(pretrained_model_path,
+                                            use_fast=True, **kwargs)
+        tok.add_tokens(IMG_PH)
+        tok.add_tokens(IMG_GEN)
+        tok.pad_token = tok.unk_token
+        self.tok = tok
+        self.img_ph_token_id = tok.convert_tokens_to_ids(IMG_PH)
+        self.img_gen_token_id = tok.convert_tokens_to_ids(IMG_GEN)
+
+    def __getattr__(self, name):
+        if name == "tok":       # not set yet (a copy or an unpickle)
+            raise AttributeError(name)
+        return getattr(self.tok, name)
+
+    def __call__(self, texts, **kw) -> Dict[str, np.ndarray]:
+        kw.setdefault("return_length", True)
+        out = self.tok(list(texts), **kw)
+        return {k: np.asarray(v) for k, v in out.items()}
+
+    def decode(self, ids, **kw) -> str:
+        return self.tok.decode(ids, **kw)
+
+
 class ImageTokenizer:
     """VQGAN-backed image tokenizer with combined-vocab framing: codes
     occupy [offset, offset + codebook_size); BOI = offset + codebook_size;
-    EOI = BOI + 1."""
+    EOI = BOI + 1. downsample_ratio: a conv encoder's (None for the
+    fixed-size CLIP tap)."""
 
     def __init__(self, cfg: VQGANConfig, params: Dict, token_offset: int,
-                 max_vision_token_length: int = 578):
+                 max_vision_token_length: int = 578,
+                 downsample_ratio: Optional[int] = None):
         self.cfg = cfg
         self.params = params
         self.offset = token_offset
@@ -98,6 +132,32 @@ class ImageTokenizer:
         self.boi_token_id = token_offset + self.vocab_size - 2
         self.eoi_token_id = token_offset + self.vocab_size - 1
         self.max_vision_token_length = max_vision_token_length
+        self.downsample_ratio = downsample_ratio
+
+    @staticmethod
+    def infer_downsample_ratio(ckpt_path: str) -> Optional[int]:
+        """A conv encoder's downsample ratio from the checkpoint's file
+        name (`_f16_` / `_f8_`); None for the fixed-size CLIP encoder."""
+        name = os.path.basename(str(ckpt_path))
+        if "_f16_" in name and "_f8_" in name:
+            raise ValueError(f"ambiguous downsample markers in {name!r}")
+        if "_f16_" in name:
+            return 16
+        if "_f8_" in name:
+            return 8
+        return None
+
+    def get_token_length(self, images=None) -> int:
+        """Vision tokens an image occupies (grid**2 + BOI + EOI). With a
+        conv encoder the grid follows the (square, NHWC) input's side."""
+        if self.downsample_ratio is None or images is None:
+            return self.max_vision_token_length
+        arr = np.asarray(images[0] if isinstance(images, (list, tuple))
+                         else images)
+        h, w = arr.shape[-3], arr.shape[-2]
+        if h != w:
+            raise ValueError("image tokenization requires square images")
+        return (h // self.downsample_ratio) ** 2 + 2
 
     def encode(self, pixels: torch.Tensor) -> Dict[str, torch.Tensor]:
         """pixels (B, S, S, 3) CLIP-normalized NHWC -> input_ids
