@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero:
    Also at a chat turn's text delta: Nq = 64 query rows at slots 672 to
    735 of a 1024-slot cache (turn 1's 640 slots and 32 answer tokens
    before them), turn 1's bucket pad and each row's own delta pad masked
-   (gaps between the turns), bridge on and off, timed beside SDPA.
+   (gaps between the turns), bridge on and off, timed beside SDPA. And at
+   the t2i prompt pass: B = 1, Nq = 13 (the t2i prompt, under one query
+   tile), its last row a vision query (BOI), bridge on, against Nk = 13
+   keys and against the main path's 13 + 578 (the prompt pass's cache, the
+   tail masked), timed beside SDPA on the unbridged part.
 3b. flash backward kernel vs its plain version at the training shape (B=8,
    Nq=Nk=698, H=32, d=128, bf16), bridge on and off, right-padded rows and
    three left-padded rows (by 70, 3 and 5; fully masked query rows: dq
@@ -87,7 +91,26 @@ Phases, in order; any failure exits non-zero:
    the row's logit range), launches derived from their iterations with
    the matmuls at M = 16 and B3 at N = 4, a verify iteration profiled;
    torch.profiler's split of one prompt pass and
-   of 4 decode steps by kernel. Then each tree's fused-pixels path
+   of 4 decode steps by kernel. Then each tree's text-to-image
+   (chip_smoke.t2i_path: LibraPipeline.generate_image on a 13-token t2i
+   prompt ending in BOI, then 577 dual-path decode steps of batch 1 and the
+   VQGAN decoder; the decoder tree the package's init_params', fp32): on
+   two layers at full width, a greedy call with launches derived from the
+   config and the tree's leaves (B1 a layer in the prompt pass; in the
+   quantized trees B2 / B5 for every body weight a kernel takes at the
+   prompt's rows and at 1 row a step, lm_head at 1 row), its tokens held
+   at every step to the choice of the same call with every plain version
+   patched in, run along the same tokens: equal, or a near tie there (the
+   emitted token's logit within 1% / 5% of the vision logits' range of
+   the top one), the block's framing (BOI, vision ids on
+   both codebooks, the forced newline after it), the prompt pass's and
+   the first dual step's vision logits against the plain versions; in
+   bf16 then one full-depth image with generate_image's defaults (top-k
+   100, temperature 1, a seeded torch.Generator): TTFT, image tokens/s,
+   the call's wall and peak memory, launches, the (336, 336, 3) pixels
+   finite and equal to decode_code's on the same ids, decode_code against
+   itself with TF32 off (relative L2 under 1e-2) and its time (best of 3),
+   torch.profiler over 4 dual steps. Then each tree's fused-pixels path
    (bench.py:523-556's shape: 32 random text ids and the 578-token image
    block at img_start = 8, the four seeded uint8 images, B = 4): the fused
    image ids against ImageTokenizer's on the same pixels; on two layers at
@@ -167,12 +190,14 @@ Phases, in order; any failure exits non-zero:
    shards, vqgan.ckpt with the quant and post-quant convs, the conv
    decoder at the default VQGANConfig and a loss.* key, the nested CLIP
    ViT-L/14-336 dir; no YAML) from seeded, noised trees on the card by
-   the script's inverse mappings; loaded through the helper
+   the script's inverse mappings (the VQGAN decoder from the package's
+   init_params); loaded through the helper
    LibraPipeline.from_pretrained calls: every leaf bit for bit its
    source (the decoder bf16, CLIP and VQGAN fp32); a ServeApp over the
    loaded trees answers a text and a pixels request, tokens equal to an
-   engine's over the source trees (CLIP and VQGAN widened to fp32); load
-   time and bytes.
+   engine's over the source trees (CLIP and VQGAN widened to fp32);
+   generate_image (greedy) on the loaded trees, tokens equal to the same
+   call on the source trees and pixels bit for bit; load time and bytes.
 7. the training path: the fused pretrain step (CLIP + LFQ tokenizing inside
    the step, frozen-language AdamW, remat), libra-11b at full width cut to
    4 layers, B=8, N=120+578=698 (bench.py's train-step proxy), for remat
@@ -195,6 +220,10 @@ Phases, in order; any failure exits non-zero:
    template (the same function, bf16 out) checked and timed at the same
    shape; then the experiment's entry point,
    libra_tpu_torch.tools.exp_int4.main([]), all 21 rows.
+
+torch.profiler traces the card's activity alone, and the host's operators
+only where a record_function region is read (the fused prompt pass's
+CLIP + LFQ): their events cost the profiler seconds a call.
 
 Each phase-6, 6c, phase-7 and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
@@ -296,6 +325,20 @@ E2E_TOL = 0.01
 # 0.0086 / 0.0262). The tolerance allows 5%; each kernel is held tightly
 # against its plain version in phases 3-5.
 E2E_TOL_QUANT = 0.05
+# phase 6's text-to-image (t2i_path): one caption (a 13-token t2i prompt
+# ending in BOI), then the image block decoded through both paths: on
+# T2I_LAYERS layers in every tree against the plain versions, at full depth
+# in bf16 once, sampled; T2I_PROFILED dual steps profiled
+T2I_CAPTION = "a watercolor painting of a small red fox in the snow"
+T2I_LAYERS = 2
+T2I_PROFILED = 4
+# The decoded image with cuDNN's TF32 convolutions (PyTorch's default on the
+# card) against the same decode_code in full fp32: TF32 keeps 10 mantissa
+# bits (2^-11 relative a product), summed in fp32 over 9 * Cin terms a conv,
+# through ~30 convs and GroupNorms; the pixels' relative L2 is expected
+# near 1e-3, and 1e-2 is allowed. A swapped axis or a lost level moves
+# them by their whole size.
+T2I_TF32_TOL = 1e-2
 QUESTIONS = ["What is shown in this picture?",
              "Describe the image.",
              "What color is the left object?",
@@ -647,6 +690,56 @@ def check_flash_delta(card: str, dev) -> dict:
               + f" [{card}]")
         report[use_bridge] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   library_ms=lib_ms, **bnd)
+    return report
+
+
+def t2i_prompt_len() -> int:
+    """The t2i prompt's length for T2I_CAPTION (BOS, its words, BOI)."""
+    from libra_tpu_torch.pipeline import t2i_prompt
+    from libra_tpu_torch.tokenization import SimpleTextTokenizer
+    return len(SimpleTextTokenizer(32000).encode_one(t2i_prompt(T2I_CAPTION)))
+
+
+def check_flash_t2i(card: str, dev) -> dict:
+    """B1 at the t2i prompt pass's shape (phase 3): B = 1, Nq = the t2i
+    prompt's length, under one query tile, its last row a vision query
+    (BOI, flagged in the keys too), bridge on; keys Nk = Nq, and the main
+    path's Nk = Nq + 578 (the cache of generate_image's prompt pass, the
+    tail unwritten and masked). Against the plain version, timed beside
+    SDPA on the unbridged part (no library call computes the bridged
+    function). Returns the rows by Nk."""
+    from libra_tpu_torch.ops.flash_bridge import (flash_bridged_attention,
+                                                  flash_bridged_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n = t2i_prompt_len()
+    report = {}
+    for nk in (n, n + 578):
+        def rnd(m):
+            return torch.randn((1, m, H, HD), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v, kb, vb = rnd(n), rnd(nk), rnd(nk), rnd(nk), rnd(nk)
+        flag_q = torch.zeros((1, n), dtype=torch.bool, device=dev)
+        flag_q[:, -1] = True
+        flag_kv = torch.zeros((1, nk), dtype=torch.bool, device=dev)
+        flag_kv[:, n - 1] = True
+        keep = torch.arange(nk, device=dev)[None, :] <= torch.arange(n, device=dev)[:, None]
+        bias = torch.where(keep, 0.0, -2.0 ** 30).float()[None, None]
+        args = (q, k, v, kb, vb, flag_q, flag_kv, bias)
+        got = flash_bridged_attention(*args)
+        torch.cuda.synchronize()
+        label = f"flash t2i prompt B=1 Nq={n} Nk={nk} last row vision use_bridge=True"
+        err = check(label, got, flash_bridged_attention_plain(*args), card)
+        ms = cuda_ms(lambda: flash_bridged_attention(*args))
+        plain_ms = cuda_ms(lambda: flash_bridged_attention_plain(*args))
+        per_pair = 2 * H * HD * 4
+        ops, dense = per_pair * needed_pairs(bias), per_pair * n * nk
+        bnd = bound(nbytes(q, flag_q, flag_kv, bias, got) + cache_bytes(bias, k, v, kb, vb),
+                    ops)
+        lib_ms = cuda_ms(lambda: sdpa(q, k, v, bias))
+        print(f"{label}: kernel {ms:.4f} ms ({rate_line(ops, dense, ms, bnd)}), plain "
+              f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+              f"SDPA on the unbridged part {lib_ms:.4f} ms [{card}]")
+        report[nk] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          **bnd)
     return report
 
 
@@ -1375,13 +1468,14 @@ def plain_kernels():
 def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
               main: Counter):
     """Chat, logit checks and TTFT/decode timing for one weight mode, its
-    speculative decode (spec_path), then its fused-pixels path, its
-    multi-turn chat sessions (and, in bf16, a ChatThread) and its
-    serving-engine phase. Adds the main-path runs' kernel launches to
-    `main`; returns the prompt length, the fused path's, the chat
-    sessions', the engine's and the spec phase's figures (its seconds
-    summed over its three parts: spec_path, and in int8 spec_chat and
-    spec_engine)."""
+    speculative decode (spec_path), its text-to-image (t2i_path), then its
+    fused-pixels path, its multi-turn chat sessions (and, in bf16, a
+    ChatThread), its serving-engine phase and its HTTP server. Adds the
+    main-path runs' kernel launches to `main`; returns the prompt length,
+    the fused path's, the chat sessions', the engine's and the spec
+    phase's figures (its seconds summed over its three parts: spec_path,
+    and in int8 spec_chat and spec_engine), the server's and the t2i
+    phase's."""
     from libra_tpu_torch.generation import GenerationConfig
     from libra_tpu_torch.pipeline import LibraPipeline
     from libra_tpu_torch.tokenization import (ImageTokenizer, LibraTokenizer,
@@ -1493,6 +1587,7 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
     spec = spec_path(card, cfg, params, mode, pipe.generator, inputs, r1,
                      torch.stack(margins).cpu(), ttft, tok_s, main)
     profile_paths(card, cfg, params, args, g64, mode)
+    t2i = t2i_path(card, dev, cfg, vq_cfg, vq_params, params, mode, main)
     fused, seqs = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
                              torch.stack(images), main)
     chat = chat_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
@@ -1504,7 +1599,7 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
     spec["phase_s"] += chat.get("spec", {}).get("phase_s", 0) + engine.get(
         "spec", {}).get("phase_s", 0)
     serve = serve_path(card, cfg, vq_cfg, pipe, mode, images, main)
-    return N, fused, chat, engine, spec, serve
+    return N, fused, chat, engine, spec, serve, t2i
 
 
 # ---------------------------------------------------------------------------
@@ -2339,6 +2434,281 @@ def forwards_of(fn, widths: list):
 
 
 # ---------------------------------------------------------------------------
+# Text-to-image
+# ---------------------------------------------------------------------------
+
+def np_finite(a) -> bool:
+    return bool(torch.isfinite(torch.from_numpy(a)).all())
+
+
+def t2i_pipeline(cfg, params, vq_cfg, vq_params, text_tok=None):
+    """A LibraPipeline over `params` whose image tokenizer decodes with
+    vq_params (post_quant_conv and the conv decoder, fp32)."""
+    from libra_tpu_torch.pipeline import LibraPipeline
+    from libra_tpu_torch.tokenization import (ImageTokenizer, LibraTokenizer,
+                                              SimpleTextTokenizer)
+    from libra_tpu_torch.training.fused import maybe_normalize_pixels
+    img_tok = ImageTokenizer(vq_cfg, vq_params, cfg.vocab_size,
+                             cfg.max_vision_token_length)
+    return LibraPipeline(cfg, params, LibraTokenizer(
+        text_tok or SimpleTextTokenizer(vocab_size=cfg.vocab_size), img_tok),
+        functools.partial(maybe_normalize_pixels, vq_cfg))
+
+
+def image_call(pipe, **kw):
+    """pipe.generate_image(T2I_CAPTION, **kw) with its Generator's result
+    kept: (pixels, GenerateResult, the prompt's length)."""
+    results, generate = [], pipe.generator
+    pipe.generator = lambda *a, **k: results.append(generate(*a, **k)) or results[-1]
+    try:
+        pixels = pipe.generate_image(T2I_CAPTION, **kw)
+    finally:
+        pipe.generator = generate
+    res = results[0]
+    return pixels, res, res.sequences.shape[-1] - pipe.cfg.max_vision_token_length
+
+
+def forced_margins(module, sink: list, vocab: int, tokens):
+    """Patch module.sample_tokens so that step t emits tokens[:, :, t]
+    ((Q, B, n): another run's tokens) in place of its own choice, and
+    appends per codebook of row 0 its own argmax, its top logit minus the
+    emitted token's, and the vision slice's range: (Q, 3) fp32."""
+    def forced(logits, gen, generator=None):
+        tok = tokens[:, :, len(sink)]
+        lg = logits[:, 0].float()
+        top = lg.argmax(dim=-1)
+        gap = lg.gather(-1, top[:, None])[:, 0] - lg.gather(-1, tok[:, :1])[:, 0]
+        v = lg[:, vocab:]
+        sink.append(torch.stack([top.float(), gap, v.amax(dim=-1) - v.amin(dim=-1)], -1))
+        return tok
+    return mock.patch.object(module, "sample_tokens", forced)
+
+
+def forced_rule(label: str, got, record, tol: float, card: str) -> tuple:
+    """A run's tokens `got` (Q, n) against the plain versions' choices at
+    every step of the same sequence (`record` (n, Q, 3) from
+    forced_margins): where the plain step's argmax is another token, the
+    emitted token's logit must be within tol of the step's vision-logit
+    range of the top one (a near tie, which the other summation order may
+    flip). Returns (the steps before the first difference, the steps
+    where a codebook differs)."""
+    top, gap, rng = record[:, :, 0].long().T, record[:, :, 1].T, record[:, :, 2].T
+    diff = top != got.cpu()
+    steps = diff.any(dim=0).nonzero()[:, 0]
+    first = int(steps[0]) if len(steps) else got.shape[1]
+    share = (gap[diff] / rng[diff]).max().item() if len(steps) else 0.0
+    print(f"{label}: the plain versions' argmax on the same sequence differs at "
+          f"{len(steps)} of {got.shape[1]} steps, the first at new token {first}; "
+          f"the emitted token's logit below the top one by at most {share:.4%} of "
+          f"the step's range (tol {tol:.0%}) [{card}]")
+    if not share < tol:
+        raise AssertionError(f"{label}: a token differs from the plain versions' "
+                             f"choice where the plain step has no near tie")
+    return first, len(steps)
+
+
+def block_structure(label: str, cfg, img_tok, res, n: int, card: str) -> None:
+    """The generated image block of a generate_image result: the prompt's
+    last token BOI, every generated block token a vision id (the text
+    slice is -inf at vision positions) on every codebook, and the token
+    after the block the forced newline. generate_image, as libra_tpu's,
+    constrains nothing inside the block, so on random weights a block
+    token may be BOI or EOI (2 of the 514 vision ids), and the last one
+    need not be EOI; the decode drops the block's first and last token
+    whatever they hold and maps BOI / EOI inside it to codes as
+    libra_tpu does. Prints the counts of codes and of EOI at the end."""
+    V, Mv = cfg.vocab_size, cfg.max_vision_token_length
+    seq = res.sequences[:, 0]
+    block = seq[:, n - 1:n + Mv - 1]
+    ok = (bool((block[:, 0] == img_tok.boi_token_id).all())
+          and bool(((block[:, 1:] >= V) & (block[:, 1:] < V + cfg.vision_vocab_size)).all())
+          and bool((seq[:, n + Mv - 1] == cfg.newline_token_id).all()))
+    inner = block[:, 1:Mv - 1] - V
+    print(f"{label}: block of {Mv} tokens: BOI first, {Mv - 1} vision ids on each of "
+          f"{seq.shape[0]} codebooks, then the forced newline: {ok}; "
+          f"{int((inner < img_tok.cfg.codebook_size).sum())} of {inner.numel()} inner "
+          f"tokens codes, EOI last on {int((block[:, -1] == img_tok.eoi_token_id).sum())} "
+          f"of {seq.shape[0]} codebooks [{card}]")
+    if not ok:
+        raise AssertionError(f"{label}: the image block is malformed: {block.tolist()}")
+
+
+def t2i_args(pipe, dev) -> tuple:
+    """_prefill's positional inputs of the t2i prompt, on `dev`."""
+    from libra_tpu_torch.pipeline import t2i_prompt
+    inputs = pipe._tokenize([t2i_prompt(T2I_CAPTION)], None)
+    return tuple(None if inputs[k] is None else inputs[k].to(dev) for k in (
+        "input_ids", "attention_mask", "vision_indices", "coninous_signal"))
+
+
+def dual_logits(cfg, params, args, gen, tok=None):
+    """Vision-slice logits (Q, B, Vv) of the t2i prompt pass (its last
+    position is BOI) and of the next dual decode step (on `tok`, or on
+    the argmax); and that token."""
+    from libra_tpu_torch.generation import _prefill, decode_micro_step
+    V = cfg.vocab_size
+    st = _prefill(params, *args, cfg=cfg, gen=gen)
+    out = {"prompt pass": st.logits[:, :, V:].float()}
+    tok = torch.argmax(st.logits, dim=-1) if tok is None else tok
+    st.mask_buf[:, args[0].shape[-1]] = 1
+    step, *_ = decode_micro_step(params, cfg, tok, st.mask_buf, st.cache,
+                                 st.vi_last, st.last_pos, lang_only=False)
+    out["dual step"] = step[:, :, V:].float()
+    return out, tok
+
+
+def t2i_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
+             main: Counter) -> dict:
+    """Text-to-image for one tree: on T2I_LAYERS layers at full width,
+    LibraPipeline.generate_image greedy (launches derived from the config
+    and the tree's leaves), its tokens held at every step to the choice of
+    the same call with every plain version patched in, run along the same
+    tokens (forced_rule: equal, or a near tie), the block's structure, the
+    prompt pass's and
+    the first dual step's vision logits against the plain versions; in
+    bf16 then the full-depth image (t2i_image). Adds the counted runs'
+    launches to `main`; returns the figures."""
+    import libra_tpu_torch.generation as G
+    from libra_tpu_torch.generation import GenerationConfig
+    t_phase = time.perf_counter()
+    Mv, V = cfg.max_vision_token_length, cfg.vocab_size
+    tol = E2E_TOL_QUANT if mode != "bf16" else E2E_TOL
+    small_cfg = cfg.replace(num_hidden_layers=T2I_LAYERS)
+    with torch.no_grad():
+        small = decoder_params(small_cfg, dev, mode)
+    pipe = t2i_pipeline(small_cfg, small, vq_cfg, vq_params)
+    zero_counts()
+    t0 = time.perf_counter()
+    pixels, res, n = image_call(pipe, temperature=0.0)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    got = read_counts()
+    main.update(got)
+    label = f"{mode} t2i {T2I_LAYERS} layers"
+    assert_counts(f"{label} greedy (1 prompt pass of {n} tokens, {Mv - 1} dual steps)",
+                  got, t2i_counts(small_cfg, small, n, Mv - 1), card)
+    if pixels is None or pixels.shape != (vq_cfg.resolution,) * 2 + (3,) or not (
+            np_finite(pixels)):
+        raise AssertionError(f"{label}: pixels {None if pixels is None else pixels.shape}")
+    block_structure(label, small_cfg, pipe.tokenizer.image_tokenizer, res, n, card)
+    new_tokens = res.sequences[:, :, n:]
+    record = []
+    with plain_kernels(), forced_margins(G, record, V, new_tokens):
+        image_call(pipe, temperature=0.0)
+    same, ties = forced_rule(f"{label} tokens vs the plain versions", new_tokens[:, 0],
+                             torch.stack(record).cpu(), tol, card)
+    args = t2i_args(pipe, dev)
+    gen = GenerationConfig(max_new_tokens=2, eos_token_id=-1)
+    with torch.inference_mode():
+        got_l, tok = dual_logits(small_cfg, small, args, gen)
+        with plain_kernels():
+            want_l, _ = dual_logits(small_cfg, small, args, gen, tok)
+    rel = {k: ((got_l[k] - want_l[k]).norm() / want_l[k].norm()).item() for k in got_l}
+    print(f"{label}: greedy call {call_s:.2f} s; vision logits vs the plain "
+          "versions, relative L2: " + ", ".join(f"{k} {v:.6g}" for k, v in rel.items())
+          + f" (tol {tol}) [{card}]")
+    if not max(rel.values()) < tol:
+        raise AssertionError(f"{label}: logits differ from the plain path: {rel}")
+    del pipe, small
+    out = dict(same=same, ties=ties, rel=rel, call_s=call_s)
+    if mode == "bf16":
+        out.update(t2i_image(card, dev, cfg, vq_cfg, vq_params, params, main))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def t2i_image(card: str, dev, cfg, vq_cfg, vq_params, params, main: Counter) -> dict:
+    """One full-depth image: generate_image with its defaults (top-k 100
+    at temperature 1) from a seeded torch.Generator. TTFT (the first
+    sample on the host, synchronized), image tokens/s = (Mv - 1) / (the
+    call's wall - TTFT), the call's wall and peak memory; launches from
+    the config; the pixels finite, (S, S, 3) and those of decode_code on
+    the same ids; decode_code against itself with TF32 off (relative L2
+    under T2I_TF32_TOL) and its time (CUDA events, best of 3);
+    torch.profiler over T2I_PROFILED dual steps."""
+    import libra_tpu_torch.generation as G
+    from libra_tpu_torch.generation import GenerationConfig, _prefill, decode_micro_step
+    from libra_tpu_torch.models import vqgan
+    Mv = cfg.max_vision_token_length
+    pipe = t2i_pipeline(cfg, params, vq_cfg, vq_params)
+    sample, stamps = G.sample_tokens, []
+
+    def first_sample(logits, gen, generator=None):
+        if not stamps:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return sample(logits, gen, generator)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(G, "sample_tokens", first_sample):
+        pixels, res, n = image_call(pipe, generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = read_counts()
+    main.update(got)
+    ttft = stamps[0] - t0
+    tok_s = (Mv - 1) / (wall - ttft)
+    assert_counts(f"bf16 t2i image ({cfg.num_hidden_layers} layers)", got,
+                  t2i_counts(cfg, params, n, Mv - 1), card)
+    img_tok = pipe.tokenizer.image_tokenizer
+    block_structure("bf16 t2i image", cfg, img_tok, res, n, card)
+    block = res.sequences[:, 0, n - 1:n + Mv - 1]
+    decoded = img_tok.decode(block[None])[0]
+    if pixels.shape != (vq_cfg.resolution,) * 2 + (3,) or not np_finite(pixels) or not (
+            torch.equal(torch.from_numpy(pixels), decoded.cpu())):
+        raise AssertionError(f"bf16 t2i image: pixels {pixels.shape}, finite "
+                             f"{np_finite(pixels)}, equal to decode_code's "
+                             f"{torch.equal(torch.from_numpy(pixels), decoded.cpu())}")
+    g = int(round((Mv - 2) ** 0.5))
+    idx = (block[:, 1:-1].reshape(-1, g, g).permute(1, 2, 0)[None] - img_tok.offset)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            exact = vqgan.decode_code(img_tok.params, vq_cfg, idx)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    tf32_rel = rel_l2(decoded, exact)
+    decode_ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            vqgan.decode_code(img_tok.params, vq_cfg, idx)
+            end.record()
+            end.synchronize()
+            decode_ms.append(start.elapsed_time(end))
+    print(f"bf16 t2i image: decode_code ({pixels.shape}, fp32) {min(decode_ms):.3f} ms "
+          f"(best of 3: {', '.join(f'{t:.3f}' for t in decode_ms)}); against TF32 off, "
+          f"relative L2 {tf32_rel:.6g} (tol {T2I_TF32_TOL}) [{card}]")
+    if not tf32_rel < T2I_TF32_TOL:
+        raise AssertionError(f"bf16 t2i image: decode_code moves by {tf32_rel} with TF32")
+    args = t2i_args(pipe, dev)
+    prof = {}
+    with torch.inference_mode():
+        st = _prefill(params, *args, cfg=cfg,
+                      gen=GenerationConfig(max_new_tokens=Mv, eos_token_id=-1))
+
+        def steps():
+            tok, cache, vi, pos = torch.argmax(st.logits, dim=-1), st.cache, st.vi_last, st.last_pos
+            for i in range(T2I_PROFILED):
+                st.mask_buf[:, n + i] = 1
+                logits, cache, vi, pos = decode_micro_step(params, cfg, tok, st.mask_buf, cache,
+                                                           vi, pos, lang_only=False)
+                tok = torch.argmax(logits, dim=-1)
+
+        profiled(card, f"bf16 t2i {T2I_PROFILED} dual steps", steps, out=prof)
+    del pipe, st
+    return dict(ttft_ms=ttft * 1e3, tok_s=tok_s, wall_s=wall, peak_gb=peak_gb,
+                decode_ms=min(decode_ms), tf32_rel=tf32_rel,
+                steps_device_ms=prof["device_ms"], steps_wall_ms=prof["wall_ms"])
+
+
+# ---------------------------------------------------------------------------
 # Serving engine
 # ---------------------------------------------------------------------------
 
@@ -2383,14 +2753,12 @@ def qdot_kernel(w, M: int) -> Optional[str]:
     return None
 
 
-def packed_counts(cfg, params, kv_quant: bool) -> Counter:
-    """Kernel launches of one merged iteration (serving._merged): every
-    weight of the dual-path layer body at M_PACKED rows, in every layer
-    (the language q, k, v, o, gate, up, down; the vision low-rank pairs'
-    wa and wb; the bridges'), the embedding's signal projection at
-    M_PACKED rows, lm_head at the B decode rows and at the chunk's last
-    row; with the int8 cache, one decode-attention launch a layer (the
-    decode segment; the chunk segment attends in plain PyTorch)."""
+def body_counts(cfg, params, rows: int) -> Counter:
+    """Matmul-kernel launches of one dual-path forward of `rows` rows:
+    every weight of the layer body at `rows` rows, in every layer (the
+    language q, k, v, o, gate, up, down; the vision low-rank pairs' wa and
+    wb; the bridges'), and the embedding's signal projection; decided per
+    leaf by qdot_kernel (an int4 tree's int8 leaves take B2)."""
     from libra_tpu_torch.models import libra as M
     L = cfg.num_hidden_layers
     layer = M._layer(params["layers"], 0)
@@ -2404,17 +2772,43 @@ def packed_counts(cfg, params, kv_quant: bool) -> Counter:
                                  "v_bridge_vis")]
     weights += [p[x] for p in pairs for x in ("wa", "wb")]
     want = Counter()
-    for w in weights:
-        name = qdot_kernel(w, M_PACKED)
-        if name:
-            want[name] += L
-    for w, rows in ((params["signal_proj"], M_PACKED), (params["lm_head"], B),
-                    (params["lm_head"], 1)):
+    for w, n in [(w, L) for w in weights] + [(params["signal_proj"], 1)]:
         name = qdot_kernel(w, rows)
+        if name:
+            want[name] += n
+    return want
+
+
+def packed_counts(cfg, params, kv_quant: bool) -> Counter:
+    """Kernel launches of one merged iteration (serving._merged): the
+    dual-path body at M_PACKED rows (body_counts), lm_head at the B decode
+    rows and at the chunk's last row; with the int8 cache, one
+    decode-attention launch a layer (the decode segment; the chunk segment
+    attends in plain PyTorch)."""
+    want = body_counts(cfg, params, M_PACKED)
+    for rows in (B, 1):
+        name = qdot_kernel(params["lm_head"], rows)
         if name:
             want[name] += 1
     if kv_quant:
-        want["int8_decode_attention"] += L
+        want["int8_decode_attention"] += cfg.num_hidden_layers
+    return want
+
+
+def t2i_counts(cfg, params, n_prompt: int, steps: int) -> Counter:
+    """Kernel launches of one generate_image (batch 1, no int8 cache, no
+    a8): the prompt pass, B1 once a layer and the dual-path body at
+    n_prompt rows; then `steps` dual decode steps, the body at 1 row; each
+    with lm_head at its last row (the vision heads are einsums, no
+    kernel)."""
+    want = Counter({k["name"]: 0 for k in KERNELS})
+    want["flash_bridged_attention"] = cfg.num_hidden_layers
+    head = qdot_kernel(params["lm_head"], 1)
+    want.update(body_counts(cfg, params, n_prompt))
+    for name, n in body_counts(cfg, params, 1).items():
+        want[name] += n * steps
+    if head:
+        want[head] += 1 + steps
     return want
 
 
@@ -3118,10 +3512,15 @@ def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS, regions=(),
     """Run fn under torch.profiler: print its wall and device time and the
     kernels that take the most device time, and the device time of the
     kernels run inside each record_function region named in `regions`;
-    return fn's result. `out` receives wall_ms and device_ms."""
+    return fn's result. `out` receives wall_ms and device_ms. The host's
+    operators are traced only where a region is asked for: their events
+    (several for each kernel) cost the profiler seconds to collect and
+    sort at a decode step's scale."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_all = time.perf_counter()
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if regions else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -3133,7 +3532,7 @@ def profiled(card: str, label: str, fn, rows: int = PROFILE_ROWS, regions=(),
                      key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile {label}: {wall * 1e3:.3f} ms wall, {device_ms:.3f} "
-          f"ms device [{card}]")
+          f"ms device (the profile took {time.perf_counter() - t_all:.2f} s in all) [{card}]")
     if out is not None:
         out.update(wall_ms=wall * 1e3, device_ms=device_ms)
     for r in regions:
@@ -3398,51 +3797,6 @@ def noised(tree, g: torch.Generator):
     return tree + (torch.randn(tree.shape, generator=g, device=tree.device) * 0.02).to(tree.dtype)
 
 
-def vq_decoder_tree(vq_cfg, g: torch.Generator, dtype) -> dict:
-    """Seeded post_quant_conv and conv decoder at vq_cfg's shapes, in the
-    port's layout (HWIO convs), walking the ported decoder_plan."""
-    from libra_tpu_torch.models.vqgan import decoder_plan
-    dev = g.device
-
-    def randn(*shape, std=0.02):
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
-
-    def conv(k, cin, cout):
-        return {"w": randn(k, k, cin, cout, std=(k * k * cin) ** -0.5), "b": randn(cout)}
-
-    def gn(c):
-        return {"scale": 1 + randn(c), "bias": randn(c)}
-
-    def resnet(cin, cout):
-        p = {"norm1": gn(cin), "conv1": conv(3, cin, cout), "norm2": gn(cout),
-             "conv2": conv(3, cout, cout)}
-        if cin != cout:
-            p["nin_shortcut"] = conv(1, cin, cout)
-        return p
-
-    def attn(c):
-        return {"norm": gn(c), **{n: conv(1, c, c) for n in ("q", "k", "v", "proj_out")}}
-
-    levels, final = decoder_plan(vq_cfg)
-    mid = vq_cfg.ch * vq_cfg.ch_mult[-1]
-    dec = {"conv_in": conv(3, vq_cfg.z_channels, mid), "mid_block_1": resnet(mid, mid),
-           "mid_attn_1": attn(mid), "mid_block_2": resnet(mid, mid), "norm_out": gn(final),
-           "conv_out": conv(3, final, vq_cfg.out_ch), "up": []}
-    if vq_cfg.norm_first:
-        dec["first_norm"] = gn(vq_cfg.z_channels)
-    for lev in levels:
-        cin, entry = lev["block_in"], {"block": [], "attn": []}
-        for _ in range(vq_cfg.num_res_blocks + 1):
-            entry["block"].append(resnet(cin, lev["block_out"]))
-            cin = lev["block_out"]
-            if lev["has_attn"]:
-                entry["attn"].append(attn(cin))
-        if lev["up_scale"] is not None:
-            entry["upsample_conv"] = conv(3, cin, cin)
-        dec["up"].append(entry)
-    return {"post_quant_conv": conv(1, vq_cfg.embed_dim, vq_cfg.z_channels), "decoder": dec}
-
-
 def host(t: torch.Tensor) -> torch.Tensor:
     """A contiguous CPU copy of t (a view saves alone, not its storage)."""
     return t.detach().contiguous().cpu()
@@ -3584,8 +3938,8 @@ def checkpoint_path(card: str, dev, cfg, vq_cfg, vq_params, main: Counter) -> di
     two leaves a mapping could swap are equal) through this script's
     inverse mappings: config.json, the decoder's state dict in two
     pytorch_model-*.bin shards, vqgan.ckpt (quant and post-quant convs and
-    the conv decoder at the default VQGANConfig's shapes, from the ported
-    decoder_plan, and a loss.* key), the nested CLIP ViT-L/14-336 dir
+    the conv decoder at the default VQGANConfig's shapes, from the
+    package's init_params, and a loss.* key), the nested CLIP ViT-L/14-336 dir
     (config.json + weights); no YAML (the card has no PyYAML): the YAML
     loader is patched to give the spec the YAML would (the two-tap
     select_layer, the nested dir). Loaded through
@@ -3596,9 +3950,10 @@ def checkpoint_path(card: str, dev, cfg, vq_cfg, vq_params, main: Counter) -> di
     loaded trees answers one text and one pixels request (the fp32 CLIP
     tree beside the bf16 decoder): each request's tokens equal to a
     ServingEngine's over the source trees (CLIP and VQGAN widened to
-    fp32), each wave's equal to its replay; launches counted (B1).
-    Returns the load's seconds, the checkpoint's bytes and the phase's
-    seconds."""
+    fp32), each wave's equal to its replay; launches counted (B1). Last,
+    generate_image (greedy) on the loaded trees: tokens equal to the same
+    call on the source trees, pixels bit for bit. Returns the load's
+    seconds, the checkpoint's bytes and the phase's seconds."""
     import tempfile
     from libra_tpu_torch.config import VisionTokenizerSpec
     from libra_tpu_torch.pipeline import LibraPipeline, _load_pretrained
@@ -3612,8 +3967,9 @@ def checkpoint_path(card: str, dev, cfg, vq_cfg, vq_params, main: Counter) -> di
     with torch.no_grad():
         src = noised(decoder_params(small, dev), g)
         clip_src = noised(vq_params["clip"], g)
-        vq_src = {"quant_conv": noised(vq_params["quant_conv"], g),
-                  **vq_decoder_tree(vq_cfg, g, torch.bfloat16)}
+        # the quant convs and the conv decoder of the package's init_params
+        vq_src = noised({k: vq_params[k] for k in ("quant_conv", "post_quant_conv",
+                                                   "decoder")}, g)
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
         t0 = time.perf_counter()
@@ -3684,6 +4040,28 @@ def checkpoint_path(card: str, dev, cfg, vq_cfg, vq_params, main: Counter) -> di
             a["text"] != app.text(res[0]) for a, (_, res) in zip(answers, waves)):
         raise AssertionError(f"checkpoint serve: launches {dict(got)}, waves "
                              f"{len(waves)}, answers {answers}")
+    # text-to-image on the loaded trees against the source trees (one text
+    # tokenizer, so the caption's ids agree): equal tokens, pixels bit for bit
+    zero_counts()
+    pixels, res, n = image_call(pipe, temperature=0.0)
+    torch.cuda.synchronize()
+    got_t2i = read_counts()
+    main.update(got_t2i)
+    assert_counts("checkpoint t2i", got_t2i,
+                  t2i_counts(small, params, n, small.max_vision_token_length - 1), card)
+    src_pipe = t2i_pipeline(small, src, vq_cfg, widened(dict(vq_src, clip=clip_src)),
+                            tok.text_tokenizer)
+    want_px, want, _ = image_call(src_pipe, temperature=0.0)
+    del src_pipe
+    if not (torch.equal(res.sequences, want.sequences) and np_finite(pixels)
+            and (pixels == want_px).all()):
+        raise AssertionError(f"checkpoint t2i: the loaded trees' image differs from the "
+                             f"source trees': tokens equal "
+                             f"{torch.equal(res.sequences, want.sequences)}, pixels "
+                             f"max abs diff {abs(pixels - want_px).max()}")
+    print(f"checkpoint t2i: generate_image (greedy) on the loaded trees: "
+          f"{res.sequences.shape[-1] - n} tokens equal to the source trees', pixels "
+          f"{pixels.shape} bit for bit; launches {dict(got_t2i)} [{card}]")
     out = dict(load_s=load_s, write_s=write_s, gb=n_bytes / 1e9,
                phase_s=time.perf_counter() - t_phase)
     print(f"checkpoint serve: a text and a pixels request through ServeApp over the "
@@ -4140,6 +4518,13 @@ def main() -> int:
         delta_library_ms=delta[False]["library_ms"], delta_unbridged_ms=delta[False]["ms"],
         max_abs_err=max(report["flash_bridged_attention"]["max_abs_err"],
                         *(r["max_abs_err"] for r in delta.values())))
+    # and at the t2i prompt pass: B = 1, Nq = 13, its cache of Nq + 578 keys
+    t2i = check_flash_t2i(card, dev)
+    main_t2i = t2i[max(t2i)]
+    report["flash_bridged_attention"].update(
+        {f"t2i_{k}": main_t2i[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        max_abs_err=max(report["flash_bridged_attention"]["max_abs_err"],
+                        *(r["max_abs_err"] for r in t2i.values())))
     report["flash_bridged_attention_bwd"] = check_flash_bwd(card, dev)
     mm = check_matmuls(card, dev)
     da = check_decode_attention(card, dev)
@@ -4188,15 +4573,18 @@ def main() -> int:
     with torch.no_grad():
         vq_params = vqgan.init_params(torch.Generator(device=dev).manual_seed(SEED),
                                       vq_cfg, dev, torch.bfloat16)
+    # the encode side in bf16 (the fused prompt pass's CLIP), the decode
+    # side (post_quant_conv, the conv decoder) in fp32, as libra_tpu's
+    vq_params.update({k: widened(vq_params[k]) for k in ("post_quant_conv", "decoder")})
     L = cfg.num_hidden_layers
     print(f"launches per text decode step in a quantized tree: 7 projections x "
           f"{L} layers + lm_head = {7 * L + 1} matmul launches; with the int8 "
           f"cache, {L} decode-attention launches (1 a layer) [{card}]")
     main_counts = Counter()
-    fused, chat, engine, spec, serve = {}, {}, {}, {}, {}
+    fused, chat, engine, spec, serve, t2i = {}, {}, {}, {}, {}, {}
     for mode in ("bf16", "int8", "int4"):
-        n_prompt, fused[mode], chat[mode], engine[mode], spec[mode], serve[mode] = full_path(
-            card, dev, cfg, vq_cfg, vq_params, mode, main_counts)
+        (n_prompt, fused[mode], chat[mode], engine[mode], spec[mode], serve[mode],
+         t2i[mode]) = full_path(card, dev, cfg, vq_cfg, vq_params, mode, main_counts)
         if n_prompt != NQ:
             raise AssertionError(f"prompt length {n_prompt}, expected {NQ}")
         torch.cuda.empty_cache()
@@ -4208,6 +4596,18 @@ def main() -> int:
               f"{v['oracle']['tok_per_iter']:.4f}; {v['verify_device_ms']:.3f} / "
               f"{v['verify_wall_ms']:.3f}; {v['phase_s']:.1f}" for mode, v in spec.items())
           + f" [{card}]")
+    img = t2i["bf16"]
+    print(f"t2i summary: bf16 {cfg.num_hidden_layers} layers, one image (top-k 100, "
+          f"temperature 1): TTFT {img['ttft_ms']:.3f} ms, image tokens/s "
+          f"{img['tok_s']:.3f} ({cfg.max_vision_token_length - 1} / (wall - TTFT)), VQGAN "
+          f"decode {img['decode_ms']:.3f} ms (TF32 vs off {img['tf32_rel']:.3g}), call wall "
+          f"{img['wall_s']:.3f} s, peak {img['peak_gb']:.3f} GB, {T2I_PROFILED} dual steps "
+          f"{img['steps_device_ms']:.3f} ms device / {img['steps_wall_ms']:.3f} ms wall; "
+          f"{T2I_LAYERS}-layer greedy: " + "; ".join(
+              f"{mode} {v['same']} tokens before the first difference with the plain "
+              f"versions, {v['ties']} near ties, logits "
+              + ", ".join(f"{r:.4g}" for r in v['rel'].values()) + f", {v['call_s']:.2f} s a "
+              f"call, phase {v['phase_s']:.1f} s" for mode, v in t2i.items()) + f" [{card}]")
     print("fused summary (TTFT ms, decode tok/s): " + "; ".join(
         f"{mode} split {k} {v['ttft_ms']:.3f} / {v['tok_s']:.3f}"
         for mode, runs in fused.items() for k, v in runs.items()) + f" [{card}]")

@@ -92,7 +92,7 @@ class LibraConfig:
             raise ValueError("vision_prediction_mode must be '1d' or '2d'")
         if self.vision_prediction_mode == "2d" or self.use_2d_rope:
             raise NotImplementedError(
-                "2D prediction and 2D RoPE are not ported yet (ROADMAP A10)")
+                "2D prediction and 2D RoPE are not ported yet (ROADMAP A10b)")
         if self.hidden_size % self.vision_down_ratio != 0:
             raise ValueError("hidden_size must be divisible by vision_down_ratio")
         resolve_dtype(self.dtype)
@@ -207,10 +207,9 @@ class CLIPVisionConfig:
 
 @dataclass(frozen=True)
 class VQGANConfig:
-    """Vision tokenizer: CLIP encoder tap + 1x1 quant conv + LFQ. The
-    decoder fields shape the checkpoint converter's decoder tree
-    (models/vqgan.decoder_plan); the decoder's forward pass is not ported
-    yet (ROADMAP A10)."""
+    """Vision tokenizer: CLIP encoder tap + 1x1 quant conv + LFQ, and the
+    conv decoder that turns codes back into pixels (models/vqgan.
+    decode_code); the decoder fields shape its tree (decoder_plan)."""
 
     embed_dim: int = 18                 # LFQ input dim = num_codebooks * log2(codebook)
     codebook_size: int = 512

@@ -1,7 +1,10 @@
-"""VQGAN vision tokenizer, encode side: CLIP feature tap -> 1x1 quant conv
--> LFQ. The conv decoder's and the conv encoder's forward passes wait for
-text-to-image (ROADMAP A10); their static plans (decoder_plan,
-encoder_plan) are here, for the checkpoint converter."""
+"""VQGAN vision tokenizer: CLIP feature tap -> 1x1 quant conv -> LFQ
+(encode), and LFQ's code lookup -> 1x1 post-quant conv -> the taming conv
+decoder (decode_code, text-to-image). Activations are NHWC and conv
+weights HWIO, as in ``libra_tpu/models/vqgan.py``; the decoder runs in the
+codes' fp32 whatever the params' dtype. The conv encoder's forward pass
+(``encoder_name: conv``) waits for VQGAN training (ROADMAP A11); its
+static plan (encoder_plan) is here, for the checkpoint converter."""
 
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 from libra_tpu_torch.config import VQGANConfig
 from libra_tpu_torch.models import clip as clip_model
 from libra_tpu_torch.models import lfq
+from libra_tpu_torch.ops.conv import conv2d, group_norm, nearest_upsample, swish
 
 Params = Dict[str, Any]
 
@@ -21,19 +25,31 @@ def lfq_spec(cfg: VQGANConfig) -> lfq.LFQSpec:
                        num_codebooks=cfg.num_codebook, dim=cfg.embed_dim)
 
 
+def _conv_init(gen, kh, kw, cin, cout, device, dtype) -> Params:
+    w = torch.randn((kh, kw, cin, cout), generator=gen, dtype=torch.float32,
+                    device=device) * (kh * kw * cin) ** -0.5
+    return {"w": w.to(dtype), "b": torch.zeros((cout,), dtype=dtype, device=device)}
+
+
+def _gn_init(c, device, dtype) -> Params:
+    return {"scale": torch.ones((c,), dtype=dtype, device=device),
+            "bias": torch.zeros((c,), dtype=dtype, device=device)}
+
+
 def init_params(gen: torch.Generator, cfg: VQGANConfig, device="cuda",
                 dtype=torch.float32) -> Params:
-    """The encode side's tree (`clip`, `quant_conv`) with the JAX tree's
-    key paths and shapes. quant_conv keeps its HWIO (1, 1, Cin, Cout)
-    shape. `gen` must live on `device`."""
-    cin = cfg.clip_feature_dim
-    w = torch.randn((1, 1, cin, cfg.embed_dim), generator=gen,
-                    dtype=torch.float32, device=device) * cin ** -0.5
+    """The whole tree (`clip`, `quant_conv`, `post_quant_conv`, `decoder`)
+    with the JAX tree's key paths and shapes; convs keep their HWIO
+    shapes. `gen` must live on `device`."""
+    # quant_conv is drawn before the CLIP tower, the decode side after
+    # both: a seeded encode side keeps the values it had without a decoder
+    quant_conv = _conv_init(gen, 1, 1, cfg.clip_feature_dim, cfg.embed_dim, device, dtype)
     return {
         "clip": clip_model.init_params(gen, cfg.clip, device, dtype),
-        "quant_conv": {"w": w.to(dtype),
-                       "b": torch.zeros((cfg.embed_dim,), dtype=dtype,
-                                        device=device)},
+        "quant_conv": quant_conv,
+        "post_quant_conv": _conv_init(gen, 1, 1, cfg.embed_dim, cfg.z_channels,
+                                      device, dtype),
+        "decoder": init_decoder_params(gen, cfg, device, dtype),
     }
 
 
@@ -61,6 +77,97 @@ def decoder_plan(cfg: VQGANConfig):
                            up_scale=up_scale))
         block_in = block_out
     return levels, block_in
+
+
+def init_decoder_params(gen: torch.Generator, cfg: VQGANConfig, device="cuda",
+                        dtype=torch.float32) -> Params:
+    """The taming decoder's tree with the JAX tree's key paths and shapes:
+    convs N(0, 1 / fan_in) with zero biases, GroupNorms unit scale and
+    zero bias. `gen` must live on `device`."""
+    def conv(k, cin, cout):
+        return _conv_init(gen, k, k, cin, cout, device, dtype)
+
+    def gn(c):
+        return _gn_init(c, device, dtype)
+
+    def resnet(cin, cout):
+        p = {"norm1": gn(cin), "conv1": conv(3, cin, cout),
+             "norm2": gn(cout), "conv2": conv(3, cout, cout)}
+        if cin != cout:
+            p["nin_shortcut"] = conv(1, cin, cout)
+        return p
+
+    def attn(c):
+        return {"norm": gn(c), **{n: conv(1, c, c) for n in ("q", "k", "v", "proj_out")}}
+
+    levels, final_ch = decoder_plan(cfg)
+    mid_ch = cfg.ch * cfg.ch_mult[-1]
+    p: Params = {
+        "conv_in": conv(3, cfg.z_channels, mid_ch),
+        "mid_block_1": resnet(mid_ch, mid_ch),
+        "mid_attn_1": attn(mid_ch),
+        "mid_block_2": resnet(mid_ch, mid_ch),
+        "norm_out": gn(final_ch),
+        "conv_out": conv(3, final_ch, cfg.out_ch),
+        "up": [],
+    }
+    if cfg.norm_first:
+        p["first_norm"] = gn(cfg.z_channels)
+    for lev in levels:
+        cin, blocks, attns = lev["block_in"], [], []
+        for _ in range(cfg.num_res_blocks + 1):
+            blocks.append(resnet(cin, lev["block_out"]))
+            cin = lev["block_out"]
+            if lev["has_attn"]:
+                attns.append(attn(cin))
+        entry: Params = {"block": blocks, "attn": attns}
+        if lev["up_scale"] is not None:
+            entry["upsample_conv"] = conv(3, cin, cin)
+        p["up"].append(entry)
+    return p
+
+
+def _resnet_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = conv2d(swish(group_norm(x, **p["norm1"])), **p["conv1"])
+    h = conv2d(swish(group_norm(h, **p["norm2"])), **p["conv2"])
+    if "nin_shortcut" in p:
+        x = conv2d(x, **p["nin_shortcut"])
+    return x + h
+
+
+def _attn_block(p: Params, x: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
+    """Self-attention over the h * w positions, softmax in fp32."""
+    B, H, W, C = x.shape
+    d = C // num_heads
+    hn = group_norm(x, **p["norm"])
+    q, k, v = (conv2d(hn, **p[n]).reshape(B, H * W, num_heads, d).transpose(1, 2)
+               for n in ("q", "k", "v"))
+    s = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
+    a = torch.softmax(s.float(), dim=-1).to(x.dtype)
+    o = torch.matmul(a, v).transpose(1, 2).reshape(B, H, W, C)
+    return x + conv2d(o, **p["proj_out"])
+
+
+def decoder_forward(params: Params, cfg: VQGANConfig, z: torch.Tensor) -> torch.Tensor:
+    """z (B, h, w, z_channels) -> pixels (B, resolution, resolution,
+    out_ch): the mid block, then the levels bottom-up, each upsampled
+    (fractionally at level 1, to reach the resolution)."""
+    levels, _ = decoder_plan(cfg)
+    if cfg.norm_first:
+        z = group_norm(z, **params["first_norm"])
+    h = conv2d(z, **params["conv_in"])
+    h = _resnet_block(params["mid_block_1"], h)
+    h = _attn_block(params["mid_attn_1"], h, cfg.attn_num_heads)
+    h = _resnet_block(params["mid_block_2"], h)
+    for entry, lev in zip(params["up"], levels):
+        for i_block in range(cfg.num_res_blocks + 1):
+            h = _resnet_block(entry["block"][i_block], h)
+            if lev["has_attn"]:
+                h = _attn_block(entry["attn"][i_block], h, cfg.attn_num_heads)
+        if lev["up_scale"] is not None:
+            h = conv2d(nearest_upsample(h, lev["up_scale"]), **entry["upsample_conv"])
+    h = swish(group_norm(h, **params["norm_out"]))
+    return conv2d(h, **params["conv_out"])
 
 
 def encoder_plan(cfg: VQGANConfig):
@@ -95,3 +202,11 @@ def encode(params: Params, cfg: VQGANConfig, pixels: torch.Tensor) -> EncodeOutp
     h = feat @ qc["w"][0, 0].to(feat.dtype) + qc["b"].to(feat.dtype)   # 1x1 conv
     out = lfq.quantize(h, lfq_spec(cfg))
     return EncodeOutput(out.quantized, out.indices, feat)
+
+
+def decode_code(params: Params, cfg: VQGANConfig, indices: torch.Tensor) -> torch.Tensor:
+    """indices (B, h, w, Q) codebook ids -> pixels (B, S, S, out_ch) in
+    fp32: LFQ's codes, the 1x1 post-quant conv, the conv decoder."""
+    codes = lfq.indices_to_codes(indices, lfq_spec(cfg))
+    quant = conv2d(codes, **params["post_quant_conv"])
+    return decoder_forward(params["decoder"], cfg, quant)

@@ -1,11 +1,15 @@
-"""High-level inference pipeline: single-image VQA and captioning.
+"""High-level inference pipeline: single-image VQA and captioning, and
+text-to-image.
 
     pipe = LibraPipeline.from_pretrained("/path/to/libra-11b-chat",
                                          quantize="int8")
     answers = pipe.chat(["What is in this image?"], images=[image])
+    pixels = pipe.generate_image("a watercolor fox")   # (336, 336, 3)
 
 Covers v1 conversation prompt assembly with the 578-token image
 placeholder block and left-padded batched generation with the KV cache,
+text-to-image (``generate_image``: a prompt ending in BOI, a dual-path
+decode of one image block, the VQGAN decoder on its codes),
 and incremental multi-turn chat (``start_chat``: a ChatThread over a
 chat.ChatSession, whose later turns prefill only their own tokens), and
 loading a checkpoint in the reference layout (``from_pretrained``:
@@ -17,12 +21,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.data import conversation as conv_lib
 from libra_tpu_torch.generation import GenerationConfig, Generator
-from libra_tpu_torch.tokenization import IMG_PH, LibraTokenizer
+from libra_tpu_torch.tokenization import IMG_GEN, IMG_PH, LibraTokenizer
 
 
 def process_prompt(question: str, num_img_tokens: int = 578,
@@ -39,6 +44,12 @@ def process_prompt(question: str, num_img_tokens: int = 578,
                             else conv.roles[1], turn["content"])
     conv.append_message(conv.roles[1], None)   # generation cue "ASSISTANT:"
     return conv.get_prompt()
+
+
+def t2i_prompt(caption: str) -> str:
+    """A text-to-image prompt: the caption, then <img_gen> (tokenized as
+    BOI at vision index 0)."""
+    return caption.strip() + "\n " + IMG_GEN
 
 
 @dataclass
@@ -121,6 +132,33 @@ class LibraPipeline:
             outs.append(self.tokenizer.text_tokenizer.decode(
                 ids.tolist(), skip_special_tokens=True))
         return outs
+
+    def generate_image(self, caption: str, temperature: float = 1.0,
+                       top_k: int = 100,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Optional[np.ndarray]:
+        """Text-to-image: one image block (BOI + max_vision_token_length - 1
+        tokens) decoded through both paths every step, then the VQGAN
+        decoder; returns the pixels (S, S, 3) as host fp32 numpy, or None.
+        Greedy when temperature == 0, else top-k sampling from
+        `generator` (a seed-0 one on the pipeline's device when None)."""
+        with torch.inference_mode():
+            inputs = self._tokenize([t2i_prompt(caption)], images=None)
+        Mv = self.cfg.max_vision_token_length
+        text_tok = self.tokenizer.text_tokenizer
+        gen = GenerationConfig(
+            max_new_tokens=Mv, do_sample=temperature > 0,
+            temperature=max(temperature, 1e-5), top_k=top_k,
+            eos_token_id=text_tok.eos_token_id,
+            pad_token_id=text_tok.pad_token_id)
+        res = self.generator(inputs, gen, generator=generator)
+        N = inputs["input_ids"].shape[-1]
+        seq = res.sequences[:, 0]
+        # the prompt ends at BOI; the generated vision indices 1..Mv-1
+        # complete the block
+        block = torch.cat([seq[:, N - 1:N], seq[:, N:N + Mv - 1]], dim=-1)   # (Q, Mv)
+        decoded = self.tokenizer.image_tokenizer.decode(block[None])
+        return None if decoded is None else decoded[0].cpu().numpy()
 
     def start_chat(self, n_parallel: int = 1, max_len: int = 2048,
                    template: str = "v1", max_new_tokens: int = 512,

@@ -1,8 +1,10 @@
-"""Joint text + image tokenization (encode side).
+"""Joint text + image tokenization, both ways.
 
     tokenizer([{"language": [...], "vision": [...]}]) ->
         {input_ids (Q, B, N), attention_mask (B, N), vision_indices (B, N),
          coninous_signal (B, N, C) or None}
+    tokenizer.batch_decode(ids (Q, B, N)) ->
+        [{"language": str, "vision": pixels (n_images, S, S, 3) or None}]
 
 Text runs host-side through a pluggable text tokenizer (SimpleTextTokenizer,
 or HFTextTokenizer over a checkpoint's fast tokenizer); images run through
@@ -11,7 +13,9 @@ the text vocab size; each image becomes <BOI> + g*g tokens + <EOI>,
 scattered into the `<img_ph>` positions of the text. `vision_indices` is
 each token's index inside its image block, and max_vision_token_length for
 text. The misspelled key "coninous_signal" is kept for parity with the
-JAX package.
+JAX package. Decoding splits each codebook's ids at BOI/EOI pairs; the
+text goes to the text tokenizer, each image block through the VQGAN
+decoder (models/vqgan.decode_code) on the image tokenizer's device.
 """
 
 from __future__ import annotations
@@ -173,6 +177,37 @@ class ImageTokenizer:
         return {"input_ids": torch.cat([boi, ids, eoi], dim=-1),
                 "encoder_feat": out.feat.reshape(B, g * g, -1)}
 
+    def decode(self, token_ids) -> Optional[torch.Tensor]:
+        """token_ids: per image, per-codebook id lists (B, Q, N), or one
+        image's (Q, N); with or without BOI/EOI framing (stripped when a
+        BOI is present). Un-offset to codebook indices and decoded to
+        pixels (B, S, S, 3) fp32 on the params' device; None for no
+        images."""
+        if token_ids is None or len(token_ids) == 0:
+            return None
+        x = _host_ids(token_ids)
+        if x.ndim == 2:      # (Q, N): one image
+            x = x[None]
+        if (x == self.boi_token_id).any():
+            x = x[:, :, 1:-1]
+        Bq, Q, N = x.shape
+        g = int(round(N ** 0.5))
+        if g * g != N:
+            raise ValueError("image decode requires square token grids")
+        x = x.reshape(Bq, Q, g, g).transpose(0, 2, 3, 1) - self.offset
+        device = self.params["post_quant_conv"]["w"].device
+        with torch.inference_mode():
+            return vqgan_model.decode_code(self.params, self.cfg,
+                                           torch.as_tensor(x, device=device))
+
+
+def _host_ids(ids) -> np.ndarray:
+    """Token ids (nested lists, an array or a tensor anywhere) as int64
+    numpy on the host."""
+    if isinstance(ids, torch.Tensor):
+        return ids.detach().cpu().numpy().astype(np.int64)
+    return np.asarray(ids, np.int64)
+
 
 class LibraTokenizer:
     """Fuses text and image tokenization into decoder-ready tensors."""
@@ -262,3 +297,44 @@ class LibraTokenizer:
                 signal = signal[:, :max_length]
         return {"input_ids": input_ids, "attention_mask": mask,
                 "vision_indices": vision_indices, "coninous_signal": signal}
+
+    def batch_decode(self, token_ids, **kw) -> List[Dict[str, Any]]:
+        """token_ids (Q, B, N) -> per row {"language": text, "vision":
+        pixels or None}; kw goes to the text tokenizer's decode."""
+        arr = _host_ids(token_ids)
+        return [self.decode(arr[:, b], **kw) for b in range(arr.shape[1])]
+
+    def decode(self, token_ids, **kw) -> Dict[str, Any]:
+        """token_ids (Q, N), one row: codebook 0's text (an <img_ph> id
+        where each image stood) and the images, each decoded from all
+        codebooks' blocks."""
+        per_codebook = [self._split_text_image(row) for row in _host_ids(token_ids)]
+        text_ids = per_codebook[0][0]
+        n_images = len(per_codebook[0][1])
+        images = [[per_codebook[q][1][i] for q in range(len(per_codebook))]
+                  for i in range(n_images)]
+        return {"language": self.text_tokenizer.decode(text_ids, **kw),
+                "vision": self.image_tokenizer.decode(images) if n_images else None}
+
+    def _split_text_image(self, ids: np.ndarray):
+        """Split one codebook's ids at its BOI/EOI pairs into (text ids,
+        image blocks with their framing). The last id is dropped, as the
+        reference drops a trailing EOS."""
+        boi = np.nonzero(ids == self.image_tokenizer.boi_token_id)[0]
+        eoi = np.nonzero(ids == self.image_tokenizer.eoi_token_id)[0]
+        if len(boi) != len(eoi):
+            raise ValueError("Incomplete images found during decoding")
+        if len(boi) == 0:
+            return ids.tolist(), []
+        text_ids: List[int] = []
+        image_ids: List[List[int]] = []
+        cur = 0
+        for b, e in zip(boi, eoi):
+            if e < b:
+                raise ValueError("EOI occurs before BOI")
+            text_ids += ids[cur:b].tolist()
+            text_ids.append(self.text_tokenizer.img_ph_token_id)
+            image_ids.append(ids[b:e + 1].tolist())
+            cur = e + 1
+        text_ids += ids[cur:-1].tolist()
+        return text_ids, image_ids

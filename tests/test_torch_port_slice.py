@@ -116,6 +116,8 @@ def _flat_shapes(tree, prefix=""):
         for k, v in tree.items():
             out.update(_flat_shapes(v, f"{prefix}/{k}"))
         return out
+    if isinstance(tree, (list, tuple)):      # the VQGAN decoder's levels
+        return _flat_shapes(dict(enumerate(tree)), prefix)
     return {prefix: tuple(tree.shape)}
 
 
@@ -135,8 +137,8 @@ def test_init_params_tree_matches(kw):
 def test_vision_init_params_tree_matches():
     jvq = JVQGANConfig.tiny(select_layer=(-2, -1))
     full = jax.eval_shape(lambda: jvqgan.init_params(jax.random.PRNGKey(0), jvq))
-    # the encode side only: the conv decoder waits for text-to-image
-    want = _flat_shapes({k: full[k] for k in ("clip", "quant_conv")})
+    # the whole tree: the encode side, post_quant_conv and the conv decoder
+    want = _flat_shapes(full)
     got = _flat_shapes(tvqgan.init_params(
         torch.Generator().manual_seed(0), VQGANConfig.tiny(select_layer=(-2, -1)),
         device="cpu"))
