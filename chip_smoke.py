@@ -110,7 +110,24 @@ Phases, in order; any failure exits non-zero:
    the call's wall and peak memory, launches, the (336, 336, 3) pixels
    finite and equal to decode_code's on the same ids, decode_code against
    itself with TF32 off (relative L2 under 1e-2) and its time (best of 3),
-   torch.profiler over 4 dual steps. Then each tree's fused-pixels path
+   torch.profiler over 4 dual steps. Then each tree's 2D modes
+   (chip_smoke.twod_path): in bf16 one greedy image with 2D prediction and
+   2D RoPE at 8 layers (its own seeded tree, 2 * D-input vision heads and
+   the placeholder): TTFT, image tokens/s, launches, the block's framing,
+   every token held to the plain versions' choice along the same sequence,
+   a profile of 4 dual steps through the hidden ring; and the fused VQA
+   with 2D RoPE on the 32-layer tree (2D RoPE adds no parameter): TTFT and
+   decode tok/s, launches, two runs equal. In every tree, on two layers at
+   full width: the 2D-RoPE fused VQA's 64 tokens against the plain
+   versions under the tie rule; a 2D-RoPE ChatSession's turn 2 against the
+   Generator re-prefilling the history (a8_prefill off on both sides, the
+   int4 leaves weight-only: one function) under the tie rule; the 2D
+   image's first 64 tokens (past one grid row, so the ring's
+   up-neighbours are read) held to the plain versions; and the
+   ServingEngine's 4 t2i requests decoded in lockstep through the per-slot
+   ring, tokens equal to the Generator's on the same prompts, merged
+   prefill off; each with launches derived from the config (2D changes no
+   kernel shape). Then each tree's fused-pixels path
    (bench.py:523-556's shape: 32 random text ids and the 578-token image
    block at img_start = 8, the four seeded uint8 images, B = 4): the fused
    image ids against ImageTokenizer's on the same pixels; on two layers at
@@ -172,7 +189,9 @@ Phases, in order; any failure exits non-zero:
    the installed requests and tokens/s each way; on two layers at full
    width each installed request's first two logits bit for bit those of
    a second merged run, and against the same run with the plain
-   versions (and, bf16, against merged_prefill=False with the prompt
+   versions (every run after the first feeds each request's first decode
+   step the first run's prompt-end token, so a near tie there cannot
+   make two runs compare different steps) (and, bf16, against merged_prefill=False with the prompt
    pass's attention plain, as the chunk segment's is). Then
    each tree's HTTP server (libra_tpu_torch.serve: ServeApp + make_server
    on a localhost port, the engine phase's settings, max_batch 4, bucket
@@ -332,6 +351,12 @@ E2E_TOL_QUANT = 0.05
 T2I_CAPTION = "a watercolor painting of a small red fox in the snow"
 T2I_LAYERS = 2
 T2I_PROFILED = 4
+# phase 6's 2D modes (twod_path): the image with 2D prediction and 2D RoPE
+# at TWOD_IMAGE_LAYERS layers (full width); on two layers, TWOD_STEPS new
+# tokens: past one grid row (R = 24), so that the decode reads its
+# up-neighbours from the hidden ring
+TWOD_IMAGE_LAYERS = 8
+TWOD_STEPS = 64
 # The decoded image with cuDNN's TF32 convolutions (PyTorch's default on the
 # card) against the same decode_code in full fp32: TF32 keeps 10 mantissa
 # bits (2^-11 relative a product), summed in fp32 over 9 * Cin terms a conv,
@@ -1588,6 +1613,8 @@ def full_path(card: str, dev, cfg, vq_cfg, vq_params, mode: str,
                      torch.stack(margins).cpu(), ttft, tok_s, main)
     profile_paths(card, cfg, params, args, g64, mode)
     t2i = t2i_path(card, dev, cfg, vq_cfg, vq_params, params, mode, main)
+    t2i["2d"] = twod_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
+                          torch.stack(images), main)
     fused, seqs = fused_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
                              torch.stack(images), main)
     chat = chat_path(card, dev, cfg, vq_cfg, vq_params, params, mode,
@@ -2709,6 +2736,306 @@ def t2i_image(card: str, dev, cfg, vq_cfg, vq_params, params, main: Counter) -> 
 
 
 # ---------------------------------------------------------------------------
+# The 2D modes
+# ---------------------------------------------------------------------------
+
+def twod(cfg, **kw):
+    """cfg with both 2D modes on: 2D vision prediction (the heads over a
+    hidden and its up / left neighbours, the decode's hidden ring) and 2D
+    RoPE."""
+    return cfg.replace(vision_prediction_mode="2d", use_2d_rope=True, **kw)
+
+
+def twod_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str, pixels,
+              main: Counter) -> dict:
+    """The 2D modes on this tree. In bf16: the 2D image (twod_image) and the
+    fused-pixels VQA with 2D RoPE at full depth on `params` (2D RoPE adds
+    no parameter): TTFT and decode tok/s, launches, two runs equal. Then on
+    two layers at full width (twod_small). Adds the counted runs' launches
+    to `main`; returns the figures."""
+    from libra_tpu_torch.generation import GenerationConfig, Generator
+    t_phase = time.perf_counter()
+    before = Counter(main)
+    out = {}
+    if mode == "bf16":
+        out["image"] = twod_image(card, dev, cfg, vq_cfg, vq_params, main)
+        rope = cfg.replace(use_2d_rope=True)
+        inputs = fused_inputs(rope, dev, pixels)
+        N, Mv = inputs["input_ids"].shape[-1], cfg.max_vision_token_length
+        g = Generator(params, rope, vq_params=vq_params, vq_cfg=vq_cfg)
+        g1 = GenerationConfig(max_new_tokens=1, eos_token_id=-1)
+        g64 = GenerationConfig(max_new_tokens=MAX_NEW, eos_token_id=-1)
+
+        def run(gen_cfg):
+            t = time.perf_counter()
+            res = g(inputs, gen_cfg)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, res
+        run(g1)
+        run(g64)                                 # warm-up
+        zero_counts()
+        ttft = min(run(g1)[0] for _ in range(2))
+        (t64a, r1), (t64b, r2) = run(g64), run(g64)
+        got = read_counts()
+        main.update(got)
+        assert_counts(f"bf16 2D-RoPE fused VQA ({cfg.num_hidden_layers} layers, 2 x 1 + "
+                      f"2 x {MAX_NEW} new tokens)", got,
+                      expected_counts(cfg, mode, False, 4, 2 * (MAX_NEW - 1),
+                                      split_prefills=4, text_rows=B * (N - Mv)), card)
+        if not torch.equal(r1.sequences, r2.sequences):
+            raise AssertionError("two 2D-RoPE greedy runs gave different tokens")
+        if bool((r1.sequences[:, :, N:] >= cfg.vocab_size).any()):
+            raise AssertionError("2D RoPE: text positions emitted vision ids")
+        tok_s = (MAX_NEW - 1) * B / (min(t64a, t64b) - ttft)
+        out["vqa"] = dict(ttft_ms=ttft * 1e3, tok_s=tok_s)
+        print(f"bf16 2D-RoPE fused VQA B={B} N={N} img_start={IMG_T}, "
+              f"{cfg.num_hidden_layers} layers: TTFT {ttft * 1e3:.3f} ms, decode "
+              f"{tok_s:.3f} tok/s (best of 2 each) [{card}]")
+    out["small"] = twod_small(card, dev, cfg, vq_cfg, vq_params, mode, pixels, main)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = dict(Counter(main) - before)
+    print(f"{mode} 2D phase: {out['phase_s']:.1f} s, its counted launches "
+          f"{out['launches']} [{card}]")
+    return out
+
+
+def twod_image(card: str, dev, cfg, vq_cfg, vq_params, main: Counter) -> dict:
+    """One image with both 2D modes on at TWOD_IMAGE_LAYERS layers, full
+    width (a seeded tree with its 2 * D-input vision heads and placeholder):
+    generate_image greedy, one 578-token block through the hidden ring,
+    then LFQ's code lookup and the VQGAN decoder. TTFT (the first sample on
+    the host), image tokens/s = (Mv - 1) / (wall - TTFT), launches from the
+    config, the block's framing, the pixels finite; its tokens held at every
+    step to the plain versions' choice along the same sequence
+    (forced_rule); torch.profiler over T2I_PROFILED dual steps with the
+    ring."""
+    import libra_tpu_torch.generation as G
+    from libra_tpu_torch.generation import GenerationConfig, _prefill, decode_micro_step
+    cfg8 = twod(cfg, num_hidden_layers=TWOD_IMAGE_LAYERS)
+    Mv, V = cfg.max_vision_token_length, cfg.vocab_size
+    params = decoder_params(cfg8, dev)
+    pipe = t2i_pipeline(cfg8, params, vq_cfg, vq_params)
+    sample, stamps = G.sample_tokens, []
+
+    def first_sample(logits, gen, generator=None):
+        if not stamps:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return sample(logits, gen, generator)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(G, "sample_tokens", first_sample):
+        pixels, res, n = image_call(pipe, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    main.update(got)
+    ttft = stamps[0] - t0
+    tok_s = (Mv - 1) / (wall - ttft)
+    label = f"bf16 2D image ({TWOD_IMAGE_LAYERS} layers, 2D prediction + 2D RoPE)"
+    assert_counts(label, got, t2i_counts(cfg8, params, n, Mv - 1), card)
+    block_structure(label, cfg8, pipe.tokenizer.image_tokenizer, res, n, card)
+    if pixels is None or pixels.shape != (vq_cfg.resolution,) * 2 + (3,) or not (
+            np_finite(pixels)):
+        raise AssertionError(f"{label}: pixels {None if pixels is None else pixels.shape}")
+    new_tokens = res.sequences[:, :, n:]
+    record = []
+    with plain_kernels(), forced_margins(G, record, V, new_tokens):
+        image_call(pipe, temperature=0.0)
+    same, ties = forced_rule(f"{label} tokens vs the plain versions", new_tokens[:, 0],
+                             torch.stack(record).cpu(), E2E_TOL, card)
+    prof = {}
+    with torch.inference_mode():
+        st = _prefill(params, *t2i_args(pipe, dev), cfg=cfg8,
+                      gen=GenerationConfig(max_new_tokens=Mv, eos_token_id=-1))
+
+        def steps():
+            tok, cache, vi, pos = torch.argmax(st.logits, dim=-1), st.cache, st.vi_last, st.last_pos
+            for i in range(T2I_PROFILED):
+                st.mask_buf[:, n + i] = 1
+                logits, cache, vi, pos = decode_micro_step(params, cfg8, tok, st.mask_buf,
+                                                           cache, vi, pos, lang_only=False,
+                                                           ring=st.ring)
+                tok = torch.argmax(logits, dim=-1)
+
+        profiled(card, f"{label} {T2I_PROFILED} dual steps", steps, out=prof)
+    print(f"{label}: greedy, TTFT {ttft * 1e3:.3f} ms, image tokens/s {tok_s:.3f} "
+          f"({Mv - 1} / (wall - TTFT)), call wall {wall:.3f} s; a dual step "
+          f"{prof['device_ms'] / T2I_PROFILED:.3f} ms device / "
+          f"{prof['wall_ms'] / T2I_PROFILED:.3f} ms wall [{card}]")
+    del pipe, st, params
+    return dict(ttft_ms=ttft * 1e3, tok_s=tok_s, wall_s=wall, same=same, ties=ties,
+                step_device_ms=prof["device_ms"] / T2I_PROFILED,
+                step_wall_ms=prof["wall_ms"] / T2I_PROFILED)
+
+
+def twod_requests(cfg, n: int):
+    """B t2i requests of n tokens: n - 1 random text ids (a torch.Generator
+    seeded per request), then BOI at vision index 0; no signal."""
+    import numpy as np
+    from libra_tpu_torch.serving import Request
+    Mv, Q = cfg.max_vision_token_length, cfg.vision_codebook_num
+    vi = np.full((n,), Mv, np.int64)
+    vi[-1] = 0
+    reqs = []
+    for i in range(B):
+        g = torch.Generator().manual_seed(SEED + 30 + i)
+        ids = torch.randint(3, cfg.vocab_size, (1, n), generator=g).expand(Q, n).clone()
+        ids[:, -1] = cfg.vocab_size + cfg.vision_vocab_size - 2          # BOI
+        reqs.append(Request(i, ids.numpy(), vi, max_new_tokens=TWOD_STEPS))
+    return reqs
+
+
+def twod_small(card: str, dev, cfg, vq_cfg, vq_params, mode: str, pixels,
+               main: Counter) -> dict:
+    """The 2D modes on two layers at full width (the quantized trees with
+    kv_quant and a8_prefill, as the main path runs them), each with
+    launches derived from the config:
+      1. the fused-pixels Generator with 2D RoPE, TWOD_STEPS text tokens,
+         against the same call with every plain version patched in
+         (tie_rule on the plain run's top-2 gaps);
+      2. a 2D-RoPE ChatSession's turn 2 (chat_turns' first two turns,
+         CHAT_NEW tokens each) against the Generator re-prefilling the
+         history (chat_history, real tokens only): tie_rule on the
+         re-prefill's gaps. Both sides compute one function: a8_prefill off
+         and, in int4, the leaves weight-only (as chat_path's bounded
+         check);
+      3. with both 2D modes on (the 2 * D-input heads' tree), the t2i
+         prompt's first TWOD_STEPS image tokens through the Generator's
+         dual decode and its ring, held at every step to the plain
+         versions' choice along the same tokens (forced_rule);
+      4. the ServingEngine on B t2i requests (twod_requests) at once,
+         decoded in lockstep through the per-slot ring: tokens equal to the
+         Generator's on the same B prompts.
+    Returns the figures."""
+    import libra_tpu_torch.generation as G
+    from libra_tpu_torch import chat as CH
+    from libra_tpu_torch.generation import GenerationConfig, Generator
+    from libra_tpu_torch.serving import ServingEngine
+    quant = mode != "bf16"
+    tol = E2E_TOL_QUANT if quant else E2E_TOL
+    qkw = dict(kv_quant=True, a8_prefill=True) if quant else {}
+    V, Mv = cfg.vocab_size, cfg.max_vision_token_length
+    out = {}
+
+    # --- 1. 2D-RoPE fused VQA ---
+    rope = cfg.replace(use_2d_rope=True, num_hidden_layers=2)
+    small = decoder_params(rope, dev, mode)
+    inputs = fused_inputs(rope, dev, pixels)
+    N = inputs["input_ids"].shape[-1]
+    g = Generator(small, rope, vq_params=vq_params, vq_cfg=vq_cfg)
+    gen = GenerationConfig(max_new_tokens=TWOD_STEPS, eos_token_id=-1,
+                           decode_modality="text", **qkw)
+    zero_counts()
+    res = g(inputs, gen)
+    got = read_counts()
+    main.update(got)
+    label = f"{mode} 2D-RoPE fused VQA, 2 layers"
+    assert_counts(label, got, expected_counts(rope, mode, quant, 1, TWOD_STEPS - 1,
+                                              split_prefills=1, text_rows=B * (N - Mv)),
+                  card)
+    margins = []
+    with plain_kernels(), logit_margins(G, margins, V):
+        want = g(inputs, gen)
+    rows = tie_rule(f"{label} tokens vs the plain versions", res.sequences[0, :, N:],
+                    want.sequences[0, :, N:], torch.stack(margins).cpu(), tol, card)
+    out["vqa_rows_equal"] = len(rows)
+    print(f"{label}: {len(rows)} of {B} rows equal to the plain versions' over "
+          f"{TWOD_STEPS} tokens [{card}]")
+
+    # --- 2. a 2D-RoPE chat session against the re-prefilling Generator ---
+    bounded = dict(qkw, a8_prefill=False)
+    tree = weight_only(small) if mode == "int4" else small
+    turns = chat_turns(rope, dev, pixels)[:2]
+    sess = CH.ChatSession(tree, rope, batch=B, max_len=S_CHAT, delta_bucket=CHAT_BUCKET,
+                          gen=GenerationConfig(eos_token_id=-1, **bounded),
+                          vq_params=vq_params, vq_cfg=vq_cfg)
+    zero_counts()
+    answers, shapes = [], []
+    for turn in turns:
+        used = sess.used
+        answers.append(sess.ask(turn, max_new_tokens=CHAT_NEW))
+        n = delta_width(turn)
+        shapes.append((n, sess.used - used - n, "pixels" in turn))
+    got = read_counts()
+    main.update(got)
+    label = f"{mode} 2D-RoPE chat session, 2 layers"
+    assert_counts(f"{label} (rows and steps {[s_[:2] for s_ in shapes]})", got,
+                  chat_counts(rope, mode, quant, shapes), card)
+    hist = chat_history(rope, turns, answers[:1])
+    margins = []
+    with logit_margins(G, margins, V):
+        re = Generator(tree, rope, vq_params=vq_params, vq_cfg=vq_cfg)(
+            hist, GenerationConfig(max_new_tokens=CHAT_NEW, eos_token_id=-1, **bounded))
+    n_hist = hist["input_ids"].shape[-1]
+    rows = tie_rule(f"{label} turn 2 vs the Generator re-prefilling the history "
+                    f"({n_hist} tokens)", answers[1].tokens[0], re.sequences[0, :, n_hist:],
+                    torch.stack(margins).cpu(), tol, card)
+    out["chat_rows_equal"] = len(rows)
+    print(f"{label}: turn 2's {CHAT_NEW} tokens equal to the re-prefill's in {len(rows)} "
+          f"of {B} rows {bounded} [{card}]")
+    del sess, small, tree, g
+
+    # --- 3. both 2D modes: the t2i prompt's first image tokens ---
+    both = twod(cfg, num_hidden_layers=2)
+    small = decoder_params(both, dev, mode)
+    pipe = t2i_pipeline(both, small, vq_cfg, vq_params)
+    args = t2i_args(pipe, dev)
+    n = args[0].shape[-1]
+    t2i = {"input_ids": args[0], "attention_mask": args[1], "vision_indices": args[2],
+           "coninous_signal": args[3]}
+    g = Generator(small, both)
+    gen = GenerationConfig(max_new_tokens=TWOD_STEPS, eos_token_id=-1)
+    zero_counts()
+    res = g(t2i, gen)
+    got = read_counts()
+    main.update(got)
+    label = f"{mode} 2D image, 2 layers, first {TWOD_STEPS} tokens"
+    assert_counts(label, got, t2i_counts(both, small, n, TWOD_STEPS - 1), card)
+    if not bool((res.sequences[:, :, n:] >= V).all()):
+        raise AssertionError(f"{label}: a text id inside the image block")
+    record = []
+    new_tokens = res.sequences[:, :, n:]
+    with plain_kernels(), forced_margins(G, record, V, new_tokens):
+        g(t2i, gen)
+    out["image_same"], out["image_ties"] = forced_rule(
+        f"{label} vs the plain versions", new_tokens[:, 0], torch.stack(record).cpu(),
+        tol, card)
+
+    # --- 4. the engine's lockstep t2i requests through the per-slot ring ---
+    reqs = twod_requests(both, n)
+    eng = ServingEngine(small, both, max_batch=B, max_len=n + TWOD_STEPS,
+                        gen=GenerationConfig(eos_token_id=-1, **qkw))
+    zero_counts()
+    results = eng.run(reqs)
+    got = read_counts()
+    main.update(got)
+    stats = eng.last_run_stats
+    label = f"{mode} 2D engine, 2 layers, {B} t2i requests"
+    assert_counts(f"{label} (prefill groups {stats['group_sizes']}, "
+                  f"{stats['n_decode']} decode chunks)", got,
+                  dual_counts(both, small, quant, B * n, B,
+                              stats["n_decode"] * eng.decode_chunk), card)
+    batch = {"input_ids": torch.stack([torch.from_numpy(r.input_ids) for r in reqs], 1)
+             .to(dev),
+             "attention_mask": torch.ones((B, n), dtype=torch.long, device=dev),
+             "vision_indices": torch.from_numpy(reqs[0].vision_indices).to(dev)[None]
+             .expand(B, n)}
+    want = g(batch, GenerationConfig(max_new_tokens=TWOD_STEPS, eos_token_id=-1, **qkw))
+    equal = all(torch.equal(torch.from_numpy(r.tokens), want.sequences[:, i, n:].cpu())
+                for i, r in enumerate(results))
+    print(f"{label}: lockstep tokens ({TWOD_STEPS} each, dual decode through the "
+          f"per-slot ring) equal to the Generator's on the same {B} prompts {equal}; "
+          f"merged prefill {'on' if eng._merged_on else 'off'} [{card}]")
+    if not equal or eng._merged_on:
+        raise AssertionError(f"{label}: engine tokens differ from the Generator's")
+    del pipe, small, g, eng
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Serving engine
 # ---------------------------------------------------------------------------
 
@@ -2795,21 +3122,33 @@ def packed_counts(cfg, params, kv_quant: bool) -> Counter:
     return want
 
 
-def t2i_counts(cfg, params, n_prompt: int, steps: int) -> Counter:
-    """Kernel launches of one generate_image (batch 1, no int8 cache, no
-    a8): the prompt pass, B1 once a layer and the dual-path body at
-    n_prompt rows; then `steps` dual decode steps, the body at 1 row; each
-    with lm_head at its last row (the vision heads are einsums, no
+def dual_counts(cfg, params, kv_quant: bool, prompt_rows: int, batch: int,
+                steps: int) -> Counter:
+    """Kernel launches of a dual-path generation of `batch` rows: the prompt
+    pass, B1 once a layer and the dual-path body at prompt_rows rows; then
+    `steps` dual decode steps, the body at `batch` rows and, with the int8
+    cache, one decode-attention launch a layer; each with lm_head at its
+    batch last rows (the vision heads, 1D or 2D, are einsums: no
     kernel)."""
     want = Counter({k["name"]: 0 for k in KERNELS})
     want["flash_bridged_attention"] = cfg.num_hidden_layers
-    head = qdot_kernel(params["lm_head"], 1)
-    want.update(body_counts(cfg, params, n_prompt))
-    for name, n in body_counts(cfg, params, 1).items():
-        want[name] += n * steps
+    want.update(body_counts(cfg, params, prompt_rows))
+    step = body_counts(cfg, params, batch)
+    head = qdot_kernel(params["lm_head"], batch)
     if head:
-        want[head] += 1 + steps
+        want[head] += 1
+        step[head] += 1
+    for name, n in step.items():
+        want[name] += n * steps
+    if kv_quant:
+        want["int8_decode_attention"] += cfg.num_hidden_layers * steps
     return want
+
+
+def t2i_counts(cfg, params, n_prompt: int, steps: int) -> Counter:
+    """Kernel launches of one generate_image (batch 1, no int8 cache, no
+    a8): dual_counts of an n_prompt-token prompt and `steps` steps."""
+    return dual_counts(cfg, params, False, n_prompt, 1, steps)
 
 
 def nth_call(fn, index: int, wrap):
@@ -3224,14 +3563,20 @@ def dispatch_order(eng, n: int, installed: list):
         yield
 
 
-def first_logits(eng, reqs, installed: Optional[list] = None) -> dict:
+def first_logits(eng, reqs, installed: Optional[list] = None,
+                 fed: Optional[dict] = None) -> dict:
     """Run reqs (queued in id order) through eng, whose decode chunks run
     one step (decode_chunk 1, so its merged chunks one iteration too), and
     return each request's first two logits: its prompt's last position's
     (after its prompt pass, or after the merged iteration that took its
     last chunk) and its first decode step's, read from its pool row at the
     end of the chunk that ran them. `installed` receives the ids of the
-    requests installed."""
+    requests installed. fed: {request id: (Q,) token}: the token the
+    request's first decode step takes, in place of its own prompt-end
+    choice (its carried logits row is replaced by one whose argmax is that
+    token, after the prompt-end logits are read), so that a run compared
+    with another takes the other's token where a near tie at the prompt end
+    could flip the argmax."""
     firsts, awaiting, installing = {}, {}, {}
     order = iter(range(len(reqs)))
     prefill, install, merged, decode = eng._prefill, eng._install, eng._merged, eng._decode
@@ -3240,6 +3585,12 @@ def first_logits(eng, reqs, installed: Optional[list] = None) -> dict:
         for slot, i in awaiting.items():
             firsts[i].append(state.logits[:, slot].clone())
         awaiting.clear()
+
+    def feed(state):
+        for slot, i in awaiting.items():
+            if fed is not None and i in fed:
+                row = torch.full_like(state.logits[:, slot], -1e30)
+                state.logits[:, slot] = row.scatter_(-1, fed[i][:, None], 1e30)
 
     def on_prefill(N, has_px, k, state, staged, slots):
         state = prefill(N, has_px, k, state, staged, slots)
@@ -3257,6 +3608,7 @@ def first_logits(eng, reqs, installed: Optional[list] = None) -> dict:
 
     def on_merged(state, prompts, flags, generator):
         f = flags.tolist()
+        feed(state)
         out, state = merged(state, prompts, flags, generator)
         stepped(state)
         pf = [slot for slot in range(eng.B) if f[2][slot]]
@@ -3266,8 +3618,9 @@ def first_logits(eng, reqs, installed: Optional[list] = None) -> dict:
             awaiting[pf[0]] = i
         return out, state
 
-    def on_decode(*args):
-        out, state = decode(*args)
+    def on_decode(state, *args):
+        feed(state)
+        out, state = decode(state, *args)
         stepped(state)
         return out, state
     if eng.decode_chunk != 1 or eng._Km != 1:
@@ -3446,15 +3799,19 @@ def merged_burst(card: str, cfg, params, mode: str, pixels, kw: dict,
               for r, b in zip(reqs, PARITY_BUDGETS)]
     two = []                                    # the installed requests
     got = first_logits(engine(small, small_cfg, None, 1), parity, two)
-    again = first_logits(engine(small, small_cfg, None, 1), parity)
+    # every other run's first decode steps take the checked run's
+    # prompt-end tokens: a near tie there may flip the argmax, and a step on
+    # another token is not the same step
+    fed = {i: got[i][0].argmax(dim=-1) for i in got}
+    again = first_logits(engine(small, small_cfg, None, 1), parity, fed=fed)
     with plain_kernels():
-        want = first_logits(engine(small, small_cfg, None, 1), parity)
-    ded_l = first_logits(engine(small, small_cfg, False, 1), parity)
+        want = first_logits(engine(small, small_cfg, None, 1), parity, fed=fed)
+    ded_l = first_logits(engine(small, small_cfg, False, 1), parity, fed=fed)
     # dedicated prefill with the prompt pass's attention in plain PyTorch, as
     # the merged chunk segment's (libra_tpu's bridged_attention: scores
     # rounded to bf16), not in the flash kernel (fp32 scores)
     ded_plain = first_logits(engine(small, small_cfg, False, 1, attn_impl="plain"),
-                             parity)
+                             parity, fed=fed)
     del small
     tol = E2E_TOL_QUANT if quant else E2E_TOL
     if not two:
@@ -4608,6 +4965,21 @@ def main() -> int:
               f"versions, {v['ties']} near ties, logits "
               + ", ".join(f"{r:.4g}" for r in v['rel'].values()) + f", {v['call_s']:.2f} s a "
               f"call, phase {v['phase_s']:.1f} s" for mode, v in t2i.items()) + f" [{card}]")
+    img2 = t2i["bf16"]["2d"]
+    print(f"2d summary: bf16 {TWOD_IMAGE_LAYERS}-layer image (2D prediction + 2D RoPE, "
+          f"greedy): TTFT {img2['image']['ttft_ms']:.3f} ms, image tokens/s "
+          f"{img2['image']['tok_s']:.3f}, call wall {img2['image']['wall_s']:.3f} s, a dual "
+          f"step {img2['image']['step_device_ms']:.3f} ms device / "
+          f"{img2['image']['step_wall_ms']:.3f} ms wall, {img2['image']['same']} tokens "
+          f"before the first difference with the plain versions; bf16 "
+          f"{cfg.num_hidden_layers}-layer 2D-RoPE fused VQA: TTFT "
+          f"{img2['vqa']['ttft_ms']:.3f} ms, decode {img2['vqa']['tok_s']:.3f} tok/s; "
+          "2 layers (VQA rows, chat rows equal; image tokens before a difference, near "
+          "ties; phase s): " + "; ".join(
+              f"{mode} {v['2d']['small']['vqa_rows_equal']}, "
+              f"{v['2d']['small']['chat_rows_equal']}; {v['2d']['small']['image_same']}, "
+              f"{v['2d']['small']['image_ties']}; {v['2d']['phase_s']:.1f}"
+              for mode, v in t2i.items()) + f" [{card}]")
     print("fused summary (TTFT ms, decode tok/s): " + "; ".join(
         f"{mode} split {k} {v['ttft_ms']:.3f} / {v['tok_s']:.3f}"
         for mode, runs in fused.items() for k, v in runs.items()) + f" [{card}]")

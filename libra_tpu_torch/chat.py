@@ -26,8 +26,10 @@ flushed into the cache and the index resyncs to the rows' maximum, one
 host read a turn. The cache holds gamma + 1 slots past max_len for the
 last verify window.
 
-Not ported yet: the 2D modes (A10; LibraConfig refuses them); a
-tensor-parallel mesh raises (A13).
+2D RoPE carries its base counter across turns (a delta's tokens step it
+by models/libra.rope_inc). 2D prediction is refused, as in libra_tpu: its
+hidden ring would need stitching across turns. A tensor-parallel mesh
+raises (A13).
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ def _delta_prefill(params, cache: M.KVCache, mask_buf, ids, vi, sig, pmask,
     """The delta's prompt pass at the cache's host index: its mask written
     into mask_buf (in place); with `pixels`, CLIP + LFQ and the split as in
     generation._prefill; positions carried on from pos_last (they continue
-    across turns, so not position_ids_from_mask); the forward under
+    across turns, so not position_ids_from_mask; with 2D RoPE pos_last is
+    the base counter, stepped by rope_inc, each token's (row, col) offset
+    added); the forward under
     a8_enabled(gen.a8_prefill); the last position's logits, weight-only.
     Returns (cache, logits, vi_last, pos_last)."""
     M._write_seq(mask_buf, pmask, cache.index)
@@ -65,7 +69,9 @@ def _delta_prefill(params, cache: M.KVCache, mask_buf, ids, vi, sig, pmask,
     if pixels is not None:
         ids, sig, text_span = fuse_pixels(cfg, gen, vq_params, vq_cfg, ids,
                                           pixels, img_start)
-    pos = pos_last[:, None] + torch.cumsum(pmask, dim=1)
+    inc = M.rope_inc(cfg, vi) * pmask if cfg.use_2d_rope else pmask
+    base = pos_last[:, None] + torch.cumsum(inc, dim=1)
+    pos = M.rope_positions(cfg, base, vi)
     impl = resolve_attn_impl(gen.attn_impl, ids.device)
     with a8_enabled(gen.a8_prefill):
         out = M.forward(params, cfg, ids, mask_buf, vi, sig, position_ids=pos,
@@ -73,7 +79,7 @@ def _delta_prefill(params, cache: M.KVCache, mask_buf, ids, vi, sig, pmask,
     vi_last = vi[:, -1]          # the delta is LEFT-padded: its last column is real
     logits = _last_position_logits(params, cfg, out.hidden_states,
                                    vi_last < cfg.max_vision_token_length, vi_last)
-    return out.cache, logits, vi_last, pos[:, -1]
+    return out.cache, logits, vi_last, base[:, -1]
 
 
 def _turn_impl(params, cache: M.KVCache, mask_buf, ids, vi, sig, pmask,
@@ -153,9 +159,10 @@ def _spec_turn_impl(params, cache: M.KVCache, mask_buf, hist, ids, vi, sig,
     # that later turns attend to it, the EOS </s> separator included
     xf = res.hist.gather(1, res.P[:, None])                         # (B, 1)
     M._write_seq(res.mask_buf, torch.ones_like(xf), res.P)
-    outf = M.forward(params, cfg, xf[None].expand(Q, B, 1), res.mask_buf,
-                     torch.full((B, 1), Mv, dtype=torch.int64, device=ids.device),
-                     None, position_ids=res.last_pos[:, None] + 1,
+    vi_f = torch.full((B, 1), Mv, dtype=torch.int64, device=ids.device)
+    outf = M.forward(params, cfg, xf[None].expand(Q, B, 1), res.mask_buf, vi_f,
+                     None, position_ids=M.rope_positions(cfg, res.last_pos[:, None] + 1,
+                                                         vi_f),
                      cache=res.cache, lang_only=True)
     # the lockstep resync: the turn's one host read
     cache = outf.cache._replace(index=int(res.P.max()) + 1)
@@ -178,6 +185,11 @@ class ChatSession:
     def __init__(self, params, cfg: LibraConfig, batch: int, max_len: int,
                  gen: Optional[GenerationConfig] = None, delta_bucket: int = 64,
                  mesh=None, vq_params=None, vq_cfg=None):
+        if cfg.vision_prediction_mode == "2d":
+            raise NotImplementedError(
+                "ChatSession supports vision_prediction_mode='1d' only "
+                "(the 2d hidden ring would need dynamic stitching across "
+                "turns); use Generator/pipeline.chat for 2d checkpoints")
         if mesh is not None:
             raise NotImplementedError(
                 "ChatSession(mesh=...): tensor-parallel chat is ROADMAP A13; "

@@ -90,9 +90,6 @@ class LibraConfig:
                              "image_feature_resolution**2 + 2")
         if self.vision_prediction_mode not in ("1d", "2d"):
             raise ValueError("vision_prediction_mode must be '1d' or '2d'")
-        if self.vision_prediction_mode == "2d" or self.use_2d_rope:
-            raise NotImplementedError(
-                "2D prediction and 2D RoPE are not ported yet (ROADMAP A10b)")
         if self.hidden_size % self.vision_down_ratio != 0:
             raise ValueError("hidden_size must be divisible by vision_down_ratio")
         resolve_dtype(self.dtype)

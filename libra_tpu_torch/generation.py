@@ -111,15 +111,20 @@ class GenerateResult(NamedTuple):
 
 def _last_position_logits(params, cfg: LibraConfig, hidden: torch.Tensor,
                           flag_last: torch.Tensor, vi_last: torch.Tensor,
+                          h_up: Optional[torch.Tensor] = None,
                           lang_only: bool = False) -> torch.Tensor:
     """Combined-vocab logits (Q, B, Vc) for the last position of `hidden`
-    (B, N, D). lang_only skips the vision heads: the vision slice is -inf
+    (B, N, D). h_up: (B, D) the hidden R - 1 steps back (2D prediction
+    mode only). lang_only skips the vision heads: the vision slice is -inf
     at text positions whatever its value, so zeros are exact there."""
     h = hidden[:, -1:]
     tl = M.compute_text_logits(params, h)
     if lang_only:
         vl = tl.new_zeros((cfg.vision_codebook_num,) + h.shape[:2]
                           + (cfg.vision_vocab_size,))
+    elif cfg.vision_prediction_mode == "2d":
+        vl = M.compute_vision_logits_2d(params, cfg, h, vi_last[:, None],
+                                        h_up=h_up[:, None])
     else:
         vl = M.compute_vision_logits(params, h)
     logits = M.assemble_logits(cfg, tl, vl, flag_last[:, None])[:, :, 0]
@@ -130,28 +135,43 @@ def decode_micro_step(params, cfg: LibraConfig, tok: torch.Tensor,
                       mask_buf: torch.Tensor, cache: M.KVCache,
                       vi_last: torch.Tensor, pos_last: torch.Tensor,
                       active: Optional[torch.Tensor] = None,
-                      lang_only: bool = False):
-    """One decode step, shared by the Generator's loop and the serving
-    engine's decode chunk: advance vision_indices (auto-increment, clamped
-    at text) and positions, run the cached one-token forward, assemble the
-    logits. tok (Q, B) is the step's input token, already masked by the
-    caller, and mask_buf already holds the caller's write for its slot.
+                      lang_only: bool = False,
+                      ring: Optional[torch.Tensor] = None):
+    """One decode step, shared by the Generator's loop, the chat turn and
+    the serving engine's decode chunk: advance vision_indices
+    (auto-increment, clamped at text) and positions, run the cached
+    one-token forward, assemble the logits. Positions: +1 a step; with 2D
+    RoPE pos is the base counter, advanced by models/libra.rope_inc (+1 on
+    text and BOI, R + 1 on EOI, 0 inside an image), the token's (row, col)
+    offset added. tok (Q, B) is the step's input token, already masked by
+    the caller, and mask_buf already holds the caller's write for its slot.
     active=None: lockstep advance (the Generator: finished rows emit pads
     but vi/pos keep advancing); active (B,) bool: rows with active False
-    keep their vi and pos (idle serving slots). Returns
-    (logits, cache, vi_new, pos_new)."""
+    keep their vi and pos (idle serving slots, finished chat rows).
+    ring: 2D prediction's (B, R - 1, D) ring of the last hiddens, oldest
+    first: its oldest row is the step's up-neighbour, and the step's
+    hidden is pushed into it IN PLACE (rows with active False keep
+    theirs). Returns (logits, cache, vi_new, pos_new)."""
     Mv = cfg.max_vision_token_length
 
     def adv(new, old):
         return new if active is None else torch.where(active, new, old)
 
     vi_new = adv(torch.clamp_max(vi_last + 1, Mv), vi_last)
-    pos_new = adv(pos_last + 1, pos_last)
+    inc = M.rope_inc(cfg, vi_new) if cfg.use_2d_rope else 1
+    pos_new = adv(pos_last + inc, pos_last)
     step = M.forward(params, cfg, tok[:, :, None], mask_buf, vi_new[:, None],
-                     None, position_ids=pos_new[:, None], cache=cache,
-                     lang_only=lang_only)
+                     None, position_ids=M.rope_positions(cfg, pos_new[:, None],
+                                                         vi_new[:, None]),
+                     cache=cache, lang_only=lang_only)
+    h_up = None if ring is None else ring[:, 0]          # R - 1 steps back
     logits = _last_position_logits(params, cfg, step.hidden_states,
-                                   vi_new < Mv, vi_new, lang_only=lang_only)
+                                   vi_new < Mv, vi_new, h_up=h_up,
+                                   lang_only=lang_only)
+    if ring is not None:
+        pushed = torch.cat([ring[:, 1:], step.hidden_states.to(ring.dtype)], dim=1)
+        ring.copy_(pushed if active is None
+                   else torch.where(active[:, None, None], pushed, ring))
     return logits, step.cache, vi_new, pos_new
 
 
@@ -183,7 +203,26 @@ class PrefillState(NamedTuple):
     cache: M.KVCache         # index == N
     logits: torch.Tensor     # (Q, B, Vc) last-prompt-position logits
     vi_last: torch.Tensor    # (B,)
-    last_pos: torch.Tensor   # (B,)
+    last_pos: torch.Tensor   # (B,) position counter (2D RoPE: the base)
+    ring: Optional[torch.Tensor] = None       # (B, R - 1, D) 2D prediction's
+    #   ring of the last hiddens, oldest first (None in 1D mode)
+    h_up_last: Optional[torch.Tensor] = None  # (B, D) the last prompt
+    #   position's up-neighbour (2D prediction)
+
+
+def prompt_ring(cfg: LibraConfig, hidden: torch.Tensor):
+    """2D prediction's decode carry from the prompt pass's hidden (B, N, D):
+    (the ring of its last R - 1 hiddens, the last position's up-neighbour
+    h[N - 1 - (R - 1)]). A prompt shorter than R - 1 tokens is left-padded
+    with zeros, so that the ring stays exactly R - 1 deep; or (None, None)
+    in 1D mode."""
+    if cfg.vision_prediction_mode != "2d":
+        return None, None
+    Rb = max(cfg.image_feature_resolution - 1, 1)
+    h = hidden
+    if h.shape[1] < Rb:
+        h = torch.nn.functional.pad(h, (0, 0, Rb - h.shape[1], 0))
+    return h[:, -Rb:].clone(), h[:, max(h.shape[1] - 1 - Rb, 0)]
 
 
 def _prefill(params, input_ids, attention_mask, vision_indices,
@@ -197,7 +236,9 @@ def _prefill(params, input_ids, attention_mask, vision_indices,
     budget, so it asks for gamma + 1 more); the prompt
     forward (attention by gen.attn_impl, w8a8 with gen.a8_prefill, the
     language projections on the text rows with pixels and
-    gen.split_prefill); last-position logits (weight-only). JAX rounds an
+    gen.split_prefill); last-position logits (weight-only); 2D RoPE's
+    positions (get_2d_position_ids) and base counter, and 2D prediction's
+    hidden ring (prompt_ring). JAX rounds an
     int8 cache's length up to 128 for its TPU kernel; the port does not
     need to, and the extra slots are masked there anyway."""
     Q, B, N = input_ids.shape
@@ -212,19 +253,28 @@ def _prefill(params, input_ids, attention_mask, vision_indices,
     cache = M.init_cache(cfg, B, Sc, device=device, quantized=gen.kv_quant)
     mask_buf = torch.zeros((B, Sc), dtype=torch.int64, device=device)
     mask_buf[:, :N] = attention_mask
-    pos = M.position_ids_from_mask(attention_mask)
+    vi_last = vision_indices[:, -1]
+    if cfg.use_2d_rope:
+        pos = M.get_2d_position_ids(cfg, vision_indices, attention_mask)
+        Mv = cfg.max_vision_token_length
+        last_pos = pos[:, 0, -1] - M.make_2d_pos_offset(cfg, device)[
+            vi_last.clamp(0, Mv)][:, 0]
+    else:
+        pos = M.position_ids_from_mask(attention_mask)
+        last_pos = pos[:, -1]
     with a8_enabled(gen.a8_prefill):
         out = M.forward(params, cfg, input_ids, mask_buf, vision_indices,
                         contiguous_signal, position_ids=pos, cache=cache,
                         attn_impl=impl, text_span=text_span)
-    vi_last = vision_indices[:, -1]
+    ring, h_up_last = prompt_ring(cfg, out.hidden_states)
     logits = _last_position_logits(params, cfg, out.hidden_states,
                                    vi_last < cfg.max_vision_token_length,
-                                   vi_last)
+                                   vi_last, h_up=h_up_last)
     tokens = torch.zeros((Q, B, S), dtype=input_ids.dtype, device=device)
     tokens[:, :, :N] = input_ids
     return PrefillState(tokens=tokens, mask_buf=mask_buf, cache=out.cache,
-                        logits=logits, vi_last=vi_last, last_pos=pos[:, -1])
+                        logits=logits, vi_last=vi_last, last_pos=last_pos,
+                        ring=ring, h_up_last=h_up_last)
 
 
 def _generate_impl(params, input_ids, attention_mask, vision_indices,
@@ -255,7 +305,7 @@ def _generate_impl(params, input_ids, attention_mask, vision_indices,
             break
         logits, cache, vi_last, last_pos = decode_micro_step(
             params, cfg, next_tok, mask_buf, cache, vi_last, last_pos,
-            lang_only=lang_only)
+            lang_only=lang_only, ring=st.ring)
     return GenerateResult(sequences=tokens, num_generated=num_gen)
 
 

@@ -48,7 +48,7 @@ from libra_tpu_torch.ops.decode_attention import (decode_kernel_applicable,
 from libra_tpu_torch.ops.flash_bridge import flash_bridged_attention
 from libra_tpu_torch.ops.norm import rms_norm
 from libra_tpu_torch.ops.qlinear import qdot
-from libra_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from libra_tpu_torch.ops.rope import apply_rope, apply_rope_2d, rope_cos_sin
 from libra_tpu_torch.ops.routed import (gather_rows, low_rank_linear,
                                         routed_linear, routed_low_rank,
                                         select_by_flag, split_merge)
@@ -126,7 +126,9 @@ def init_layer_params(gen: torch.Generator, cfg: LibraConfig,
 
 def init_params(gen: torch.Generator, cfg: LibraConfig, device="cuda") -> Params:
     """Random-init parameter tree with the JAX tree's key paths and shapes.
-    `gen` must live on `device`."""
+    `gen` must live on `device`. In 2D prediction mode the vision heads
+    take 2 * D inputs and vision_hidden_placeholder is drawn last, after
+    every draw a 1D tree makes."""
     D, V = cfg.hidden_size, cfg.vocab_size
     Q, Vv = cfg.vision_codebook_num, cfg.vision_vocab_size
     S = cfg.contiguous_signal_size
@@ -142,7 +144,8 @@ def init_params(gen: torch.Generator, cfg: LibraConfig, device="cuda") -> Params
         "norm": torch.ones((D,), dtype=pd, device=device),
         "vision_norm": torch.ones((D,), dtype=pd, device=device),
         "lm_head": normal((D, V)),
-        "vision_lm_head": normal((Q, D, Vv)),
+        "vision_lm_head": normal((Q, 2 * D if cfg.vision_prediction_mode == "2d"
+                                  else D, Vv)),
     }
     if cfg.concat_signals:
         params["signal_proj"] = normal((S + D, D))
@@ -153,6 +156,8 @@ def init_params(gen: torch.Generator, cfg: LibraConfig, device="cuda") -> Params
     if cfg.use_vision_position_embedding:
         params["vision_position_embedding"] = normal(
             (cfg.max_vision_token_length, D))
+    if cfg.vision_prediction_mode == "2d":
+        params["vision_hidden_placeholder"] = normal((D,))
     return params
 
 
@@ -373,6 +378,59 @@ def position_ids_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(attention_mask == 0, torch.ones_like(pos), pos)
 
 
+def make_2d_pos_offset(cfg: LibraConfig, device=None) -> torch.Tensor:
+    """The (max_vision_token_length + 1, 2) offset table of 2D RoPE,
+    indexed by vision index: BOI -> (0, 0), grid cell (i, j) -> its
+    1-indexed (row, col), EOI and text -> (0, 0)."""
+    R = cfg.image_feature_resolution
+    i = torch.arange(1, R + 1, device=device)
+    grid = torch.stack([i[:, None].expand(R, R), i[None, :].expand(R, R)],
+                       dim=-1).reshape(-1, 2)
+    zeros = lambda n: torch.zeros((n, 2), dtype=torch.int64, device=device)  # noqa: E731
+    return torch.cat([zeros(1), grid, zeros(2)])
+
+
+def rope_inc(cfg: LibraConfig, vi: torch.Tensor) -> torch.Tensor:
+    """The 2D-RoPE base counter's step at a token of vision index vi: 1 on
+    text and BOI, R + 1 on EOI, 0 inside an image."""
+    Mv = cfg.max_vision_token_length
+    inc = ((vi == Mv) | (vi == 0)).long()
+    return torch.where(vi == Mv - 1, cfg.image_feature_resolution + 1, inc)
+
+
+def rope_positions(cfg: LibraConfig, base: torch.Tensor,
+                   vi: torch.Tensor) -> torch.Tensor:
+    """Position ids from per-token counters base (B, N) at vision indices
+    vi (B, N): base itself with 1D RoPE; with 2D RoPE (B, 2, N), base plus
+    the token's (row, col) offset (make_2d_pos_offset)."""
+    return _with_offsets(cfg, base, vi) if cfg.use_2d_rope else base
+
+
+def _with_offsets(cfg: LibraConfig, base: torch.Tensor,
+                  vi: torch.Tensor) -> torch.Tensor:
+    tab = make_2d_pos_offset(cfg, base.device)
+    off = tab[vi.clamp(0, cfg.max_vision_token_length)]            # (B, N, 2)
+    return (base[..., None] + off).transpose(1, 2)
+
+
+def get_2d_position_ids(cfg: LibraConfig, vision_indices: torch.Tensor,
+                        attention_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """2D-RoPE position ids (B, 2, N): the base counter advances by
+    rope_inc (masked tokens by 0) and starts at 0; in-image tokens add
+    their (row, col) offset; masked tokens are pinned to 1."""
+    step = rope_inc(cfg, vision_indices)
+    if attention_mask is not None:
+        # EOI keeps its R + 1 step even where masked, as the reference's
+        step = torch.where((attention_mask == 0)
+                           & (vision_indices != cfg.max_vision_token_length - 1),
+                           0, step)
+    pos = _with_offsets(cfg, torch.cumsum(step, dim=-1) - 1, vision_indices)
+    if attention_mask is not None:
+        pos = torch.where((attention_mask == 0)[:, None], 1, pos)
+    return pos
+
+
 # ---------------------------------------------------------------------------
 # Rematerialisation
 # ---------------------------------------------------------------------------
@@ -504,8 +562,9 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
             return routed_linear(h, flag, a[name], vp["wa"], vp["wb"],
                                  cfg.addition_mode, text_span=text_span)
 
-    q = apply_rope(_split_heads(rproj("q_proj"), H), cos, sin, position_ids)
-    k = apply_rope(_split_heads(rproj("k_proj"), H), cos, sin, position_ids)
+    rope = apply_rope_2d if cfg.use_2d_rope else apply_rope
+    q = rope(_split_heads(rproj("q_proj"), H), cos, sin, position_ids)
+    k = rope(_split_heads(rproj("k_proj"), H), cos, sin, position_ids)
     v = _split_heads(rproj("v_proj"), H)
 
     kb = vb = None
@@ -516,7 +575,7 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
         vb = _split_heads(routed_low_rank(
             h, flag, a["v_bridge_lang"]["wa"], a["v_bridge_lang"]["wb"],
             a["v_bridge_vis"]["wa"], a["v_bridge_vis"]["wb"]), H)
-        kb = apply_rope(kb, cos, sin, position_ids)  # rope is linear: rope(K+Kb)
+        kb = rope(kb, cos, sin, position_ids)  # rope is linear: rope(K+Kb)
 
     bufs = out = None
     if cache_slice is not None:
@@ -697,7 +756,9 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
         kv_flag = flag
         bias = causal_bias(attention_mask, N, N)
         if position_ids is None:
-            position_ids = position_ids_from_mask(attention_mask)
+            position_ids = (get_2d_position_ids(cfg, vision_indices, attention_mask)
+                            if cfg.use_2d_rope
+                            else position_ids_from_mask(attention_mask))
     else:
         S = cache.flag.shape[1]
         rope_len = max(cfg.max_position_embeddings, S)
@@ -762,6 +823,34 @@ def compute_text_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
 def compute_vision_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
     """(Q, B, N, Vv) from the per-codebook vision heads (1d mode)."""
     return torch.einsum("bnd,qdv->qbnv", h, params["vision_lm_head"].to(h.dtype))
+
+
+def compute_vision_logits_2d(params: Params, cfg: LibraConfig, h: torch.Tensor,
+                             vision_indices: torch.Tensor,
+                             h_up: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Q, B, N, Vv) through the 2D heads (2 * D inputs), in the masked-shift
+    form of the reference's augmented (R + 1) x (R + 1) map. Image blocks
+    are contiguous runs, so the entry at vision index i (predicting grid
+    cell c = i for i <= Mv - 3, row-major over R columns) reads:
+      * up(c) = h[t - (R - 1)] when c >= R, else the placeholder (h_up,
+        when given, is that hidden: the decode ring's oldest row);
+      * left(c) = h[t] when c == 0 (BOI) or c % R != 0, else the placeholder;
+      * entries at i in {Mv - 2, Mv - 1} take (h[t], placeholder), the
+        reference's flipped order.
+    Returns the einsum of those 2 * D inputs with the heads."""
+    R, Mv = cfg.image_feature_resolution, cfg.max_vision_token_length
+    vi = vision_indices
+    ph = params["vision_hidden_placeholder"].to(h.dtype).expand(h.shape)
+    if h_up is None:
+        h_up = F.pad(h, (0, 0, R - 1, 0))[:, :h.shape[1]]
+    grid = vi <= Mv - 3                                  # entries 0 .. R*R - 1
+    up_valid = (grid & (vi >= R))[..., None]
+    left_valid = (grid & ((vi == 0) | (vi % R != 0)))[..., None]
+    up = torch.where(up_valid, h_up.to(h.dtype), ph)
+    left = torch.where(left_valid, h, ph)
+    tail = (vi >= Mv - 2)[..., None]                     # pre-EOI and EOI
+    inp = torch.cat([torch.where(tail, h, up), torch.where(tail, ph, left)], dim=-1)
+    return torch.einsum("bnd,qdv->qbnv", inp, params["vision_lm_head"].to(h.dtype))
 
 
 def assemble_logits(cfg: LibraConfig, text_logits: torch.Tensor,

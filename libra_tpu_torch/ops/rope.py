@@ -32,3 +32,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     c = cos[position_ids].to(x.dtype)[:, :, None, :]   # (B, N, 1, d)
     s = sin[position_ids].to(x.dtype)[:, :, None, :]
     return x * c + _rotate_half(x) * s
+
+
+def apply_rope_2d(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  position_ids_2d: torch.Tensor) -> torch.Tensor:
+    """2D RoPE: x (B, N, H, d); position_ids_2d (B, 2, N) row and column
+    positions. The gathered (B, 2, N, d) rows are tiled over the heads, so
+    heads alternate row, col, row, col (the reference repeats the 2-entry
+    axis H // 2 times); the tiling is a broadcast over x viewed as
+    (B, N, H // 2, 2, d), with no (B, N, H, d) table built."""
+    B, N, H, d = x.shape
+    c = cos[position_ids_2d].to(x.dtype).permute(0, 2, 1, 3)[:, :, None]  # (B, N, 1, 2, d)
+    s = sin[position_ids_2d].to(x.dtype).permute(0, 2, 1, 3)[:, :, None]
+    out = (x.reshape(B, N, H // 2, 2, d) * c
+           + _rotate_half(x).reshape(B, N, H // 2, 2, d) * s)
+    return out.reshape(B, N, H, d)

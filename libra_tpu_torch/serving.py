@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over a recycling slot pool.
 
 The PyTorch counterpart of ``libra_tpu/serving.py``'s ``ServingEngine``,
-dedicated and merged chunked prefill and speculative decode included (the
-tensor-parallel mesh and the 2D modes are later slices). A fixed pool of
+dedicated and merged chunked prefill, speculative decode and the 2D modes
+included (the tensor-parallel mesh is a later slice). A fixed pool of
 ``max_batch`` slots, each owning an INDEPENDENT timeline of the pooled KV
 cache: the cache's index is a (B,) tensor of per-slot write offsets on
 the device (``models/libra.KVCache``'s per-row mode). A finished slot is
@@ -21,6 +21,9 @@ Three device phases, driven by a host scheduler:
     updated on the device. Requests may carry raw ``pixels`` + ``img_start``:
     CLIP + LFQ then run inside the prompt pass and the language projections
     run on the text rows only (``split_prefill``), as in the Generator.
+    In 2D prediction mode each slot's (R - 1)-deep hidden ring is
+    installed from the prompt pass; with 2D RoPE a slot's position is the
+    base counter.
   * ``_decode``: ``decode_chunk`` lockstep one-token steps with every
     carried tensor on the device (inactive slots masked, per-slot budgets
     decremented there), and ONE host readback of the chunk's tokens and
@@ -45,7 +48,8 @@ Three device phases, driven by a host scheduler:
     prompt pass keeps them in fp32). Like the decode chunk, it reads back
     once.
     Cold starts, raw-pixels requests and buckets that are not a multiple
-    of C (or longer than the prompt buffers) keep the dedicated prefill.
+    of C (or longer than the prompt buffers) keep the dedicated prefill;
+    spec decode and either 2D mode turn merged prefill off.
 
 The scheduler runs at most ONE prefill between decode chunks while any
 slot is decoding, so a burst of queued prompts stalls the pool by one
@@ -120,6 +124,8 @@ class SlotState(NamedTuple):
     pos_last: torch.Tensor    # (B,) position of the last token
     hist: Optional[torch.Tensor] = None   # (B, S) codebook-0 token history
     #   (spec decode's drafting; None without spec decode)
+    ring: Optional[torch.Tensor] = None   # (B, R - 1, D) 2D prediction's
+    #   hidden ring per slot (None in 1D mode), advanced in place
 
 
 class PromptBuffers(NamedTuple):
@@ -168,9 +174,9 @@ class ServingEngine:
         padding inside the slot), so prompt passes come in few shapes.
         decode_chunk: decode steps between two host readbacks.
         vq_params/vq_cfg enable raw-pixels requests (fused encode).
-        merged_prefill: None = on where supported (no spec decode, and
-        the cache holds a merged_chunk margin: max_len >= 2 *
-        merged_chunk), as in libra_tpu; True forces it (raising where
+        merged_prefill: None = on where supported (no spec decode, 1d
+        prediction, 1d RoPE, and the cache holds a merged_chunk margin:
+        max_len >= 2 * merged_chunk), as in libra_tpu; True forces it (raising where
         unsupported); False disables it. merged_chunk: the prompt tokens
         C each merged iteration consumes. max_prefill_group caps the grouped refill's k.
         The pool's length is max_len (libra_tpu rounds an int8 cache's up
@@ -229,9 +235,9 @@ class ServingEngine:
             if self.gen.decode_modality == "dual":
                 raise ValueError("spec_decode is text-mode only (decode_modality "
                                  "'text' or 'auto' over an all-text stream)")
-        # libra_tpu's rule; the port has no 2D modes (config.py refuses
-        # them), so spec decode and the margin decide
-        supported = self._gamma == 0 and self._Np >= self._C
+        # libra_tpu's rule: no spec decode, no 2D mode, a C-wide margin
+        supported = (self._gamma == 0 and cfg.vision_prediction_mode != "2d"
+                     and not cfg.use_2d_rope and self._Np >= self._C)
         if merged_prefill and not supported:
             raise ValueError(
                 "merged_prefill needs spec_decode == 0, 1d prediction, "
@@ -258,7 +264,10 @@ class ServingEngine:
                                dtype=torch.int64, device=dev),
             pos_last=torch.zeros((B,), dtype=torch.int64, device=dev),
             hist=(torch.zeros((B, S), dtype=torch.int64, device=dev)
-                  if self._gamma else None))
+                  if self._gamma else None),
+            ring=(torch.zeros((B, max(cfg.image_feature_resolution - 1, 1),
+                               cfg.hidden_size), dtype=cfg.compute_dtype, device=dev)
+                  if cfg.vision_prediction_mode == "2d" else None))
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device: on the card through pinned
@@ -306,6 +315,8 @@ class ServingEngine:
         state.logits[:, slots] = st.logits
         state.vi_last[slots] = st.vi_last
         state.pos_last[slots] = st.last_pos
+        if state.ring is not None:
+            state.ring[slots] = st.ring.to(state.ring.dtype)
         if state.hist is not None:
             # codebook-0 token history for the drafter (the fused ids with
             # pixels; the bucket's pad slots carry mask 0, never drafted)
@@ -324,7 +335,7 @@ class ServingEngine:
         its active flags; the new state). Nothing here reads the device on
         the host: the caller's readback of `out` is the chunk's one sync."""
         cfg, gen, params = self.cfg, self.gen, self.params
-        cache, mask, logits, vi_last, pos_last, hist = state
+        cache, mask, logits, vi_last, pos_last, hist, ring = state
         active, budget = flags[0].bool(), flags[1]
         toks, acts = [], []
         for _ in range(self.decode_chunk):
@@ -336,12 +347,12 @@ class ServingEngine:
             mask = M._write_seq(mask, active[:, None], cache.index)
             logits, cache, vi_last, pos_last = decode_micro_step(
                 params, cfg, tok, mask, cache, vi_last, pos_last,
-                active=active, lang_only=lang_only)
+                active=active, lang_only=lang_only, ring=ring)
             toks.append(tok)
             acts.append(active)
             active = active_next
         out = torch.cat([torch.stack(toks), torch.stack(acts)[:, None].long()], 1)
-        return out, SlotState(cache, mask, logits, vi_last, pos_last, hist)
+        return out, SlotState(cache, mask, logits, vi_last, pos_last, hist, ring)
 
     def _spec_decode(self, state: SlotState, flags: torch.Tensor):
         """The speculative decode chunk: `decode_chunk` draft+verify
@@ -367,7 +378,7 @@ class ServingEngine:
         cfg, gen, params = self.cfg, self.gen, self.params
         gamma, K = self._gamma, self._gamma + 1
         Q, Mv = cfg.vision_codebook_num, cfg.max_vision_token_length
-        cache, mask, logits, vi_last, pos_last, hist = state
+        cache, mask, logits, vi_last, pos_last, hist, ring = state
         active, budget = flags[0].bool(), flags[1]
         B, S = mask.shape
         dev = mask.device
@@ -390,7 +401,8 @@ class ServingEngine:
             # one (gamma+1)-token verify forward at per-row windows
             _update_window(mask, ones, P)
             out = M.forward(params, cfg, x[None].expand(Q, B, K), mask, vi_blk,
-                            None, position_ids=pos_last[:, None] + 1 + ar,
+                            None, position_ids=M.rope_positions(
+                                cfg, pos_last[:, None] + 1 + ar, vi_blk),
                             cache=cache, lang_only=True)
             c = torch.argmax(M.compute_text_logits(params, out.hidden_states), dim=-1)
 
@@ -421,7 +433,8 @@ class ServingEngine:
             logits = _last_position_logits(params, cfg, h_sel, text_flag, text_vi,
                                            lang_only=True)
             outs.append(torch.cat([x, cnt[:, None]], dim=1))
-        return torch.stack(outs), SlotState(cache, mask, logits, vi_last, pos_last, hist)
+        return torch.stack(outs), SlotState(cache, mask, logits, vi_last, pos_last,
+                                            hist, ring)
 
     def _init_prompts(self) -> PromptBuffers:
         cfg, B, Np, dev = self.cfg, self.B, self._Np, self.device
@@ -546,7 +559,7 @@ class ServingEngine:
         prompt buffers are only read."""
         cfg, gen, params, B, C, Np = self.cfg, self.gen, self.params, self.B, self._C, self._Np
         Q, Mv = cfg.vision_codebook_num, cfg.max_vision_token_length
-        cache, mask, last_logits, vi_last, pos_last, hist = state
+        cache, mask, last_logits, vi_last, pos_last, hist, ring = state
         S, T, dev = mask.shape[1], B + C, mask.device
         active, budget = flags[0].bool(), flags[1]
         pf, pf_off, pf_len, pf_budget = flags[2].bool(), flags[3], flags[4], flags[5]
@@ -633,7 +646,7 @@ class ServingEngine:
             pf = pf & ~(rowsel & pf_done)
             park_off = torch.where(pf_done, off + C, park_off)
         out = torch.cat([torch.stack(toks), torch.stack(acts)[:, None].long()], 1)
-        return out, SlotState(cache, mask, last_logits, vi_last, pos_last, hist)
+        return out, SlotState(cache, mask, last_logits, vi_last, pos_last, hist, ring)
 
     def warmup(self, example: Request, max_new: Optional[int] = None):
         """Run `example`-shaped synthetic requests through run() in the

@@ -112,7 +112,8 @@ def spec_decode_loop(params, hist, mask_buf, cache, pending, last_pos, P, *,
     including `pending` at slot P (positions > P stale); St >= max(P) +
     max_new + gamma + 1; mask_buf is 1 exactly on the KV-valid slots (slot
     P is not valid yet: pending's K/V lands during its verify pass);
-    cache.index is P, a (B,) tensor; last_pos is slot P - 1's position id.
+    cache.index is P, a (B,) tensor; last_pos is slot P - 1's position id
+    (with 2D RoPE its base counter: text tokens step it by 1).
     num_gen starts at 1 (the pending token is already emitted). hist,
     mask_buf and the cache's buffers are updated in place."""
     assert gen.spec_decode > 0 and not gen.do_sample
@@ -138,7 +139,8 @@ def spec_decode_loop(params, hist, mask_buf, cache, pending, last_pos, P, *,
         # ---- verify: one (gamma+1)-token cached forward ----
         x = torch.cat([pending[:, None], drafts], dim=1)            # (B, K)
         _update_window(mask_buf, ones, P)
-        pos_new = last_pos[:, None] + 1 + ar                        # (B, K)
+        # text tokens: with 2D RoPE the base counter, offset (0, 0)
+        pos_new = M.rope_positions(cfg, last_pos[:, None] + 1 + ar, vi_blk)
         out = M.forward(params, cfg, x[None].expand(Q, B, K), mask_buf, vi_blk,
                         None, position_ids=pos_new, cache=cache, lang_only=True)
         # text-mode argmax over the combined vocab == argmax over the

@@ -123,7 +123,11 @@ def fused_loss_fn(params, vq_params, cfg: LibraConfig, vq_cfg: VQGANConfig,
                     batch.vision_indices, sig, remat=remat,
                     attn_impl=resolve_attn_impl(attn_impl, ids.device))
     tl = M.compute_text_logits(params, out.hidden_states)
-    vl = M.compute_vision_logits(params, out.hidden_states)
+    if cfg.vision_prediction_mode == "2d":
+        vl = M.compute_vision_logits_2d(params, cfg, out.hidden_states,
+                                        batch.vision_indices)
+    else:
+        vl = M.compute_vision_logits(params, out.hidden_states)
     return M.multicodebook_loss(cfg, tl, vl, flag, labels,
                                 unified=cfg.unified_head)
 

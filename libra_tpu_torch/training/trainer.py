@@ -47,7 +47,10 @@ def _logits_loss(params: Any, cfg: LibraConfig, hidden: torch.Tensor,
                  terms: bool = False):
     flag = vision_indices < cfg.max_vision_token_length
     tl = M.compute_text_logits(params, hidden)
-    vl = M.compute_vision_logits(params, hidden)
+    if cfg.vision_prediction_mode == "2d":
+        vl = M.compute_vision_logits_2d(params, cfg, hidden, vision_indices)
+    else:
+        vl = M.compute_vision_logits(params, hidden)
     fn = M.multicodebook_loss_terms if terms else M.multicodebook_loss
     return fn(cfg, tl, vl, flag, labels, unified=cfg.unified_head)
 

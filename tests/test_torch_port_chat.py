@@ -32,7 +32,7 @@ from libra_tpu.tokenization import (ImageTokenizer as JImageTokenizer,
                                     SimpleTextTokenizer as JSimpleTok)
 from libra_tpu_torch import generation as tgen
 from libra_tpu_torch.chat import ChatSession
-from libra_tpu_torch.config import CLIPVisionConfig, LibraConfig, VQGANConfig
+from libra_tpu_torch.config import CLIPVisionConfig, VQGANConfig
 from libra_tpu_torch.data.processors import LibraEvalImageProcessor
 from libra_tpu_torch.models import libra as TM
 from libra_tpu_torch.params import from_numpy_tree
@@ -232,10 +232,9 @@ def test_t2i_turn_decodes_dual_path(tree, forwards):
 @pytest.mark.parametrize("tree", ["plain", "int8"])
 def test_session_guards(tree):
     cfg, jcfg, _, params = _setup(tree)
-    # the port's config refuses the 2D modes (A10), so no 2D config
-    # reaches the session, which has no 2D guard of its own
-    with pytest.raises(NotImplementedError, match="A10"):
-        LibraConfig.tiny(vision_prediction_mode="2d")
+    # 2D prediction: the session's own refusal, as libra_tpu's
+    with pytest.raises(NotImplementedError, match="1d"):
+        ChatSession(params, cfg.replace(vision_prediction_mode="2d"), batch=1, max_len=64)
     with pytest.raises(NotImplementedError, match="A13"):
         ChatSession(params, cfg, batch=1, max_len=64, mesh=object())
     with pytest.raises(ValueError, match="together"):

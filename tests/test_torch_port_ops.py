@@ -291,13 +291,6 @@ def test_tiny_configs_match():
         dataclasses.asdict(jcfg.VQGANConfig.tiny())
 
 
-@pytest.mark.parametrize("kw", [dict(use_2d_rope=True),
-                                dict(vision_prediction_mode="2d")])
-def test_2d_modes_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tcfg.LibraConfig.tiny(**kw)
-
-
 def test_from_numpy_tree_bf16_exact():
     x = np.asarray(jnp.asarray(_rs(8).randn(3, 4), jnp.bfloat16))
     assert x.dtype.name == "bfloat16"

@@ -25,7 +25,6 @@ from libra_tpu import spec_decode as jspec
 from libra_tpu.ops.pallas import decode_attention as JDA
 from libra_tpu_torch import generation as tgen
 from libra_tpu_torch import spec_decode as tspec
-from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.models import libra as TM
 from tests.test_torch_port_serving import TREES, _setup
 
@@ -277,13 +276,6 @@ def test_spec_rejects_sampling_dual_and_t2i():
         for g, G in ((jg, jgen), (tg, tgen)):
             with pytest.raises(ValueError):
                 g(inputs, G.GenerationConfig(max_new_tokens=4, spec_decode=3, **kw))
-
-
-def test_spec_2d_rope_is_refused_by_the_config():
-    """libra_tpu's test_spec_matches_2d_rope has no counterpart: the port's
-    config refuses 2D RoPE (ROADMAP A10), so no 2D config reaches the loop."""
-    with pytest.raises(NotImplementedError, match="A10"):
-        LibraConfig.tiny(use_2d_rope=True)
 
 
 def test_generation_config_spec_field_default():
