@@ -105,14 +105,15 @@ Phases, in order; any failure exits non-zero:
    the top one), the block's framing (BOI, vision ids on
    both codebooks, the forced newline after it), the prompt pass's and
    the first dual step's vision logits against the plain versions; in
-   bf16 then one full-depth image with generate_image's defaults (top-k
-   100, temperature 1, a seeded torch.Generator): TTFT, image tokens/s,
+   bf16 then one image on the 32-layer tree's first 8 layers with
+   generate_image's defaults (top-k 100, temperature 1, a seeded
+   torch.Generator): TTFT, image tokens/s,
    the call's wall and peak memory, launches, the (336, 336, 3) pixels
    finite and equal to decode_code's on the same ids, decode_code against
    itself with TF32 off (relative L2 under 1e-2) and its time (best of 3),
    torch.profiler over 4 dual steps. Then each tree's 2D modes
    (chip_smoke.twod_path): in bf16 one greedy image with 2D prediction and
-   2D RoPE at 8 layers (its own seeded tree, 2 * D-input vision heads and
+   2D RoPE at 4 layers (its own seeded tree, 2 * D-input vision heads and
    the placeholder): TTFT, image tokens/s, launches, the block's framing,
    every token held to the plain versions' choice along the same sequence,
    a profile of 4 dual steps through the hidden ring; and the fused VQA
@@ -224,8 +225,27 @@ Phases, in order; any failure exits non-zero:
    ms/step, tokens/s, MFU, peak memory, loss and grad_norm; frozen leaves
    bitwise unchanged, trainable leaves moved, launch counts as derived from
    the config; on two layers at full width the loss and trainable
-   gradients against the same step with the plain versions patched in;
-   torch.profiler's split of one step by kernel.
+   gradients against the same step with the plain versions patched in,
+   without dropout and with dropout 0.1 on every site but the attention
+   probabilities (the same dropout key both ways), and with attn_pdrop
+   0.1 too no flash launch and a finite loss; torch.profiler's split of
+   one step by kernel.
+7b. the training entry point: libra_tpu_torch.train.run on a run config
+   built as a dict (no PyYAML on the card): libra-11b at full width cut to
+   4 layers, bf16, frozen language, dropout 0.1 on every site but the
+   attention probabilities, the CLIP ViT-L/14-336 + LFQ tokenizer of
+   build_model_and_tokenizer's from-scratch branch (two taps), a
+   map-style dataset of LAION-format i2t / t2i pair samples built in the
+   script (seeded uint8 336x336 images normalized in numpy in place of
+   the JPEG decode, captions and label spans through the port's
+   caption_format), libra_pretrain.yaml's run section cut to 4 steps of
+   2 accumulated micro-batches of 4 (max length 700, remat full): B1 and
+   B4 launches equal to 4 steps x 4 layers x 2 micro-batches (x 2 for B1,
+   the remat recompute), ms/step, training tokens/s, peak memory, one
+   profiled step; on 2 layers 4 straight steps against 2 steps, a save,
+   and a fresh run that resumes for 2 more: losses and every leaf bit for
+   bit, the checkpoint's bytes and a timed save and restore; one
+   update_ema over the 4-layer tree; a debug_model run.
 8. the int4 decode-matvec experiment (B6) at its full size (K = 4096,
    O = 11008, L = 8, G = 128, M = 4, Bp = 8): the weight-only kernels D
    (both unpack widths) and C, and the W4A8 kernels in every unpack mode
@@ -244,7 +264,7 @@ torch.profiler traces the card's activity alone, and the host's operators
 only where a record_function region is read (the fused prompt pass's
 CLIP + LFQ): their events cost the profiler seconds a call.
 
-Each phase-6, 6c, phase-7 and phase-8 run sets every kernel's launch count
+Each phase-6, 6c, phase-7, 7b and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
 kernel report as JSON, with the launches summed over those runs and each
 kernel's bound (bytes over HBM's 3.35 TB/s or operations over the dense
@@ -346,16 +366,19 @@ E2E_TOL = 0.01
 E2E_TOL_QUANT = 0.05
 # phase 6's text-to-image (t2i_path): one caption (a 13-token t2i prompt
 # ending in BOI), then the image block decoded through both paths: on
-# T2I_LAYERS layers in every tree against the plain versions, at full depth
-# in bf16 once, sampled; T2I_PROFILED dual steps profiled
+# T2I_LAYERS layers in every tree against the plain versions, on the bf16
+# tree's first T2I_IMAGE_LAYERS layers once, sampled (a dual step's wall is
+# host time, ~3 ms a layer: the 32-layer image took 60-87 s of the
+# script); T2I_PROFILED dual steps profiled
 T2I_CAPTION = "a watercolor painting of a small red fox in the snow"
 T2I_LAYERS = 2
+T2I_IMAGE_LAYERS = 8
 T2I_PROFILED = 4
 # phase 6's 2D modes (twod_path): the image with 2D prediction and 2D RoPE
 # at TWOD_IMAGE_LAYERS layers (full width); on two layers, TWOD_STEPS new
 # tokens: past one grid row (R = 24), so that the decode reads its
 # up-neighbours from the hidden ring
-TWOD_IMAGE_LAYERS = 8
+TWOD_IMAGE_LAYERS = 4
 TWOD_STEPS = 64
 # The decoded image with cuDNN's TF32 convolutions (PyTorch's default on the
 # card) against the same decode_code in full fp32: TF32 keeps 10 mantissa
@@ -392,6 +415,16 @@ IMG_T = 8                                    # the image block's start
 # a dropped bridge term or a wrong mask moves a leaf by its whole size.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 0.02
+# phase 7b, the training entry point (harness_path): libra_pretrain.yaml's
+# run section cut to HARNESS_STEPS steps of HARNESS_B samples times
+# HARNESS_ACCUM micro-batches; libra-11b at full width cut to
+# HARNESS_LAYERS layers, with dropout on every site but the attention
+# probabilities (which would take the plain attention)
+HARNESS_LAYERS, HARNESS_B, HARNESS_ACCUM, HARNESS_STEPS = 4, 4, 2, 4
+HARNESS_MAX_LEN = 700
+HARNESS_RATE = 0.1
+HARNESS_WORDS = ("a photo of two small red cats sitting on green grass near an old "
+                 "wooden house under the blue sky with white clouds").split()
 # phase 8, the experiment's shape (tools/exp_int4.py:46-50)
 EXP_K, EXP_O, EXP_L, EXP_G, EXP_M, EXP_BP = 4096, 11008, 8, 128, 4, 8
 # K = 2816 and 11008 give each block of a cluster 11 and 43 units of 32 k:
@@ -2593,8 +2626,9 @@ def t2i_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
     tokens (forced_rule: equal, or a near tie), the block's structure, the
     prompt pass's and
     the first dual step's vision logits against the plain versions; in
-    bf16 then the full-depth image (t2i_image). Adds the counted runs'
-    launches to `main`; returns the figures."""
+    bf16 then one image on the tree's first T2I_IMAGE_LAYERS layers
+    (t2i_image). Adds the counted runs' launches to `main`; returns the
+    figures."""
     import libra_tpu_torch.generation as G
     from libra_tpu_torch.generation import GenerationConfig
     t_phase = time.perf_counter()
@@ -2639,13 +2673,23 @@ def t2i_path(card: str, dev, cfg, vq_cfg, vq_params, params, mode: str,
     del pipe, small
     out = dict(same=same, ties=ties, rel=rel, call_s=call_s)
     if mode == "bf16":
-        out.update(t2i_image(card, dev, cfg, vq_cfg, vq_params, params, main))
+        out.update(t2i_image(card, dev, cfg.replace(num_hidden_layers=T2I_IMAGE_LAYERS),
+                             vq_cfg, vq_params, first_layers(params, T2I_IMAGE_LAYERS),
+                             main))
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
+def first_layers(params, n: int) -> dict:
+    """A decoder tree of the first n layers of `params`: views of its
+    stacked layer leaves, the rest shared."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+    return dict(params, layers=cut(params["layers"]))
+
+
 def t2i_image(card: str, dev, cfg, vq_cfg, vq_params, params, main: Counter) -> dict:
-    """One full-depth image: generate_image with its defaults (top-k 100
+    """One image at cfg's depth: generate_image with its defaults (top-k 100
     at temperature 1) from a seeded torch.Generator. TTFT (the first
     sample on the host, synchronized), image tokens/s = (Mv - 1) / (the
     call's wall - TTFT), the call's wall and peak memory; launches from
@@ -4562,7 +4606,10 @@ def train_policy(card: str, dev, cfg, vq_cfg, vq_params, batch, remat: str,
 def train_vs_plain(card: str, dev, vq_cfg, vq_params) -> None:
     """Two layers at full width: loss and trainable gradients of one fused
     step's backward with the kernels against the same with every plain
-    version patched in."""
+    version patched in, without dropout and with dropout on every site but
+    the attention probabilities (the same dropout key both ways, so the
+    same masks); then with attn_pdrop on too, which must take the plain
+    attention: no flash launch, a finite loss."""
     from libra_tpu_torch.config import LibraConfig
     from libra_tpu_torch.training.fused import fused_loss_fn
     from libra_tpu_torch.training.optimizer import OptimizerConfig, trainable_mask
@@ -4571,36 +4618,52 @@ def train_vs_plain(card: str, dev, vq_cfg, vq_params) -> None:
     params = decoder_params(cfg, dev)
     mask = trainable_mask(params, OptimizerConfig(frozen_language=True))
     batch = train_batch(cfg, dev, vq_cfg.clip.image_size)
+    rates = dict(embd_pdrop=HARNESS_RATE, resid_pdrop=HARNESS_RATE,
+                 vision_embd_pdrop=HARNESS_RATE, vision_resid_pdrop=HARNESS_RATE)
 
-    def run():
+    def run(c, key):
         loss, grads = masked_value_and_grad(
-            lambda p: fused_loss_fn(p, vq_params, cfg, vq_cfg, batch, remat="big_dots"),
+            lambda p: fused_loss_fn(p, vq_params, c, vq_cfg, batch, remat="big_dots",
+                                    dropout_key=key),
             params, mask)
         return loss.float(), {p: g.float() for p, g in grads.items()}
 
+    for label, c, key in (("", cfg, None),
+                          (f" with dropout {HARNESS_RATE}", cfg.replace(**rates),
+                           (SEED, 0))):
+        zero_counts()
+        loss_k, g_k = run(c, key)
+        got = read_counts()
+        with plain_kernels():
+            loss_p, g_p = run(c, key)
+        torch.cuda.synchronize()
+        if got["flash_bridged_attention_bwd"] != 2 or read_counts() != got:
+            raise AssertionError("the kernel run must launch the kernels, the plain "
+                                 "run none")
+        rel_loss = abs((loss_k - loss_p).item()) / abs(loss_p.item())
+        # per trainable leaf; a leaf whose reference gradient is exactly zero
+        # (a low-rank A under a zero B) must be exactly zero with the kernels
+        rel_g = {}
+        for p, want in g_p.items():
+            diff, ref = (g_k[p] - want).norm().item(), want.norm().item()
+            rel_g[p] = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+        worst = sorted(rel_g.items(), key=lambda kv: -kv[1])
+        print(f"train 2-layer step{label} vs the plain versions: loss "
+              f"{loss_k.item():.6f} vs {loss_p.item():.6f} (rel {rel_loss:.6g}, tol "
+              f"{TRAIN_LOSS_TOL}); trainable gradients, relative L2 per leaf, worst "
+              f"{worst[0][1]:.6g} (tol {TRAIN_GRAD_TOL}), {len(rel_g)} leaves: "
+              + ", ".join(f"{p} {v:.4g}" for p, v in worst) + f" [{card}]")
+        if not (rel_loss < TRAIN_LOSS_TOL and worst[0][1] < TRAIN_GRAD_TOL):
+            raise AssertionError(f"the 2-layer training step{label} differs from the "
+                                 "plain path")
     zero_counts()
-    loss_k, g_k = run()
+    loss, _ = run(cfg.replace(attn_pdrop=HARNESS_RATE, **rates), (SEED, 0))
     got = read_counts()
-    with plain_kernels():
-        loss_p, g_p = run()
-    torch.cuda.synchronize()
-    if got["flash_bridged_attention_bwd"] != 2 or read_counts() != got:
-        raise AssertionError("the kernel run must launch the kernels, the plain run none")
-    rel_loss = abs((loss_k - loss_p).item()) / abs(loss_p.item())
-    # per trainable leaf; a leaf whose reference gradient is exactly zero
-    # (a low-rank A under a zero B) must be exactly zero with the kernels
-    rel_g = {}
-    for p, want in g_p.items():
-        diff, ref = (g_k[p] - want).norm().item(), want.norm().item()
-        rel_g[p] = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
-    worst = sorted(rel_g.items(), key=lambda kv: -kv[1])
-    print(f"train 2-layer step vs the plain versions: loss {loss_k.item():.6f} vs "
-          f"{loss_p.item():.6f} (rel {rel_loss:.6g}, tol {TRAIN_LOSS_TOL}); trainable "
-          f"gradients, relative L2 per leaf, worst {worst[0][1]:.6g} (tol "
-          f"{TRAIN_GRAD_TOL}), {len(rel_g)} leaves: "
-          + ", ".join(f"{p} {v:.4g}" for p, v in worst) + f" [{card}]")
-    if not (rel_loss < TRAIN_LOSS_TOL and worst[0][1] < TRAIN_GRAD_TOL):
-        raise AssertionError("the 2-layer training step differs from the plain path")
+    print(f"train 2-layer step with attn_pdrop {HARNESS_RATE} too: loss "
+          f"{loss.item():.6f}, launches {dict(got)} (the plain attention: no flash "
+          f"launch expected) [{card}]")
+    if sum(got.values()) != 0 or not math.isfinite(loss.item()):
+        raise AssertionError("attention dropout must take the plain attention")
 
 
 def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
@@ -4618,6 +4681,273 @@ def train_path(card: str, dev, vq_cfg, vq_params, main_counts: Counter) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The training entry point (phase 7b): train.run -> TrainHarness -> Trainer
+# ---------------------------------------------------------------------------
+
+class ChipPairs:
+    """A map-style dataset of LAION-format pair samples without the JPEG
+    decode: seeded uint8 336x336 images, CLIP-normalized in numpy, and
+    seeded captions, each sample i2t or t2i by a seeded coin as
+    LaionDataset's, its caption and label spans through caption_format
+    (which tokenizes the caption with the run's text tokenizer, so word ids
+    follow the sample order)."""
+
+    def __init__(self, tokenizer, n: int, seed: int, num_img_tokens: int,
+                 image_size: int, mean, std):
+        import numpy as np
+        self.tok, self.n, self.seed = tokenizer, n, seed
+        self.num_img_tokens, self.size = num_img_tokens, image_size
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        import numpy as np
+        from libra_tpu_torch.data import caption_format as cf
+        rs = np.random.RandomState(self.seed * 1000 + i)
+        img = rs.randint(0, 256, (self.size, self.size, 3), np.uint8)
+        pixels = (img.astype(np.float32) / 255.0 - self.mean) / self.std
+        caption_ = " ".join(HARNESS_WORDS[j] for j in rs.randint(
+            0, len(HARNESS_WORDS), 8 + i % 9))
+        ph = (" " + cf.IMG_PH) * self.num_img_tokens
+        if rs.rand() < 0.5:
+            bg, resp, kind = ph.strip(), caption_, "background"
+            ins = cf.I2T_INSTRUCTION_LIST[rs.randint(len(cf.I2T_INSTRUCTION_LIST))]
+        else:
+            bg, resp, kind = caption_, ph.strip(), "respond"
+            ins = cf.T2I_INSTRUCTION_LIST[rs.randint(len(cf.T2I_INSTRUCTION_LIST))]
+        caption, ins_ = cf.build_caption(bg, resp, ins, kind)
+        spans = cf.label_mask_spans(self.tok, caption, bg.strip(), ins_, kind)
+        return {"vision": pixels, "language": caption,
+                "label_mask_position_map": spans,
+                "contiguous_ignore_sign": kind == "respond"}
+
+    def collater(self, samples):
+        from libra_tpu_torch.data.pair_samples import pair_collater
+        return pair_collater(samples, with_return_loss=True)
+
+
+def register_chip_pairs() -> None:
+    """The "chip_pairs" builder: {"train": ChipPairs(...)} from its config's
+    kwargs (n, seed; num_img_tokens and image_size default to libra-11b's
+    578 and CLIP's 336)."""
+    from libra_tpu_torch.config import CLIPVisionConfig
+    from libra_tpu_torch.data.builders import BaseDatasetBuilder
+    from libra_tpu_torch.registry import registry
+    if "chip_pairs" in registry.list("builder"):
+        return
+
+    @registry.register_builder("chip_pairs")
+    class ChipPairsBuilder(BaseDatasetBuilder):
+        def build(self):
+            clip = CLIPVisionConfig()
+            kw = self.config.get("kwargs", {})
+            return {"train": ChipPairs(self.tokenizer, kw["n"], kw["seed"],
+                                       kw.get("num_img_tokens", 578),
+                                       kw.get("image_size", clip.image_size),
+                                       clip.image_mean, clip.image_std)}
+
+
+def harness_config(out: str, layers: int, steps: int, rates: bool = True,
+                   **run) -> dict:
+    """The run config (the dict a YAML file would hold): libra-11b at
+    full width and `layers` layers in bf16, frozen language, the CLIP
+    ViT-L/14-336 tokenizer with its two taps (the 2048-wide signal), the
+    chip_pairs dataset, libra_pretrain.yaml's run section cut to size."""
+    drop = dict(embd_pdrop=HARNESS_RATE, resid_pdrop=HARNESS_RATE,
+                vision_embd_pdrop=HARNESS_RATE, vision_resid_pdrop=HARNESS_RATE,
+                attn_pdrop=0.0) if rates else {}
+    return {
+        "model": {"arch": "libra_train_wrapper",
+                  "config": dict(num_hidden_layers=layers, dtype="bfloat16",
+                                 param_dtype="bfloat16", **drop),
+                  "model_kwargs": {"frozen_language": True},
+                  "vqgan": {"select_layer": [-2, -1]}},
+        "datasets": {"chip_pairs": {"kwargs": {"n": 64, "seed": SEED}}},
+        "run": dict(dict(output_dir=out, max_steps=steps, learning_rate=1e-4,
+                         warmup_ratio=0.05, weight_decay=0.01, max_grad_norm=1.0,
+                         per_device_train_batch_size=HARNESS_B,
+                         gradient_accumulation_steps=HARNESS_ACCUM,
+                         logging_steps=1, eval_steps=0, save_steps=0,
+                         save_total_limit=1, model_max_length=HARNESS_MAX_LEN,
+                         seed=42, remat="full",
+                         mesh={"data": 1, "fsdp": 1, "model": 1}), **run),
+    }
+
+
+@contextlib.contextmanager
+def captured_steps(sink: list):
+    """Record each Trainer.step_accum call's trainer and micro-batches."""
+    from libra_tpu_torch.training.trainer import Trainer
+    step_accum = Trainer.step_accum
+
+    def wrapped(self, micros):
+        sink.append((self, micros))
+        return step_accum(self, micros)
+    with mock.patch.object(Trainer, "step_accum", wrapped):
+        yield
+
+
+def train_run(cfg: dict, sink: list) -> dict:
+    """train.run on the card, the steps recorded into `sink`; the logged
+    metrics (metrics.jsonl) returned."""
+    from libra_tpu_torch import train
+    from libra_tpu_torch.run_config import RunConfig
+    with captured_steps(sink):
+        train.run(RunConfig.from_dict(cfg), device="cuda")
+    torch.cuda.synchronize()
+    out = Path(cfg["run"]["output_dir"]) / "metrics.jsonl"
+    return [json.loads(line) for line in out.read_text().splitlines()]
+
+
+def leaf_diffs(a, b) -> dict:
+    """Relative L2 of every leaf of two trees (dicts of tensors)."""
+    from libra_tpu_torch.training.optimizer import leaves_with_paths
+    bl = dict(leaves_with_paths(b))
+    return {p: ((t.float() - bl[p].float()).norm() / bl[p].float().norm().clamp_min(
+        1e-30)).item() for p, t in leaves_with_paths(a)}
+
+
+def same_state(label: str, a, b, card: str) -> bool:
+    """Parameters and moments of two TrainStates bit for bit; else every
+    leaf within TRAIN_GRAD_TOL, the differences printed."""
+    from libra_tpu_torch.training.optimizer import leaves_with_paths
+    trees = [(a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+             (a.opt_state.nu, b.opt_state.nu)]
+    pairs = [(t, ys[p]) for x, ys in ((x, dict(leaves_with_paths(y)))
+                                      for x, y in trees)
+             for p, t in leaves_with_paths(x)]
+    n = len(pairs)
+    if a.step == b.step and all(torch.equal(t, u) for t, u in pairs):
+        print(f"{label}: {n} leaves (parameters and moments) bit for bit equal, "
+              f"step {a.step} [{card}]")
+        return True
+    worst = max(max(leaf_diffs(x, y).values()) for x, y in trees)
+    print(f"{label}: NOT bit for bit; worst leaf relative L2 {worst:.6g} (tol "
+          f"{TRAIN_GRAD_TOL}) [{card}]")
+    if not (worst < TRAIN_GRAD_TOL and a.step == b.step):
+        raise AssertionError(f"{label}: the states differ")
+    return False
+
+
+def harness_resume(card: str, tmp: str) -> dict:
+    """CKPT_LAYERS layers at full width, dropout on: HARNESS_STEPS steps
+    straight against HARNESS_STEPS / 2 steps, a save, and a fresh run that
+    resumes and takes the rest; losses and leaves bit for bit. Then the
+    checkpoint's bytes and a timed save and restore of the state."""
+    from libra_tpu_torch import checkpoint as ckpt
+    half = HARNESS_STEPS // 2
+    straight, first, resumed = [], [], []
+    want = train_run(harness_config(f"{tmp}/straight", CKPT_LAYERS, HARNESS_STEPS),
+                     straight)
+    train_run(harness_config(f"{tmp}/resume", CKPT_LAYERS, half, save_steps=half),
+              first)
+    got = train_run(harness_config(f"{tmp}/resume", CKPT_LAYERS, HARNESS_STEPS,
+                                   resume_from_checkpoint=True), resumed)
+    del first[:]
+    if len(resumed) != HARNESS_STEPS - half:
+        raise AssertionError(f"the resumed run took {len(resumed)} steps")
+    losses = [(r["loss"], r["grad_norm"]) for r in want if "loss" in r]
+    losses_r = [(r["loss"], r["grad_norm"]) for r in got if "loss" in r]
+    print(f"harness resume, {CKPT_LAYERS} layers: losses and grad norms straight "
+          f"{losses}, saved at {half} then resumed {losses_r} [{card}]")
+    a, b = straight[-1][0].state, resumed[-1][0].state
+    bitwise = same_state("harness resume state", b, a, card)
+    if losses_r != losses:
+        rel = max(abs(x - y) / abs(y) for (x, _), (y, _) in zip(losses_r, losses))
+        print(f"harness resume: losses not bit for bit, worst relative {rel:.6g} "
+              f"(tol {TRAIN_LOSS_TOL}) [{card}]")
+        if rel >= TRAIN_LOSS_TOL or len(losses_r) != len(losses):
+            raise AssertionError("the resumed run's losses differ")
+        bitwise = False
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(f"{tmp}/timed", a, step=HARNESS_STEPS)
+    write_s = time.perf_counter() - t0
+    n_bytes = (path / ckpt.STATE_FILE).stat().st_size
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(f"{tmp}/timed", b, step=HARNESS_STEPS)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same_state("harness restore into the resumed state", b, a, card)
+    print(f"harness checkpoint, {CKPT_LAYERS} layers: {n_bytes / 1e9:.4f} GB "
+          f"(parameters, moments, counts, step), written in {write_s:.3f} s, read "
+          f"into the state's tensors in {read_s:.3f} s (the file cache warm) [{card}]")
+    return dict(bitwise=bitwise, gb=n_bytes / 1e9, write_s=write_s, read_s=read_s)
+
+
+def harness_path(card: str, main_counts: Counter) -> dict:
+    """train.run at full width, HARNESS_LAYERS layers, dropout on, with
+    accumulation: launches against the config's, timing, tokens/s, peak
+    memory, a profiled step; then the resume check, one update_ema over
+    the tree, and a debug_model run."""
+    import tempfile
+    from libra_tpu_torch import train
+    from libra_tpu_torch.run_config import RunConfig
+    from libra_tpu_torch.training.ema import init_ema, update_ema
+    t_phase = time.perf_counter()
+    register_chip_pairs()
+    L, A, n = HARNESS_LAYERS, HARNESS_ACCUM, HARNESS_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        steps = []
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        log = train_run(harness_config(f"{tmp}/main", L, n), steps)
+        run_s = time.perf_counter() - t0
+        got = read_counts()
+        main_counts.update(got)
+        want = Counter({k["name"]: 0 for k in KERNELS})
+        want["flash_bridged_attention"] = n * L * A * 2        # forward + remat recompute
+        want["flash_bridged_attention_bwd"] = n * L * A
+        assert_counts(f"harness train.run ({n} steps, {L} layers, {A} micro-batches "
+                      f"of {HARNESS_B})", got, want, card)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [r for r in log if "loss" in r]
+        losses = [r["loss"] for r in rows]
+        if len(rows) != n or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"harness: logged {rows}")
+        # steps after the first (its cuBLAS and allocator warm-up)
+        step_s = [1.0 / r["steps_per_sec"] for r in rows[1:]]
+        tokens = [sum(int(mb["attention_mask"].sum()) for mb in micros)
+                  for _, micros in steps]
+        tok_s = sum(tokens[1:]) / sum(step_s)
+        trainer, micros = steps[-1]
+        prof = {}
+        profiled(card, f"harness step ({L} layers, {A} x {HARNESS_B} samples)",
+                 lambda: trainer.step_accum(micros), rows=12, out=prof)
+        widths = sorted({tuple(mb["input_ids"].shape) for _, ms in steps for mb in ms})
+        print(f"harness train.run, {L} layers at full width, dropout {HARNESS_RATE} "
+              f"(embd, resid, vision_*), accumulation {A} x {HARNESS_B}: run "
+              f"{run_s:.3f} s (model build, data, {n} steps), ms/step "
+              f"{[f'{x * 1e3:.3f}' for x in step_s]} (steps 2-{n}: wall between "
+              f"logging steps, the micro-batches' CLIP + LFQ included), training "
+              f"tokens/s {tok_s:.1f} ({tokens} unpadded tokens a step), peak memory "
+              f"{peak_gb:.3f} GB, losses {losses}, micro-batch ids {widths} "
+              f"[{card}]")
+        ema = init_ema(trainer.state.params)
+        ema = update_ema(ema, trainer.state.params)
+        torch.cuda.synchronize()
+        if ema.count != 1:
+            raise AssertionError("update_ema")
+        del steps, trainer, micros, ema
+        gc.collect()
+        torch.cuda.empty_cache()
+        resume = harness_resume(card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dbg = harness_config(f"{tmp}/debug", 1, 2)
+        dbg["model"] = {"arch": "debug_model"}
+        train.run(RunConfig.from_dict(dbg), device="cuda")
+    phase_s = time.perf_counter() - t_phase
+    print(f"harness phase: {phase_s:.1f} s [{card}]")
+    return dict(step_ms=statistics.mean(step_s) * 1e3, tok_s=tok_s, peak_gb=peak_gb,
+                device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                phase_s=phase_s, **resume)
 
 
 # ---------------------------------------------------------------------------
@@ -4954,7 +5284,7 @@ def main() -> int:
               f"{v['verify_wall_ms']:.3f}; {v['phase_s']:.1f}" for mode, v in spec.items())
           + f" [{card}]")
     img = t2i["bf16"]
-    print(f"t2i summary: bf16 {cfg.num_hidden_layers} layers, one image (top-k 100, "
+    print(f"t2i summary: bf16 {T2I_IMAGE_LAYERS} layers, one image (top-k 100, "
           f"temperature 1): TTFT {img['ttft_ms']:.3f} ms, image tokens/s "
           f"{img['tok_s']:.3f} ({cfg.max_vision_token_length - 1} / (wall - TTFT)), VQGAN "
           f"decode {img['decode_ms']:.3f} ms (TF32 vs off {img['tf32_rel']:.3g}), call wall "
@@ -5018,6 +5348,17 @@ def main() -> int:
         f"remat={r}: {v['ms']:.3f} ms/step, {v['tok_s']:.1f} tokens/s, MFU "
         f"{v['mfu']:.4f}, peak {v['peak_gb']:.3f} GB" for r, v in train.items())
           + f" [{card}]")
+    harness = harness_path(card, main_counts)
+    print(f"harness summary: train.run {HARNESS_LAYERS} layers, {HARNESS_ACCUM} x "
+          f"{HARNESS_B} samples a step, dropout {HARNESS_RATE}: {harness['step_ms']:.3f} "
+          f"ms/step wall, a profiled step {harness['wall_ms']:.3f} ms wall / "
+          f"{harness['device_ms']:.3f} ms device, {harness['tok_s']:.1f} training "
+          f"tokens/s, peak {harness['peak_gb']:.3f} GB; {CKPT_LAYERS}-layer resume "
+          f"{'bit for bit' if harness['bitwise'] else 'within tolerance'}, checkpoint "
+          f"{harness['gb']:.4f} GB written in {harness['write_s']:.3f} s, read in "
+          f"{harness['read_s']:.3f} s; phase {harness['phase_s']:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
     report.update(check_exp_int4(card, dev))
     exp_int4_path(card, main_counts)
     missing = [k["name"] for k in KERNELS if main_counts[k["name"]] == 0]

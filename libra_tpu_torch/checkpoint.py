@@ -20,15 +20,20 @@ and the stacking and transposes run there; so beside the state dict the
 host holds one tensor at a time. Casting commutes with stacking and
 transposing, so the leaves equal libra_tpu's bit for bit.
 
+Training state is saved and restored with ``save_checkpoint`` /
+``restore_checkpoint`` (libra_tpu's Orbax pair, in torch's file format).
+
 Not ported here: the Meta-format LLaMA converter (its target, the
 ``models/llama`` tree, comes with ROADMAP A12), and the LPIPS converters
-and Orbax save/restore (with training's rest, A11).
+(ROADMAP A11b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
@@ -331,3 +336,91 @@ def convert_vqgan_state_dict(sd: Dict[str, np.ndarray], cfg: VQGANConfig,
     if clip_params is not None:
         params["clip"] = clip_params
     return params
+
+
+# ---------------------------------------------------------------------------
+# Training state: save and restore
+# ---------------------------------------------------------------------------
+
+STATE_FILE = "state.pt"
+
+
+def _plain(x: Any) -> Any:
+    """A state (NamedTuples, dicts, lists of tensors and numbers) as
+    dicts, lists, tensors and numbers: what torch.load(weights_only=True)
+    reads back."""
+    if isinstance(x, tuple) and hasattr(x, "_asdict"):
+        return {k: _plain(v) for k, v in x._asdict().items()}
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    return x
+
+
+def save_checkpoint(path: str, state: Any, step: Optional[int] = None) -> Path:
+    """Write `state` (a TrainState, an EMAState or any tree of tensors and
+    numbers) to path/step_{step}/state.pt (path/state/ without a step) in
+    torch's format: the parameters, the optimizer's moments and counts,
+    and the step. The directory is written under a temporary name and
+    renamed, so a crash never leaves a partial step_* behind."""
+    root = Path(path).absolute()
+    root.mkdir(parents=True, exist_ok=True)
+    final = root / (f"step_{step}" if step is not None else "state")
+    tmp = root / f".{final.name}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    torch.save(_plain(state), tmp / STATE_FILE)
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)
+    return final
+
+
+def _restore(saved: Any, target: Any, where: str) -> Any:
+    if isinstance(target, tuple) and hasattr(target, "_asdict"):
+        fields = target._asdict()
+        if not isinstance(saved, dict) or set(saved) != set(fields):
+            raise ValueError(f"checkpoint {where or '/'}: fields "
+                             f"{sorted(saved) if isinstance(saved, dict) else saved!r}"
+                             f", target {sorted(fields)}")
+        return type(target)(**{k: _restore(saved[k], v, f"{where}/{k}")
+                               for k, v in fields.items()})
+    if isinstance(target, dict):
+        if not isinstance(saved, dict) or set(saved) != set(target):
+            got = sorted(saved) if isinstance(saved, dict) else type(saved).__name__
+            raise ValueError(f"checkpoint {where or '/'}: keys {got}, target "
+                             f"{sorted(target)}")
+        return {k: _restore(saved[k], v, f"{where}/{k}") for k, v in target.items()}
+    if isinstance(target, (list, tuple)):
+        if not isinstance(saved, list) or len(saved) != len(target):
+            raise ValueError(f"checkpoint {where}: a list of another length")
+        return type(target)(_restore(s, t, f"{where}/{i}")
+                            for i, (s, t) in enumerate(zip(saved, target)))
+    if isinstance(target, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != target.shape:
+            got = tuple(saved.shape) if isinstance(saved, torch.Tensor) else saved
+            raise ValueError(f"checkpoint {where}: shape {got}, target "
+                             f"{tuple(target.shape)}")
+        with torch.no_grad():
+            target.copy_(saved)
+        return target
+    if isinstance(saved, torch.Tensor) or (target is None) != (saved is None):
+        raise ValueError(f"checkpoint {where}: {type(saved).__name__}, target "
+                         f"{type(target).__name__}")
+    return saved
+
+
+def restore_checkpoint(path: str, target: Any, step: Optional[int] = None) -> Any:
+    """The state saved under path/step_{step} (path/state without a step),
+    read into `target`'s structure: every tensor is copied into the
+    target's tensor (its device and dtype; no second copy on the device),
+    numbers (the step, the optimizer's count) come from the file. Raises
+    ValueError where a key path or a shape differs from the target's, as
+    Orbax's restore against a target does."""
+    d = Path(path).absolute() / (f"step_{step}" if step is not None else "state")
+    saved = torch.load(d / STATE_FILE, map_location="cpu", weights_only=True,
+                       mmap=True)
+    return _restore(saved, target, "")

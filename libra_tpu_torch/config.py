@@ -68,8 +68,8 @@ class LibraConfig:
     unified_head: bool = False
     use_2d_rope: bool = False
 
-    # --- dropout (training only; not ported yet: the port's train steps
-    # raise on a nonzero rate) ---
+    # --- dropout (training only: the train steps' forward takes a
+    # dropout key where any rate is nonzero) ---
     resid_pdrop: float = 0.0
     attn_pdrop: float = 0.0
     embd_pdrop: float = 0.0

@@ -16,8 +16,10 @@ The PyTorch counterpart of ``libra_tpu/models/libra.py`` for inference:
   serving engine's slots, serving.py).
 
 Training adds per-layer rematerialisation (``forward(remat=...)``:
-``torch.utils.checkpoint``, full or selective on the named big dots) and
-the multi-codebook loss.
+``torch.utils.checkpoint``, full or selective on the named big dots),
+train-time dropout at the reference's sites (``forward(dropout_key=...)``;
+each mask a function of its key's integers, ops/routed.py) and the
+multi-codebook loss.
 
 The fused-pixels prompt pass (generation.py) passes ``text_span``
 (``text_span_maps``): every row holds one full image block, so the
@@ -25,7 +27,6 @@ full-rank language projections run on the T = N - 578 text rows only.
 
 Parameters are nested dicts of tensors with the JAX tree's key names,
 layer leaves stacked on axis 0 and weights stored for ``x @ W``.
-Dropout is a training path the port does not carry yet.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ from libra_tpu_torch.ops.flash_bridge import flash_bridged_attention
 from libra_tpu_torch.ops.norm import rms_norm
 from libra_tpu_torch.ops.qlinear import qdot
 from libra_tpu_torch.ops.rope import apply_rope, apply_rope_2d, rope_cos_sin
-from libra_tpu_torch.ops.routed import (gather_rows, low_rank_linear,
+from libra_tpu_torch.ops.routed import (DropoutKey, fold, gather_rows,
+                                        low_rank_linear, routed_dropout,
                                         routed_linear, routed_low_rank,
                                         select_by_flag, split_merge)
 from libra_tpu_torch.quantization import QuantizedArray
@@ -58,9 +60,8 @@ Params = Dict[str, Any]
 
 
 def dropout_enabled(cfg: LibraConfig) -> bool:
-    """True when any of the reference's pdrop fields is nonzero. The port
-    has no dropout yet (ROADMAP A11): its training step refuses such a
-    config."""
+    """True when any of the reference's pdrop fields is nonzero: the train
+    step then derives a dropout key for the forward."""
     return any(r > 0.0 for r in (cfg.resid_pdrop, cfg.attn_pdrop,
                                  cfg.embd_pdrop, cfg.vision_embd_pdrop,
                                  cfg.vision_resid_pdrop))
@@ -533,9 +534,14 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
                flag: torch.Tensor, cos, sin, position_ids, bias, kv_flag,
                cache_slice, attn_impl: str = "plain",
+               dropout_key: Optional[DropoutKey] = None,
                text_span=None,
                lang_only: bool = False) -> Tuple[torch.Tensor, Any]:
     """Routed attention with bridge; h is the routed-normed input.
+
+    dropout_key: this layer's attention stream: attn_pdrop on the
+    probabilities (which takes the plain attention: the flash kernels never
+    hold the probabilities) and the resid rates on o's two paths.
 
     attn_impl: "plain" (ops/attention.py) or "flash" (the prompt-pass
     kernel, ops/flash_bridge.py). text_span: the split prompt pass's row
@@ -551,6 +557,8 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
     (attn_out (B, N, D), bufs)."""
     H = cfg.num_attention_heads
     a = p["attn"]
+    attn_key, o_key = fold(dropout_key, 0), fold(dropout_key, 1)
+    attn_drop_on = attn_key is not None and cfg.attn_pdrop > 0.0
     if lang_only and cache_slice is None:
         raise ValueError("lang_only is a cached-decode mode")
 
@@ -589,7 +597,8 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
             _write_cache(bufs["vb"], vb, li, idx, slots)
         ck, cv = bufs["k"][li], bufs["v"][li]
         ckb, cvb = (bufs["kb"][li], bufs["vb"][li]) if cfg.use_bridge else (None, None)
-        if decode_kernel_applicable(ck, q.shape[1], cfg.head_dim):
+        if attn_key is None and decode_kernel_applicable(ck, q.shape[1],
+                                                         cfg.head_dim):
             # the int8 cache's decode steps: raw int8 layer views, the
             # scales folded into scores and probabilities
             bridge = {} if ckb is None else dict(kbq=ckb.q, kbs=ckb.scale,
@@ -605,24 +614,32 @@ def _attention(p: Params, cfg: LibraConfig, h: torch.Tensor,
             if ckb is not None:
                 kb, vb = _read_cache(ckb, q.dtype), _read_cache(cvb, q.dtype)
 
-    if out is None:
-        attend = flash_bridged_attention if attn_impl == "flash" else bridged_attention
-        out = attend(q, k, v, kb, vb, flag, kv_flag, bias)
+    if out is None and attn_impl == "flash" and not attn_drop_on:
+        out = flash_bridged_attention(q, k, v, kb, vb, flag, kv_flag, bias)
+    elif out is None:
+        out = bridged_attention(q, k, v, kb, vb, flag, kv_flag, bias,
+                                dropout=(attn_key, cfg.attn_pdrop))
     out = out.reshape(h.shape[0], h.shape[1], cfg.hidden_size)
     with checkpoint_name("attn_o"):
         if lang_only:
             return qdot(out, a["o_proj"]), bufs
         vo = a["vision_o"]
         return routed_linear(out, flag, a["o_proj"], vo["wa"], vo["wb"],
-                             cfg.addition_mode, text_span=text_span), bufs
+                             cfg.addition_mode,
+                             dropout=(o_key, cfg.resid_pdrop,
+                                      cfg.vision_resid_pdrop),
+                             text_span=text_span), bufs
 
 
 def _mlp(p: Params, cfg: LibraConfig, h: torch.Tensor, flag: torch.Tensor,
+         dropout_key: Optional[DropoutKey] = None,
          text_span=None, lang_only: bool = False) -> torch.Tensor:
     """Routed SwiGLU MLP; routes strictly even in addition_mode. With
     text_span the language SwiGLU (the layer's largest matmuls) runs on
     the gathered text rows only; strict routing makes that exact in every
-    mode."""
+    mode. dropout_key: the post-down dropout at each position's modality
+    rate (after the merge: strict routing makes that the per-path
+    dropout); a key turns text_span off, as in libra_tpu."""
     m = p["mlp"]
 
     def dot(name, x, *w):
@@ -639,18 +656,24 @@ def _mlp(p: Params, cfg: LibraConfig, h: torch.Tensor, flag: torch.Tensor,
     up_v = dot("mlp_vup", h, m["vision_up"]["wa"], m["vision_up"]["wb"])
     vis = dot("mlp_vdown", F.silu(gate_v) * up_v, m["vision_down"]["wa"],
               m["vision_down"]["wb"])
-    if text_span is not None:
+    if text_span is not None and dropout_key is None:
         src, inv = text_span
-        return split_merge(flag, vis, lang_mlp(gather_rows(h, src)), inv)
-    return select_by_flag(flag, vis, lang_mlp(h))
+        out = split_merge(flag, vis, lang_mlp(gather_rows(h, src)), inv)
+    else:
+        out = select_by_flag(flag, vis, lang_mlp(h))
+    return routed_dropout(dropout_key, out, flag, cfg.vision_resid_pdrop,
+                          cfg.resid_pdrop)
 
 
 def decoder_layer(p: Params, cfg: LibraConfig, h: torch.Tensor,
                   flag: torch.Tensor, cos, sin, position_ids, bias, kv_flag,
                   cache_slice, attn_impl: str = "plain",
+                  dropout_key: Optional[DropoutKey] = None,
                   text_span=None,
                   lang_only: bool = False) -> Tuple[torch.Tensor, Any]:
-    """One pre-norm decoder layer with separate vision RMSNorms."""
+    """One pre-norm decoder layer with separate vision RMSNorms;
+    dropout_key is the layer's stream, split into an attention and an MLP
+    stream."""
     eps = cfg.rms_norm_eps
 
     def routed_norm(x, name):
@@ -661,11 +684,13 @@ def decoder_layer(p: Params, cfg: LibraConfig, h: torch.Tensor,
 
     attn_out, bufs = _attention(p, cfg, routed_norm(h, "input_layernorm"),
                                 flag, cos, sin, position_ids, bias, kv_flag,
-                                cache_slice, attn_impl, text_span=text_span,
-                                lang_only=lang_only)
+                                cache_slice, attn_impl,
+                                dropout_key=fold(dropout_key, 0),
+                                text_span=text_span, lang_only=lang_only)
     h = h + attn_out
     h = h + _mlp(p, cfg, routed_norm(h, "post_attention_layernorm"), flag,
-                 text_span=text_span, lang_only=lang_only)
+                 dropout_key=fold(dropout_key, 1), text_span=text_span,
+                 lang_only=lang_only)
     return h, bufs
 
 
@@ -718,7 +743,8 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
             cache: Optional[KVCache] = None,
             attn_impl: str = "plain",
             lang_only: bool = False, remat=False,
-            text_span=None) -> ModelOutput:
+            text_span=None,
+            dropout_key: Optional[DropoutKey] = None) -> ModelOutput:
     """Backbone forward.
 
     input_ids: (Q, B, N) combined-vocab ids. attention_mask: (B, N) without
@@ -741,15 +767,26 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
     under torch.utils.checkpoint (non-reentrant), the backward re-running
     it from its input; "dots", "big_dots" or "names:a,b" = selective
     checkpointing that saves every matmul output, or those of the named
-    regions (BIG_DOT_NAMES), and recomputes the rest."""
+    regions (BIG_DOT_NAMES), and recomputes the rest.
+
+    dropout_key (training): a tuple of Python ints (ops/routed.py), JAX's
+    dropout_rng; None, or a config with every rate 0, is the eval forward.
+    The embedding takes the stream (key, 0), layer i (key, 1, i): each
+    mask is drawn inside the layer from its integers, so a remat
+    recompute redraws the same masks."""
     context_fn, named = _remat_context_fn(remat)
     if context_fn is not None and cache is not None:
         raise ValueError("remat is a training option; it takes no cache")
     flag = vision_indices < cfg.max_vision_token_length
     B, N = flag.shape
     device = flag.device
+    if not dropout_enabled(cfg):
+        dropout_key = None
     h = embed_inputs(params, cfg, input_ids, flag, contiguous_signal,
                      vision_indices, lang_only=lang_only)
+    # routed embedding dropout
+    h = routed_dropout(fold(dropout_key, 0), h, flag, cfg.vision_embd_pdrop,
+                       cfg.embd_pdrop)
 
     if cache is None:
         rope_len = max(cfg.max_position_embeddings, N)
@@ -789,7 +826,7 @@ def forward(params: Params, cfg: LibraConfig, input_ids: torch.Tensor,
                        else {"bufs": bufs, "layer": i, "index": cache.index,
                              "slots": slots})
         layer = functools.partial(decoder_layer, _layer(params["layers"], i),
-                                  cfg)
+                                  cfg, dropout_key=fold(dropout_key, 1, i))
         if context_fn is not None:
             run = lambda x, fn=layer: fn(x, flag, cos, sin, position_ids, bias,
                                          kv_flag, None, attn_impl,

@@ -19,17 +19,22 @@ from typing import Optional
 
 import torch
 
+from libra_tpu_torch.ops.routed import apply_dropout
+
 BIG_NEG = -2.0 ** 30  # additive mask value; scores are min-clamped to it
 
 
 def bridged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       kb: Optional[torch.Tensor], vb: Optional[torch.Tensor],
                       flag_q: torch.Tensor, flag_kv: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor,
+                      dropout: Optional[tuple] = None) -> torch.Tensor:
     """q (B, Nq, H, d); k/v/kb/vb (B, Nk, H, d), kb/vb None without the
     bridge; flag_q (B, Nq) and flag_kv (B, Nk) bool; bias (B, 1, Nq, Nk)
     additive fp32. Returns (B, Nq, H, d) in q's dtype. The probabilities
-    are cast to q's dtype before the value products, as in the JAX path."""
+    are cast to q's dtype before the value products, as in the JAX path.
+    dropout: optional (key, attn_pdrop), applied to the probabilities
+    before both value products (ops/routed.py::apply_dropout)."""
     d = q.shape[-1]
     scale = 1.0 / (d ** 0.5)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -49,6 +54,8 @@ def bridged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         s = torch.clamp_min(s, BIG_NEG)
     a = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    if dropout is not None:
+        a = apply_dropout(dropout[0], a, dropout[1])
     out = torch.einsum("bhqk,bkhd->bqhd", a, v)
     if use_bridge:
         ab = torch.where(cross, a, torch.zeros_like(a))

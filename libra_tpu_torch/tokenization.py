@@ -37,6 +37,26 @@ IMG_GEN = "<img_gen>"
 _WORDS = re.compile(r"<img_ph>|<img_gen>|\S+?(?=<img_ph>|<img_gen>)|\S+")
 
 
+class Encoding:
+    """One text's ids with each token's source char span: the char ->
+    token map the data layer's label masks read (HF fast tokenizers'
+    char_to_token)."""
+
+    def __init__(self, ids: List[int], char_spans: List[Optional[tuple]]):
+        self.ids = ids
+        self._spans = char_spans  # per token: (start, end), None for specials
+
+    @property
+    def length(self) -> List[int]:
+        return [len(self.ids)]
+
+    def char_to_token(self, char_index: int) -> Optional[int]:
+        for t, span in enumerate(self._spans):
+            if span is not None and span[0] <= char_index < span[1]:
+                return t
+        return None
+
+
 class SimpleTextTokenizer:
     """Minimal whitespace tokenizer with the LLaMA tokenizer's surface, for
     tests and runs without a real vocabulary: pad = unk = 0, bos = 1
@@ -47,6 +67,7 @@ class SimpleTextTokenizer:
     def __init__(self, vocab_size: int = 256):
         self.base_vocab_size = vocab_size
         self.add_bos_token = True
+        self.add_eos_token = False
         self.vocab: Dict[str, int] = {}
         self.pad_token_id = 0
         self.bos_token_id = 1
@@ -67,8 +88,25 @@ class SimpleTextTokenizer:
         return self.vocab[w]
 
     def encode_one(self, text: str) -> List[int]:
-        bos = [self.bos_token_id] if self.add_bos_token else []
-        return bos + [self._word_id(m.group(0)) for m in _WORDS.finditer(text)]
+        return self.encode_with_spans(text).ids
+
+    def encode_with_spans(self, text: str) -> Encoding:
+        """Tokenize one text, keeping each token's char span, stretched
+        back over the whitespace before it (a whitespace char maps to the
+        token after it, as in HF's char_to_token)."""
+        ids: List[int] = []
+        spans: List[Optional[tuple]] = []
+        if self.add_bos_token:
+            ids.append(self.bos_token_id)
+            spans.append(None)
+        for m in _WORDS.finditer(text):
+            ids.append(self._word_id(m.group(0)))
+            start = spans[-1][1] if spans and spans[-1] is not None else m.start()
+            spans.append((start, m.end()))
+        if self.add_eos_token:
+            ids.append(self.eos_token_id)
+            spans.append(None)
+        return Encoding(ids, spans)
 
     def __call__(self, texts: Sequence[str]) -> Dict[str, np.ndarray]:
         seqs = [self.encode_one(t) for t in texts]
@@ -115,8 +153,22 @@ class HFTextTokenizer:
         out = self.tok(list(texts), **kw)
         return {k: np.asarray(v) for k, v in out.items()}
 
+    def encode_with_spans(self, text: str) -> "_HFEncoding":
+        """The fast encoding's char -> token map."""
+        return _HFEncoding(self.tok(text))
+
     def decode(self, ids, **kw) -> str:
         return self.tok.decode(ids, **kw)
+
+
+class _HFEncoding:
+    def __init__(self, enc):
+        self._enc = enc
+        self.ids = enc["input_ids"]
+        self.length = [len(self.ids)]
+
+    def char_to_token(self, char_index: int) -> Optional[int]:
+        return self._enc.char_to_token(char_index)
 
 
 class ImageTokenizer:

@@ -3,7 +3,9 @@
 The PyTorch counterpart of ``libra_tpu/train_wrapper.py``: joint
 tokenization of the batch, labels from the label_mask_position_map spans
 (pad, BOI, BOS and each sample's spans -> -100), and the pad-embedding
-rewrite. The freeze policies live in ``training/optimizer.py``.
+rewrite. The freeze policies live in ``training/optimizer.py``. Both
+classes register under libra_tpu's model names, which run configs' arch
+field names.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from libra_tpu_torch.config import LibraConfig
+from libra_tpu_torch.registry import registry
 from libra_tpu_torch.tokenization import LibraTokenizer
 
 IGNORE_INDEX = -100
@@ -36,6 +39,25 @@ def build_labels(input_ids: np.ndarray, attention_mask: np.ndarray,
     return labels
 
 
+@registry.register_model("debug_model")
+class DebugModel:
+    """Stub model that exercises the data pipeline and the loop without
+    the 11B model (the reference's build_model(no_model=True)): a fixed
+    (100, 200) weight and a random input per batch, both seeded."""
+
+    def __init__(self, device="cuda"):
+        self.device = torch.device(device)
+        g = torch.Generator(device=self.device).manual_seed(0)
+        self.w = torch.randn((100, 200), generator=g, device=self.device) * 0.01
+
+    def forward(self, batch: Dict[str, Any]) -> float:
+        n = len(batch["samples"]["language"])
+        g = torch.Generator(device=self.device).manual_seed(n)
+        x = torch.randn((max(n, 1), 100), generator=g, device=self.device)
+        return float(((x @ self.w) ** 2).mean())
+
+
+@registry.register_model("libra_train_wrapper")
 class LibraTrainWrapper:
     """Host-side batch preparation around the functional model."""
 

@@ -20,9 +20,10 @@ from libra_tpu_torch.config import LibraConfig, VQGANConfig
 from libra_tpu_torch.models import libra as M
 from libra_tpu_torch.models import vqgan
 from libra_tpu_torch.training.optimizer import Optimizer
+from libra_tpu_torch.ops.routed import DropoutKey
 from libra_tpu_torch.training.trainer import (TrainState, _finish_step,
                                               masked_value_and_grad,
-                                              require_no_dropout)
+                                              resolve_attn_impl, step_key)
 
 
 class FusedBatch(NamedTuple):
@@ -89,21 +90,10 @@ def _scatter_block(rows: torch.Tensor, blocks: torch.Tensor,
     return torch.where(inside.reshape((B, N) + trail), picked, rows)
 
 
-def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
-    """"auto" -> the flash kernel (differentiable: forward and backward
-    kernels) on CUDA tensors and the plain attention on the CPU."""
-    if attn_impl == "auto":
-        return "flash" if torch.device(device).type == "cuda" else "plain"
-    if attn_impl not in ("flash", "plain"):
-        raise ValueError(f"attn_impl must be 'auto', 'flash' or 'plain', "
-                         f"not {attn_impl!r}")
-    return attn_impl
-
-
 def fused_loss_fn(params, vq_params, cfg: LibraConfig, vq_cfg: VQGANConfig,
                   batch: FusedBatch, remat=True,
+                  dropout_key: Optional[DropoutKey] = None,
                   attn_impl: str = "auto") -> torch.Tensor:
-    require_no_dropout(cfg)
     Q = cfg.vision_codebook_num
     B, N = batch.text_ids.shape
 
@@ -121,7 +111,8 @@ def fused_loss_fn(params, vq_params, cfg: LibraConfig, vq_cfg: VQGANConfig,
     flag = batch.vision_indices < cfg.max_vision_token_length
     out = M.forward(params, cfg, ids, batch.attention_mask,
                     batch.vision_indices, sig, remat=remat,
-                    attn_impl=resolve_attn_impl(attn_impl, ids.device))
+                    attn_impl=resolve_attn_impl(attn_impl, ids.device),
+                    dropout_key=dropout_key)
     tl = M.compute_text_logits(params, out.hidden_states)
     if cfg.vision_prediction_mode == "2d":
         vl = M.compute_vision_logits_2d(params, cfg, out.hidden_states,
@@ -133,18 +124,21 @@ def fused_loss_fn(params, vq_params, cfg: LibraConfig, vq_cfg: VQGANConfig,
 
 
 def make_fused_train_step(cfg: LibraConfig, vq_cfg: VQGANConfig,
-                          opt: Optimizer, grad_mask=None,
+                          opt: Optimizer, dropout_seed: int = 0, grad_mask=None,
                           attn_impl: str = "auto", remat=True):
     """The train step: step(state, vq_params, batch) -> (state, {"loss",
     "grad_norm"}), the parameters and moments updated in place.
     grad_mask (training.optimizer.trainable_mask): frozen leaves get no
-    gradient and no weight-gradient matmul. remat: as models.libra.forward."""
-    require_no_dropout(cfg)
+    gradient and no weight-gradient matmul. remat: as models.libra.forward.
+    Where a dropout rate is nonzero, the step's forward takes the key
+    (dropout_seed, state.step) (training.trainer.step_key)."""
 
     def step(state: TrainState, vq_params, batch: FusedBatch):
+        key = step_key(cfg, dropout_seed, state.step)
         loss, grads = masked_value_and_grad(
             lambda p: fused_loss_fn(p, vq_params, cfg, vq_cfg, batch,
-                                    remat=remat, attn_impl=attn_impl),
+                                    remat=remat, dropout_key=key,
+                                    attn_impl=attn_impl),
             state.params, grad_mask)
         state, metrics = _finish_step(state, loss, grads, opt=opt)
         return state, {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]}

@@ -1,12 +1,20 @@
-"""Training steps on one device: loss, masked gradients, AdamW update,
-gradient accumulation and the host-side batch padding helpers.
+"""Training on one device: loss, masked gradients, AdamW update, gradient
+accumulation, train-time dropout, the batch padding helpers and the
+``Trainer`` the harness drives.
 
-The PyTorch counterpart of ``libra_tpu/training/trainer.py`` without its
-mesh-aware ``Trainer`` (GSPMD shardings, ZeRO-Offload; ROADMAP A13).
-JAX's ``masked_value_and_grad`` closes frozen leaves over as constants so
-that their weight-gradient matmuls are never built; here the trainable
-leaves alone get ``requires_grad`` for the step, which has the same
-effect on autograd. A step updates the parameters in place.
+The PyTorch counterpart of ``libra_tpu/training/trainer.py``. Its
+``Trainer`` runs on one device: a mesh over more devices and
+ZeRO-Offload are ROADMAP A13. JAX's ``masked_value_and_grad`` closes
+frozen leaves over as constants so that their weight-gradient matmuls
+are never built; here the trainable leaves alone get ``requires_grad``
+for the step, which has the same effect on autograd. A step updates the
+parameters in place.
+
+Dropout: where any rate of the config is nonzero, a step's forward takes
+the dropout key (dropout_seed, step), and an accumulated micro-batch's
+(dropout_seed, step, index), as JAX folds its keys; the key is made of
+host integers (state.step is one), so deriving it reads nothing from the
+device.
 
 Batches are dicts of tensors on the parameters' device: input_ids
 (Q, B, N), attention_mask (B, N), vision_indices (B, N), coninous_signal
@@ -15,6 +23,7 @@ Batches are dicts of tensors on the parameters' device: input_ids
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -22,8 +31,11 @@ import torch
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.models import libra as M
-from libra_tpu_torch.training.optimizer import (OptState, Optimizer, global_norm,
-                                                leaves_with_paths)
+from libra_tpu_torch.ops.routed import DropoutKey
+from libra_tpu_torch.training.optimizer import (OptState, Optimizer,
+                                                OptimizerConfig, global_norm,
+                                                leaves_with_paths, make_optimizer,
+                                                trainable_mask)
 
 
 class TrainState(NamedTuple):
@@ -36,10 +48,22 @@ def init_state(params: Any, opt: Optimizer) -> TrainState:
     return TrainState(params=params, opt_state=opt.init(params), step=0)
 
 
-def require_no_dropout(cfg: LibraConfig) -> None:
-    if M.dropout_enabled(cfg):
-        raise NotImplementedError("the port has no dropout yet (ROADMAP A11): "
-                                  "set every pdrop of the config to 0")
+def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
+    """"auto" -> the flash kernel (differentiable: forward and backward
+    kernels) on CUDA tensors and the plain attention on the CPU."""
+    if attn_impl == "auto":
+        return "flash" if torch.device(device).type == "cuda" else "plain"
+    if attn_impl not in ("flash", "plain"):
+        raise ValueError(f"attn_impl must be 'auto', 'flash' or 'plain', "
+                         f"not {attn_impl!r}")
+    return attn_impl
+
+
+def step_key(cfg: LibraConfig, dropout_seed: int, step: int,
+             *micro: int) -> Optional[DropoutKey]:
+    """The forward's dropout key for a step (and a micro-batch index), or
+    None when every rate of the config is 0."""
+    return (dropout_seed, step) + micro if M.dropout_enabled(cfg) else None
 
 
 def _logits_loss(params: Any, cfg: LibraConfig, hidden: torch.Tensor,
@@ -55,14 +79,22 @@ def _logits_loss(params: Any, cfg: LibraConfig, hidden: torch.Tensor,
     return fn(cfg, tl, vl, flag, labels, unified=cfg.unified_head)
 
 
+def _forward(params, cfg: LibraConfig, batch: Dict[str, Any], remat,
+             dropout_key: Optional[DropoutKey]):
+    """The decoder forward of a batch: the flash kernels on CUDA tensors,
+    the plain attention on the CPU (libra_tpu's loss takes its plain
+    attention everywhere)."""
+    ids = batch["input_ids"]
+    return M.forward(params, cfg, ids, batch["attention_mask"],
+                     batch["vision_indices"], batch.get("coninous_signal"),
+                     remat=remat, dropout_key=dropout_key,
+                     attn_impl=resolve_attn_impl("auto", ids.device))
+
+
 def loss_fn(params: Any, cfg: LibraConfig, batch: Dict[str, Any],
-            remat=True) -> torch.Tensor:
-    """Per-codebook shifted CE averaged over the codebooks, with the plain
-    attention (JAX's default for this function)."""
-    require_no_dropout(cfg)
-    out = M.forward(params, cfg, batch["input_ids"], batch["attention_mask"],
-                    batch["vision_indices"], batch.get("coninous_signal"),
-                    remat=remat)
+            remat=True, dropout_key: Optional[DropoutKey] = None) -> torch.Tensor:
+    """Per-codebook shifted CE averaged over the codebooks."""
+    out = _forward(params, cfg, batch, remat, dropout_key)
     return _logits_loss(params, cfg, out.hidden_states,
                         batch["vision_indices"], batch["labels"])
 
@@ -104,10 +136,13 @@ def _finish_step(state: TrainState, loss: torch.Tensor,
 
 
 def train_step(state: TrainState, batch: Dict[str, Any], *,
-               cfg: LibraConfig, opt: Optimizer, grad_mask: Any = None,
-               remat=True) -> Tuple[TrainState, Dict[str, Any]]:
+               cfg: LibraConfig, opt: Optimizer, dropout_seed: int = 0,
+               grad_mask: Any = None, remat=True
+               ) -> Tuple[TrainState, Dict[str, Any]]:
+    key = step_key(cfg, dropout_seed, state.step)
     loss, grads = masked_value_and_grad(
-        lambda p: loss_fn(p, cfg, batch, remat=remat), state.params, grad_mask)
+        lambda p: loss_fn(p, cfg, batch, remat=remat, dropout_key=key),
+        state.params, grad_mask)
     return _finish_step(state, loss, grads, opt=opt)
 
 
@@ -118,22 +153,21 @@ def eval_step(state: TrainState, batch: Dict[str, Any], *,
 
 
 def _group_loss_fn(params: Any, cfg: LibraConfig, batch: Dict[str, Any],
-                   denom: torch.Tensor, remat=True) -> torch.Tensor:
+                   denom: torch.Tensor, remat=True,
+                   dropout_key: Optional[DropoutKey] = None) -> torch.Tensor:
     """Micro-batch loss normalised by the accumulation group's
     per-codebook valid-label counts `denom` (Q,): summed over the group's
     micro-batches it is the concatenated batch's loss."""
-    require_no_dropout(cfg)
-    out = M.forward(params, cfg, batch["input_ids"], batch["attention_mask"],
-                    batch["vision_indices"], batch.get("coninous_signal"),
-                    remat=remat)
+    out = _forward(params, cfg, batch, remat, dropout_key)
     nll, _ = _logits_loss(params, cfg, out.hidden_states,
                           batch["vision_indices"], batch["labels"], terms=True)
     return (nll / denom).mean()
 
 
 def accum_train_step(state: TrainState, batch: Dict[str, Any], *,
-                     cfg: LibraConfig, opt: Optimizer, grad_mask: Any = None,
-                     remat=True) -> Tuple[TrainState, Dict[str, Any]]:
+                     cfg: LibraConfig, opt: Optimizer, dropout_seed: int = 0,
+                     grad_mask: Any = None, remat=True
+                     ) -> Tuple[TrainState, Dict[str, Any]]:
     """Gradient accumulation: every batch leaf carries a leading micro axis
     (A, ...); one forward and backward per micro-batch, gradients summed,
     losses normalised by the group's valid-label totals, so the result is
@@ -144,8 +178,10 @@ def accum_train_step(state: TrainState, batch: Dict[str, Any], *,
     loss_sum, grad_sum = None, None
     for a in range(labels.shape[0]):
         mb = {k: None if v is None else v[a] for k, v in batch.items()}
+        key = step_key(cfg, dropout_seed, state.step, a)
         loss, grads = masked_value_and_grad(
-            lambda p: _group_loss_fn(p, cfg, mb, denom, remat=remat),
+            lambda p: _group_loss_fn(p, cfg, mb, denom, remat=remat,
+                                     dropout_key=key),
             state.params, grad_mask)
         if grad_sum is None:
             loss_sum, grad_sum = loss, grads
@@ -168,17 +204,20 @@ def _neutral_pad_vals(cfg: LibraConfig) -> Dict[str, Any]:
 
 
 def stack_micro_batches(micro_batches, cfg: LibraConfig) -> Dict[str, Any]:
-    """Right-pad each prepared micro-batch (numpy) to the group's longest
-    sequence and stack them on a new leading micro axis (A, ...)."""
+    """Right-pad each prepared micro-batch to the group's longest sequence
+    and stack them on a new leading micro axis (A, ...): numpy leaves on
+    the host, tensor leaves on their device (no host copy)."""
     pad_val = _neutral_pad_vals(cfg)
     N = max(mb["attention_mask"].shape[-1] for mb in micro_batches)
 
     def pad_one(k, v):
-        v = np.asarray(v)
         seq_axis = 2 if k in _CODEBOOK_MAJOR else 1
         extra = N - v.shape[seq_axis]
         if extra == 0:
             return v
+        if isinstance(v, torch.Tensor):
+            width = [0, 0] * (v.dim() - 1 - seq_axis) + [0, extra]
+            return torch.nn.functional.pad(v, width, value=pad_val.get(k, 0))
         width = [(0, 0)] * v.ndim
         width[seq_axis] = (0, extra)
         return np.pad(v, width, constant_values=pad_val.get(k, 0))
@@ -188,7 +227,11 @@ def stack_micro_batches(micro_batches, cfg: LibraConfig) -> Dict[str, Any]:
         if micro_batches[0][k] is None:
             out[k] = None
             continue
-        out[k] = np.stack([pad_one(k, mb[k]) for mb in micro_batches])
+        vs = [v if isinstance(v, torch.Tensor) else np.asarray(v)
+              for v in (mb[k] for mb in micro_batches)]
+        padded = [pad_one(k, v) for v in vs]
+        out[k] = (torch.stack(padded) if isinstance(padded[0], torch.Tensor)
+                  else np.stack(padded))
     return out
 
 
@@ -223,3 +266,79 @@ def pad_batch_tokens(batch: Dict[str, Any], cfg: LibraConfig,
         width[seq_axis] = (0, extra)
         out[k] = np.pad(v, width, constant_values=pad_val.get(k, 0))
     return out
+
+
+class Trainer:
+    """One device's trainer: the state (parameters, AdamW moments, step),
+    the train step with the trainable-only gradient mask, gradient
+    accumulation and the eval loss. Batches are dicts of numpy arrays or
+    tensors; they go to the parameters' device.
+
+    remat: the layer rematerialisation policy (models.libra.forward:
+    True / "full", "dots", "big_dots", "names:..."). device: where the
+    parameters go (their own device when None). mesh and
+    offload_opt_state, libra_tpu's GSPMD mesh and ZeRO-Offload, are
+    ROADMAP A13: a mesh ({axis: size}, a run config's run.mesh) over more
+    than one device, or offloading, raises."""
+
+    def __init__(self, cfg: LibraConfig, params: Any,
+                 opt_cfg: Optional[OptimizerConfig] = None, remat=True,
+                 device=None, mesh=None, offload_opt_state: bool = False):
+        if mesh is not None and math.prod(int(v) for v in mesh.values()) > 1:
+            raise NotImplementedError(
+                f"Trainer(mesh={mesh!r}): a mesh over more than one device is "
+                "ROADMAP A13; the port trains on one device (every mesh axis 1)")
+        if offload_opt_state:
+            raise NotImplementedError(
+                "Trainer(offload_opt_state=True): ZeRO-Offload is ROADMAP A13")
+        self.cfg = cfg
+        self.remat = remat
+        self.opt_cfg = opt_cfg or OptimizerConfig()
+        if device is not None:
+            params = _to_device(params, torch.device(device))
+        self.device = next(t for _, t in leaves_with_paths(params)).device
+        self.opt = make_optimizer(self.opt_cfg, params)
+        self.state = init_state(params, self.opt)
+        gmask = trainable_mask(params, self.opt_cfg)
+        self.grad_mask = (None if all(m for _, m in leaves_with_paths(gmask))
+                          else gmask)
+
+    def to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's leaves as tensors on the parameters' device."""
+        return {k: None if v is None else torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    def step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """One optimizer step; metrics' loss and grad_norm stay on the
+        device."""
+        self.state, metrics = train_step(
+            self.state, self.to_device(batch), cfg=self.cfg, opt=self.opt,
+            grad_mask=self.grad_mask, remat=self.remat)
+        return metrics
+
+    def step_accum(self, micro_batches) -> Dict[str, Any]:
+        """One optimizer step accumulating over a list of prepared
+        micro-batches (activation memory of one micro-batch)."""
+        if len(micro_batches) == 1:
+            return self.step(micro_batches[0])
+        stacked = stack_micro_batches(
+            [self.to_device(mb) for mb in micro_batches], self.cfg)
+        self.state, metrics = accum_train_step(
+            self.state, stacked, cfg=self.cfg, opt=self.opt,
+            grad_mask=self.grad_mask, remat=self.remat)
+        return metrics
+
+    def eval_step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """The batch's loss under the current parameters (no dropout, no
+        remat), on the device."""
+        return eval_step(self.state, self.to_device(batch), cfg=self.cfg)
+
+    def evaluate(self, batches) -> float:
+        losses = [float(self.eval_step(b)) for b in batches]
+        return sum(losses) / max(len(losses), 1)
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -192,6 +192,6 @@ def test_scatter_block_clamps_like_dynamic_update_slice():
     want[1, 3:6] = 2.0     # start 5 clamped to N - M = 3
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert TM.dropout_enabled(LibraConfig.tiny(attn_pdrop=0.1))
-    with pytest.raises(NotImplementedError):
-        tfused.make_fused_train_step(LibraConfig.tiny(attn_pdrop=0.1),
-                                     VQGANConfig.tiny(), None)
+    # a nonzero rate trains: the step builds (tests/test_torch_port_dropout.py)
+    assert callable(tfused.make_fused_train_step(LibraConfig.tiny(attn_pdrop=0.1),
+                                                 VQGANConfig.tiny(), None))
