@@ -246,6 +246,20 @@ Phases, in order; any failure exits non-zero:
    and a fresh run that resumes for 2 more: losses and every leaf bit for
    bit, the checkpoint's bytes and a timed save and restore; one
    update_ema over the 4-layer tree; a debug_model run.
+7c. tokenizer training (models/vqgan_train.VQGANTrainer; no kernel of the
+   LLM, which the launch counts confirm): libra-11b's VQGAN at full width
+   in fp32 (CLIP ViT-L/14-336 with two taps, the 2 x 512-code LFQ, the
+   336-pixel decoder at ch 128), synthetic LPIPS weights through
+   convert_vgg16_lpips, the default discriminator, B = 4 seeded images: a
+   warm-up step (its matmul and conv operations counted by
+   FlopCounterMode) and 3 timed steps, the last profiled: ms/step wall and
+   device, images/s, peak memory, TFLOP/s; every log finite, CLIP and
+   LPIPS bit for bit unchanged, every trained leaf moved (or its gradient
+   exactly 0 at every step), d_weight > 0; the first step's aeloss against
+   the same step with TF32 off. Then a narrow config on the card (TF32
+   off) against the CPU, each of 2 steps from the card's state (logs,
+   d_weight, updated leaves), the conv encoder there against the CPU, and
+   the conv encoder at full width (B = 4, 336 -> 21, timed).
 8. the int4 decode-matvec experiment (B6) at its full size (K = 4096,
    O = 11008, L = 8, G = 128, M = 4, Bp = 8): the weight-only kernels D
    (both unpack widths) and C, and the W4A8 kernels in every unpack mode
@@ -264,7 +278,7 @@ torch.profiler traces the card's activity alone, and the host's operators
 only where a record_function region is read (the fused prompt pass's
 CLIP + LFQ): their events cost the profiler seconds a call.
 
-Each phase-6, 6c, phase-7, 7b and phase-8 run sets every kernel's launch count
+Each phase-6, 6c, phase-7, 7b, 7c and phase-8 run sets every kernel's launch count
 to 0 just before it and reads them just after; the line before the last is the
 kernel report as JSON, with the launches summed over those runs and each
 kernel's bound (bytes over HBM's 3.35 TB/s or operations over the dense
@@ -425,6 +439,27 @@ HARNESS_MAX_LEN = 700
 HARNESS_RATE = 0.1
 HARNESS_WORDS = ("a photo of two small red cats sitting on green grass near an old "
                  "wooden house under the blue sky with white clouds").split()
+# phase 7c, tokenizer training (vqgan_train_path): libra-11b's VQGAN at
+# full width, fp32, VQ_B images of 336 x 336, a warm-up and VQ_STEPS
+# timed steps; the card against the CPU on a narrow config, TF32 off
+VQ_B, VQ_STEPS, VQ_SMALL_STEPS = 4, 3, 2
+VQ_LR = 4.5e-6                               # VQGANTrainer's default
+VQ_LOG_TOL, VQ_LEAF_TOL, VQ_ENC_TOL = 1e-4, 1e-3, 1e-4
+# each step's gradients, card against CPU from one state: within
+# VQ_GRAD_RTOL of the leaf's norm plus VQ_GRAD_FLOOR of its tree's (float
+# noise). The loss is piecewise linear in places: an input of a ReLU or
+# LeakyReLU within float noise of 0 takes the other slope on the other
+# device, which moves the gradient on that layer's input, and so every
+# gradient behind it, by about sqrt(1 / n) of its norm for a layer of n
+# inputs (1e5 in the discriminator's first at the narrow config), however
+# exact each operation is. The card's AdamW step against the CPU's on the
+# card's own gradients: within VQ_REPLAY_TOL of the leaf's largest value
+VQ_GRAD_RTOL, VQ_GRAD_FLOOR, VQ_REPLAY_TOL = 2e-2, 1e-5, 1e-6
+# d_weight, a ratio of two gradients' norms, moves where an input of a
+# ReLU, LeakyReLU or |x| sits within float noise of its kink: on the CPU
+# alone fp32 against fp64 read up to 2.7e-4 over 8 discriminator draws
+# at the narrow config (the losses within 4e-5)
+VQ_DWEIGHT_TOL = 1e-3
 # phase 8, the experiment's shape (tools/exp_int4.py:46-50)
 EXP_K, EXP_O, EXP_L, EXP_G, EXP_M, EXP_BP = 4096, 11008, 8, 128, 4, 8
 # K = 2816 and 11008 give each block of a cluster 11 and 43 units of 32 k:
@@ -4951,6 +4986,301 @@ def harness_path(card: str, main_counts: Counter) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Tokenizer training (models/vqgan_train.py)
+# ---------------------------------------------------------------------------
+
+def lpips_state_dict(seed: int) -> dict:
+    """Synthetic LPIPS weights under torchvision's VGG16 names and taming's
+    vgg_lpips lin-head names, as numpy (no VGG16 or LPIPS weights are in
+    the repository)."""
+    from libra_tpu_torch.checkpoint import _VGG16_CONV_IDX
+    from libra_tpu_torch.models.vqgan_train import _LPIPS_CHANNELS, _VGG_CFG
+    g = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for i, c in zip(_VGG16_CONV_IDX, [c for c in _VGG_CFG if c != "M"]):
+        sd[f"features.{i}.weight"] = torch.randn(c, cin, 3, 3, generator=g) * (9 * cin) ** -0.5
+        sd[f"features.{i}.bias"] = torch.randn(c, generator=g) * 0.05
+        cin = c
+    for k, c in enumerate(_LPIPS_CHANNELS):
+        sd[f"lin{k}.model.1.weight"] = torch.rand(1, c, 1, 1, generator=g) * 0.2
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def vq_images(vq_cfg, dev, B: int, seed: int):
+    """B seeded uint8 images: CLIP-normalized pixels and [-1, 1] targets."""
+    from libra_tpu_torch.training.fused import maybe_normalize_pixels
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = vq_cfg.clip.image_size
+    u8 = torch.randint(0, 256, (B, S, S, 3), generator=g, device=dev, dtype=torch.uint8)
+    return maybe_normalize_pixels(vq_cfg, u8), u8.float() / 127.5 - 1.0
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN's and cuBLAS's TF32 off inside, restored after."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def vq_trained(trainer) -> dict:
+    """The trees each of the trainer's AdamWs updates: "ae" (the decoder,
+    the quant and post-quant convs) and "disc"."""
+    return {"ae": {k: trainer.params[k] for k in ("decoder", "quant_conv", "post_quant_conv")},
+            "disc": trainer.loss_params["disc"]}
+
+
+def vq_opts(trainer) -> dict:
+    return {"ae": trainer.ae_opt, "disc": trainer.disc_opt}
+
+
+def vq_record_grads(trainer) -> dict:
+    """Have the trainer's two AdamWs keep the gradients of their last
+    step: {"ae" or "disc": {path: gradient}}."""
+    from libra_tpu_torch.training.optimizer import leaves_with_paths
+    got = {}
+    for side, opt in vq_opts(trainer).items():
+        def step(leaves, grads, _step=opt.step, _side=side):
+            paths = [p for p, _ in leaves_with_paths(vq_trained(trainer)[_side])]
+            got[_side] = {p: g.detach().clone() for p, g in zip(paths, grads)}
+            _step(leaves, grads)
+        opt.step = step
+    return got
+
+
+def vq_copy(tree, where=None):
+    """A copy of a tree of dicts and lists, every tensor cloned (onto
+    `where` if given)."""
+    if isinstance(tree, dict):
+        return {k: vq_copy(v, where) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [vq_copy(v, where) for v in tree]
+    return None if tree is None else tree.to(where, copy=True)
+
+
+def vq_sync(src, dst, where) -> None:
+    """dst's training state (the trained trees, AdamW's moments and count,
+    the step) set to a copy of src's on `where`."""
+    for k in ("decoder", "quant_conv", "post_quant_conv"):
+        dst.params[k] = vq_copy(src.params[k], where)
+    dst.loss_params["disc"] = vq_copy(src.loss_params["disc"], where)
+    for side, a in vq_opts(src).items():
+        b = vq_opts(dst)[side]
+        b.mu, b.nu, b.count = vq_copy(a.mu, where), vq_copy(a.nu, where), a.count
+    dst.step = src.step
+
+
+def vq_small_config():
+    """A narrow tokenizer: a 2-layer CLIP of width 64 on 56-pixel images
+    (a 4 x 4 grid), a 2-level decoder of 32 and 64 channels."""
+    from libra_tpu_torch.config import CLIPVisionConfig, VQGANConfig
+    return VQGANConfig.tiny(
+        ch=32, ch_mult=(1, 2), resolution=56, initial_resolution=4, select_layer=(-2, -1),
+        clip=CLIPVisionConfig.tiny(hidden_size=64, intermediate_size=128,
+                                   num_hidden_layers=2, image_size=56))
+
+
+def vq_card_vs_cpu(card: str, dev) -> dict:
+    """VQGANTrainer on the narrow config for VQ_SMALL_STEPS steps on the
+    card with TF32 off, each step also taken on the CPU from a copy of the
+    card's state before it (free runs part: Adam's g / (|g| + eps) step
+    lets float noise set the step of an element whose gradient is near 0,
+    and that shifts the next step's inputs to every ReLU, LeakyReLU and
+    |x| kink). Held each step: every log within VQ_LOG_TOL relative
+    (d_weight within VQ_DWEIGHT_TOL); every gradient, the autoencoder's
+    and the discriminator's, within VQ_GRAD_RTOL of its leaf's norm plus
+    VQ_GRAD_FLOOR of its tree's; every leaf after the card's step equal to
+    the CPU's AdamW step on the card's gradients from the same state
+    (VQ_REPLAY_TOL); every conv weight within VQ_LEAF_TOL relative L2 of
+    the CPU's. Biases and norm parameters are held through their
+    gradients and the replay, not to the CPU's after Adam, for the noise
+    above: at this config every GroupNorm has one channel a group, so the
+    decoder's conv biases get gradients of float noise, and BatchNorm
+    takes out the discriminator's conv biases exactly. The trainer's own
+    lr is used (at 1e-4 the discriminator's first conv, N(0, 0.02),
+    parted by 1.6e-3 for the same noise). Then the conv encoder there, the
+    same way, within VQ_ENC_TOL relative L2."""
+    from libra_tpu_torch.checkpoint import convert_vgg16_lpips
+    from libra_tpu_torch.models import vqgan, vqgan_train as vt
+    from libra_tpu_torch.training.optimizer import leaves_with_paths
+    cfg = vq_small_config()
+    cpu = torch.device("cpu")
+    tree = vqgan.init_params(torch.Generator().manual_seed(SEED), cfg, cpu)
+    sd = lpips_state_dict(SEED + 1)
+    pixels, targets = vq_images(cfg, dev, 2, SEED + 2)
+
+    def norm(t) -> float:
+        return torch.linalg.vector_norm(t.double()).item()
+
+    with tf32_off():
+        tc = vt.VQGANTrainer(cfg, vq_copy(tree, dev), lr=VQ_LR,
+                             lpips_params=convert_vgg16_lpips(sd, dev), device=dev)
+        th = vt.VQGANTrainer(cfg, tree, lr=VQ_LR,
+                             lpips_params=convert_vgg16_lpips(sd, cpu), device=cpu)
+        grads_card, grads_cpu = vq_record_grads(tc), vq_record_grads(th)
+        lc, lh, worst_w, worst_path, worst_g, worst_r, bad = [], [], 0.0, "", 0.0, 0.0, []
+        for _ in range(VQ_SMALL_STEPS):
+            vq_sync(tc, th, cpu)
+            before = {side: (vq_copy(t), vq_copy(opt.mu), vq_copy(opt.nu), opt.count)
+                      for (side, t), opt in zip(vq_trained(th).items(), vq_opts(th).values())}
+            lc.append(tc.train_step(pixels, targets))
+            lh.append(th.train_step(pixels.cpu(), targets.cpu()))
+            for side, (start, mu, nu, count) in before.items():
+                floor = VQ_GRAD_FLOOR * math.sqrt(sum(norm(g) ** 2 for g in grads_cpu[side].values()))
+                for path, g in grads_cpu[side].items():
+                    err = norm(grads_card[side][path].cpu() - g)
+                    ratio = err / (VQ_GRAD_RTOL * norm(g) + floor) if err else 0.0
+                    worst_g = max(worst_g, ratio)
+                    if ratio > 1:
+                        bad.append(f"gradient {side}/{path} {err:.3g} of {norm(g):.3g}")
+                # the CPU's AdamW on the card's gradients, from the state both started from
+                replay = vt._AdamW([], VQ_LR)
+                replay.mu, replay.nu, replay.count = mu, nu, count
+                leaves = [t for _, t in leaves_with_paths(start)]
+                replay.step(leaves, [g.cpu() for g in grads_card[side].values()])
+                got = dict(leaves_with_paths(vq_trained(tc)[side]))
+                want = dict(leaves_with_paths(vq_trained(th)[side]))
+                for path, r in zip(grads_card[side], leaves):
+                    c = got[path].cpu()
+                    d = (c - r).abs().max().item() / max(r.abs().max().item(), VQ_LR)
+                    worst_r = max(worst_r, d)
+                    if d > VQ_REPLAY_TOL:
+                        bad.append(f"AdamW step {side}/{path} {d:.3g}")
+                    if c.dim() > 1:
+                        worst_w, worst_path = max((worst_w, worst_path),
+                                                  (rel_l2(c, want[path]), f"{side}/{path}"))
+        worst_log = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-3)
+                        for a, b in zip(lc, lh) for k in b if k != "d_weight")
+        worst_dw = max(abs(a["d_weight"] - b["d_weight"]) / b["d_weight"] for a, b in zip(lc, lh))
+        enc = vqgan.init_encoder_params(torch.Generator().manual_seed(SEED + 3), cfg, device=cpu)
+        x = torch.randn((2, 56, 56, 3), generator=torch.Generator().manual_seed(SEED + 4))
+        with torch.no_grad():
+            enc_rel = rel_l2(vqgan.encoder_forward(vq_copy(enc, dev), cfg, x.to(dev)).cpu(),
+                             vqgan.encoder_forward(enc, cfg, x))
+    print(f"tokenizer training, card (TF32 off) vs CPU, narrow config (CLIP 2 x 64, decoder "
+          f"32-64 channels, 56 pixels, B = 2, lr {VQ_LR}), {VQ_SMALL_STEPS} steps, each from "
+          f"the card's state: "
+          f"worst log {worst_log:.3g} relative (tol {VQ_LOG_TOL}), d_weight {worst_dw:.3g} (tol "
+          f"{VQ_DWEIGHT_TOL}), worst gradient at {worst_g:.3g} of its tolerance ({VQ_GRAD_RTOL} "
+          f"of the leaf's norm + {VQ_GRAD_FLOOR} of the tree's), AdamW step on the card's "
+          f"gradients {worst_r:.3g} (tol {VQ_REPLAY_TOL}), worst conv weight {worst_w:.3g} "
+          f"relative L2 at {worst_path} (tol {VQ_LEAF_TOL}); conv encoder {enc_rel:.3g} "
+          f"relative L2 (tol {VQ_ENC_TOL}); failed {bad} [{card}]")
+    if (worst_log > VQ_LOG_TOL or worst_dw > VQ_DWEIGHT_TOL or worst_w > VQ_LEAF_TOL or bad
+            or enc_rel > VQ_ENC_TOL):
+        raise AssertionError(f"tokenizer training or the conv encoder, card vs CPU: logs "
+                             f"{lc} vs {lh}")
+    return dict(worst_log=worst_log, worst_dw=worst_dw, worst_leaf=worst_w, worst_grad=worst_g,
+                worst_replay=worst_r, enc_rel=enc_rel)
+
+
+def vqgan_train_path(card: str, dev, main_counts: Counter) -> dict:
+    """VQGANTrainer at libra-11b's tokenizer (CLIP ViT-L/14-336 with two
+    taps, the 2 x 512-code LFQ, the 336-pixel decoder at ch 128), fp32,
+    B = VQ_B: a warm-up step (its operations counted by FlopCounterMode),
+    VQ_STEPS timed ones (the last profiled); frozen trees bit for bit,
+    trained ones moved; the first step's aeloss against the same step with
+    TF32 off. Then the narrow config against the CPU (vq_card_vs_cpu) and
+    the conv encoder at full width."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from libra_tpu_torch.checkpoint import convert_vgg16_lpips
+    from libra_tpu_torch.config import VQGANConfig
+    from libra_tpu_torch.models import vqgan, vqgan_train as vt
+    from libra_tpu_torch.training.optimizer import leaves_with_paths
+    t_phase = time.perf_counter()
+    cfg = VQGANConfig(select_layer=(-2, -1))
+    with torch.no_grad():
+        params = vqgan.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    lp = convert_vgg16_lpips(lpips_state_dict(SEED), dev)
+    pixels, targets = vq_images(cfg, dev, VQ_B, SEED)
+    zero_counts()
+    # the first step with TF32 off, from a copy of the trees it trains
+    off = dict(params, **{k: vq_copy(params[k]) for k in ("decoder", "quant_conv",
+                                                           "post_quant_conv")})
+    with tf32_off():
+        aeloss_off = vt.VQGANTrainer(cfg, off, lr=VQ_LR, lpips_params=lp, device=dev).train_step(
+            pixels, targets)["aeloss"]
+    del off
+    trainer = vt.VQGANTrainer(cfg, params, lr=VQ_LR, lpips_params=lp, device=dev)
+    frozen = {k: vq_copy(v) for k, v in (("clip", params["clip"]), ("lpips", lp))}
+    start = vq_copy(vq_trained(trainer))
+    flops = FlopCounterMode(display=False)
+    with flops:
+        logs = [trainer.train_step(pixels, targets)]
+    tflop = flops.get_total_flops() / 1e12
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for _ in range(VQ_STEPS - 1):
+        t0 = time.perf_counter()
+        logs.append(trainer.train_step(pixels, targets))
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    prof = {}
+    logs.append(profiled(card, f"tokenizer train step (B = {VQ_B}, 336 x 336, fp32)",
+                         lambda: trainer.train_step(pixels, targets), rows=10, out=prof))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = read_counts()
+    main_counts.update(got)
+    if sum(got.values()):
+        raise AssertionError(f"tokenizer training launched a kernel of the LLM: {got}")
+    if trainer.step != VQ_STEPS + 1 or not all(
+            math.isfinite(v) for step in logs for v in step.values()):
+        raise AssertionError(f"tokenizer training: step {trainer.step}, logs {logs}")
+    if not logs[0]["d_weight"] > 0:
+        raise AssertionError(f"tokenizer training: d_weight {logs[0]['d_weight']}")
+    for name, before in frozen.items():
+        now = dict(leaves_with_paths(params["clip"] if name == "clip"
+                                     else trainer.loss_params["lpips"]))
+        if any(not torch.equal(now[p], t) for p, t in leaves_with_paths(before)):
+            raise AssertionError(f"tokenizer training: a {name} leaf changed")
+    # a leaf stays only where its gradient was exactly 0 at every step (the
+    # hinge loss's head bias while every logit is inside the margin): its
+    # second moment is then 0
+    nu = {f"{side}/{p}": v for side, opt in vq_opts(trainer).items()
+          for (p, _), v in zip(leaves_with_paths(vq_trained(trainer)[side]), opt.nu)}
+    now = dict(leaves_with_paths(vq_trained(trainer)))
+    stayed = [p for p, t in leaves_with_paths(start) if torch.equal(now[p], t)]
+    if any(bool(nu[p].any()) for p in stayed):
+        raise AssertionError(f"tokenizer training: leaves with a gradient did not move: {stayed}")
+    step_ms = statistics.mean(wall) * 1e3
+    tf32_rel = abs(logs[0]["aeloss"] - aeloss_off) / abs(aeloss_off)
+    print(f"tokenizer training, libra-11b's VQGAN at full width (fp32, B = {VQ_B}, 336 x 336, "
+          f"LPIPS synthetic, discriminator ndf 64 n_layers 3): {step_ms:.3f} ms/step wall "
+          f"(steps 2-{VQ_STEPS}), a profiled step {prof['wall_ms']:.3f} ms wall / "
+          f"{prof['device_ms']:.3f} ms device, {VQ_B * 1e3 / step_ms:.3f} images/s, peak "
+          f"{peak_gb:.3f} GB, {tflop:.3f} TFLOP a step (FlopCounterMode: matmuls and convs, "
+          f"forward and backward) = {tflop / step_ms * 1e3:.3f} TFLOP/s; first step aeloss "
+          f"{logs[0]['aeloss']:.6f} with cuDNN's TF32 (the default) vs {aeloss_off:.6f} with "
+          f"TF32 off: {tf32_rel:.3g} relative; d_weight {logs[0]['d_weight']:.4g}; "
+          f"{len(stayed)} leaves with an exactly zero gradient stayed {stayed}; logs "
+          f"{logs[-1]} [{card}]")
+    small = vq_card_vs_cpu(card, dev)
+    enc = vqgan.init_encoder_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                                    device=dev)
+    with torch.no_grad():
+        z = vqgan.encoder_forward(enc, cfg, targets)
+        enc_ms = cuda_ms(lambda: vqgan.encoder_forward(enc, cfg, targets), n=3, reps=3)
+    side = cfg.resolution >> sum(lev["has_down"] for lev in vqgan.encoder_plan(cfg)[0])
+    if tuple(z.shape) != (VQ_B, side, side, cfg.z_channels) or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"conv encoder: {tuple(z.shape)}, finite "
+                             f"{bool(torch.isfinite(z).all())}")
+    print(f"conv encoder at full width (ch {cfg.ch}, ch_mult {cfg.ch_mult}, {cfg.resolution} "
+          f"-> {side}), B = "
+          f"{VQ_B}: {tuple(z.shape)}, finite, {enc_ms:.3f} ms (CUDA events, median of 3 runs "
+          f"of 3) [{card}]")
+    phase_s = time.perf_counter() - t_phase
+    print(f"tokenizer training phase: {phase_s:.1f} s [{card}]")
+    return dict(step_ms=step_ms, device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                img_s=VQ_B * 1e3 / step_ms, peak_gb=peak_gb, tflop=tflop,
+                tflop_s=tflop / step_ms * 1e3, tf32_rel=tf32_rel, enc_ms=enc_ms,
+                phase_s=phase_s, **small)
+
+
+# ---------------------------------------------------------------------------
 # The int4 decode-matvec experiment (B6)
 # ---------------------------------------------------------------------------
 
@@ -5357,6 +5687,19 @@ def main() -> int:
           f"{'bit for bit' if harness['bitwise'] else 'within tolerance'}, checkpoint "
           f"{harness['gb']:.4f} GB written in {harness['write_s']:.3f} s, read in "
           f"{harness['read_s']:.3f} s; phase {harness['phase_s']:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vqt = vqgan_train_path(card, dev, main_counts)
+    print(f"vqgan train summary: libra-11b's tokenizer, fp32, B = {VQ_B}: "
+          f"{vqt['step_ms']:.3f} ms/step wall, a profiled step {vqt['wall_ms']:.3f} ms wall / "
+          f"{vqt['device_ms']:.3f} ms device, {vqt['img_s']:.3f} images/s, peak "
+          f"{vqt['peak_gb']:.3f} GB, {vqt['tflop']:.3f} TFLOP a step, {vqt['tflop_s']:.3f} "
+          f"TFLOP/s; TF32 vs off {vqt['tf32_rel']:.3g}; card vs CPU: logs "
+          f"{vqt['worst_log']:.3g}, d_weight {vqt['worst_dw']:.3g}, leaves "
+          f"{vqt['worst_leaf']:.3g}, gradients at {vqt['worst_grad']:.3g} of their "
+          f"tolerance, AdamW steps {vqt['worst_replay']:.3g}, conv encoder "
+          f"{vqt['enc_rel']:.3g}; conv encoder {vqt['enc_ms']:.3f} ms; phase "
+          f"{vqt['phase_s']:.1f} s [{card}]")
     gc.collect()
     torch.cuda.empty_cache()
     report.update(check_exp_int4(card, dev))

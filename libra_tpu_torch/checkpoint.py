@@ -23,9 +23,11 @@ transposing, so the leaves equal libra_tpu's bit for bit.
 Training state is saved and restored with ``save_checkpoint`` /
 ``restore_checkpoint`` (libra_tpu's Orbax pair, in torch's file format).
 
+LPIPS weights for tokenizer training (torchvision's VGG16 and taming's
+lin heads) convert with ``convert_vgg16_lpips`` / ``load_lpips_params``.
+
 Not ported here: the Meta-format LLaMA converter (its target, the
-``models/llama`` tree, comes with ROADMAP A12), and the LPIPS converters
-(ROADMAP A11b).
+``models/llama`` tree, comes with ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -336,6 +338,58 @@ def convert_vqgan_state_dict(sd: Dict[str, np.ndarray], cfg: VQGANConfig,
     if clip_params is not None:
         params["clip"] = clip_params
     return params
+
+
+# torchvision VGG16 `features` indices of the 13 conv layers; the LPIPS
+# module keeps these indices inside its net.slice{1..5} submodules
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def _lpips_slice_of(feature_idx: int) -> int:
+    """The net.slice{s} of the LPIPS module that holds VGG16's feature
+    index feature_idx."""
+    for s, hi in enumerate((4, 9, 16, 23, 30), start=1):
+        if feature_idx < hi:
+            return s
+    raise ValueError(feature_idx)
+
+
+def convert_vgg16_lpips(sd: Dict[str, np.ndarray], device="cuda") -> Dict[str, Any]:
+    """LPIPS weights -> the models/vqgan_train lpips tree on `device`,
+    fp32: {"vgg": {"convs": [{w HWIO, b}] * 13}, "lins": [{w (1, 1, C,
+    1)}] * 5}. Takes either naming scheme of the VGG16 convs, or a merge
+    of both: torchvision's ``features.{i}.weight / bias``, or the LPIPS
+    module's ``net.slice{s}.{i}.weight / bias``; the lin heads are taming's
+    vgg_lpips ``lin{k}.model.1.weight``. A missing conv or head raises
+    KeyError."""
+    put = _putter(device, torch.float32)
+
+    def conv_w(name):
+        return put(sd[name]).permute(2, 3, 1, 0).contiguous()    # OIHW -> HWIO
+
+    convs = []
+    for i in _VGG16_CONV_IDX:
+        name = f"features.{i}"
+        if f"{name}.weight" not in sd:
+            name = f"net.slice{_lpips_slice_of(i)}.{i}"
+        if f"{name}.weight" not in sd:
+            raise KeyError(f"VGG16 conv {i} missing (features.{i}.weight / {name}.weight)")
+        convs.append({"w": conv_w(f"{name}.weight"), "b": put(sd[f"{name}.bias"])})
+    lins = []
+    for k in range(5):
+        name = f"lin{k}.model.1.weight"
+        if name not in sd:
+            raise KeyError(f"LPIPS lin head {name} missing (taming's vgg_lpips checkpoint)")
+        lins.append({"w": conv_w(name)})
+    return {"vgg": {"convs": convs}, "lins": lins}
+
+
+def load_lpips_params(vgg16_path: str, lpips_lins_path: str, device="cuda") -> Dict[str, Any]:
+    """torchvision's vgg16 state-dict file and taming's vgg.pth lin heads
+    -> the converted LPIPS tree on `device`."""
+    sd = dict(load_torch_state_dict(vgg16_path))
+    sd.update(load_torch_state_dict(lpips_lins_path))
+    return convert_vgg16_lpips(sd, device)
 
 
 # ---------------------------------------------------------------------------

@@ -2,15 +2,17 @@
 (encode), and LFQ's code lookup -> 1x1 post-quant conv -> the taming conv
 decoder (decode_code, text-to-image). Activations are NHWC and conv
 weights HWIO, as in ``libra_tpu/models/vqgan.py``; the decoder runs in the
-codes' fp32 whatever the params' dtype. The conv encoder's forward pass
-(``encoder_name: conv``) waits for VQGAN training (ROADMAP A11); its
-static plan (encoder_plan) is here, for the checkpoint converter."""
+codes' fp32 whatever the params' dtype. The taming conv encoder
+(``encoder_name: conv``: init_encoder_params, encoder_forward) serves
+tokenizer training (``models/vqgan_train.py``) and the checkpoint
+converter; the tokenizer itself encodes through CLIP."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from libra_tpu_torch.config import VQGANConfig
 from libra_tpu_torch.models import clip as clip_model
@@ -34,6 +36,29 @@ def _conv_init(gen, kh, kw, cin, cout, device, dtype) -> Params:
 def _gn_init(c, device, dtype) -> Params:
     return {"scale": torch.ones((c,), dtype=dtype, device=device),
             "bias": torch.zeros((c,), dtype=dtype, device=device)}
+
+
+def _block_inits(gen, device, dtype):
+    """(conv, gn, resnet, attn) initializers of the conv stacks' blocks:
+    convs N(0, 1 / fan_in) with zero biases, GroupNorms unit scale and
+    zero bias."""
+    def conv(k, cin, cout):
+        return _conv_init(gen, k, k, cin, cout, device, dtype)
+
+    def gn(c):
+        return _gn_init(c, device, dtype)
+
+    def resnet(cin, cout):
+        p = {"norm1": gn(cin), "conv1": conv(3, cin, cout),
+             "norm2": gn(cout), "conv2": conv(3, cout, cout)}
+        if cin != cout:
+            p["nin_shortcut"] = conv(1, cin, cout)
+        return p
+
+    def attn(c):
+        return {"norm": gn(c), **{n: conv(1, c, c) for n in ("q", "k", "v", "proj_out")}}
+
+    return conv, gn, resnet, attn
 
 
 def init_params(gen: torch.Generator, cfg: VQGANConfig, device="cuda",
@@ -81,25 +106,9 @@ def decoder_plan(cfg: VQGANConfig):
 
 def init_decoder_params(gen: torch.Generator, cfg: VQGANConfig, device="cuda",
                         dtype=torch.float32) -> Params:
-    """The taming decoder's tree with the JAX tree's key paths and shapes:
-    convs N(0, 1 / fan_in) with zero biases, GroupNorms unit scale and
-    zero bias. `gen` must live on `device`."""
-    def conv(k, cin, cout):
-        return _conv_init(gen, k, k, cin, cout, device, dtype)
-
-    def gn(c):
-        return _gn_init(c, device, dtype)
-
-    def resnet(cin, cout):
-        p = {"norm1": gn(cin), "conv1": conv(3, cin, cout),
-             "norm2": gn(cout), "conv2": conv(3, cout, cout)}
-        if cin != cout:
-            p["nin_shortcut"] = conv(1, cin, cout)
-        return p
-
-    def attn(c):
-        return {"norm": gn(c), **{n: conv(1, c, c) for n in ("q", "k", "v", "proj_out")}}
-
+    """The taming decoder's tree with the JAX tree's key paths and shapes
+    (_block_inits' values). `gen` must live on `device`."""
+    conv, gn, resnet, attn = _block_inits(gen, device, dtype)
     levels, final_ch = decoder_plan(cfg)
     mid_ch = cfg.ch * cfg.ch_mult[-1]
     p: Params = {
@@ -188,20 +197,83 @@ def encoder_plan(cfg: VQGANConfig):
     return levels, cfg.ch * cfg.ch_mult[-1]
 
 
+def init_encoder_params(gen: torch.Generator, cfg: VQGANConfig, in_channels: int = 3,
+                        device="cuda", dtype=torch.float32) -> Params:
+    """The taming conv encoder's tree with the JAX tree's key paths and
+    shapes (_block_inits' values). `gen` must live on `device`."""
+    conv, gn, resnet, attn = _block_inits(gen, device, dtype)
+    levels, final_ch = encoder_plan(cfg)
+    p: Params = {
+        "conv_in": conv(3, in_channels, cfg.ch),
+        "down": [],
+        "mid_block_1": resnet(final_ch, final_ch),
+        "mid_attn_1": attn(final_ch),
+        "mid_block_2": resnet(final_ch, final_ch),
+        "norm_out": gn(final_ch),
+        "conv_out": conv(3, final_ch, cfg.z_channels),
+    }
+    for lev in levels:
+        cin, blocks, attns = lev["block_in"], [], []
+        for _ in range(cfg.num_res_blocks):
+            blocks.append(resnet(cin, lev["block_out"]))
+            cin = lev["block_out"]
+            if lev["has_attn"]:
+                attns.append(attn(cin))
+        entry: Params = {"block": blocks, "attn": attns}
+        if lev["has_down"]:
+            entry["downsample_conv"] = conv(3, cin, cin)
+        p["down"].append(entry)
+    return p
+
+
+def encoder_forward(params: Params, cfg: VQGANConfig, pixels: torch.Tensor) -> torch.Tensor:
+    """pixels (B, S, S, C) -> latents (B, s, s, z_channels): the levels
+    top-down, each but the last downsampled as torch's Downsample does (a
+    (0, 1, 0, 1) pad, then a stride-2 VALID conv), then the mid block."""
+    levels, _ = encoder_plan(cfg)
+    h = conv2d(pixels, **params["conv_in"])
+    for entry, lev in zip(params["down"], levels):
+        for i_block in range(cfg.num_res_blocks):
+            h = _resnet_block(entry["block"][i_block], h)
+            if lev["has_attn"]:
+                h = _attn_block(entry["attn"][i_block], h, cfg.attn_num_heads)
+        if lev["has_down"]:
+            h = conv2d(F.pad(h, (0, 0, 0, 1, 0, 1)), **entry["downsample_conv"],
+                       stride=2, padding="VALID")
+    h = _resnet_block(params["mid_block_1"], h)
+    h = _attn_block(params["mid_attn_1"], h, cfg.attn_num_heads)
+    h = _resnet_block(params["mid_block_2"], h)
+    h = swish(group_norm(h, **params["norm_out"]))
+    return conv2d(h, **params["conv_out"])
+
+
 class EncodeOutput(NamedTuple):
-    quantized: torch.Tensor   # (B, g, g, embed_dim) in {-1, +1}
+    quantized: torch.Tensor   # (B, g, g, embed_dim): {-1, +1} (straight-through when training)
     indices: torch.Tensor     # (B, g, g, Q)
     feat: torch.Tensor        # (B, g, g, C) tapped CLIP features
+    train_aux: Optional[torch.Tensor] = None    # LFQ's; None when not training
+
+    @property
+    def aux_loss(self) -> torch.Tensor:
+        """fp32 scalar: LFQ's entropy + commitment loss, 0 when not training."""
+        return lfq.aux_or_zero(self.train_aux, self.quantized)
 
 
-def encode(params: Params, cfg: VQGANConfig, pixels: torch.Tensor) -> EncodeOutput:
+def quantize_features(params: Params, cfg: VQGANConfig, feat: torch.Tensor,
+                      training: bool = False) -> lfq.LFQOutput:
+    """Tapped CLIP features (B, g, g, C) -> the 1x1 quant conv -> LFQ."""
+    qc = params["quant_conv"]
+    h = feat @ qc["w"][0, 0].to(feat.dtype) + qc["b"].to(feat.dtype)   # 1x1 conv
+    return lfq.quantize(h, lfq_spec(cfg), training=training)
+
+
+def encode(params: Params, cfg: VQGANConfig, pixels: torch.Tensor,
+           training: bool = False) -> EncodeOutput:
     """pixels (B, S, S, 3) CLIP-normalized, in the params' dtype."""
     feat = clip_model.forward_features(params["clip"], cfg.clip, pixels,
                                        select_layer=cfg.select_layer)
-    qc = params["quant_conv"]
-    h = feat @ qc["w"][0, 0].to(feat.dtype) + qc["b"].to(feat.dtype)   # 1x1 conv
-    out = lfq.quantize(h, lfq_spec(cfg))
-    return EncodeOutput(out.quantized, out.indices, feat)
+    out = quantize_features(params, cfg, feat, training)
+    return EncodeOutput(out.quantized, out.indices, feat, out.train_aux)
 
 
 def decode_code(params: Params, cfg: VQGANConfig, indices: torch.Tensor) -> torch.Tensor:

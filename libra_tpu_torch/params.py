@@ -49,6 +49,8 @@ def from_numpy_tree(tree: Any, device="cuda",
     if hasattr(tree, "q") and hasattr(tree, "scale"):
         return QuantizedArray(_leaf(tree.q, device, None),
                               _leaf(tree.scale, device, None))
+    if tree is None:          # an empty subtree (the discriminator's first "bn")
+        return None
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,12 +59,14 @@ _VISION_EXTRA = {"signal_proj", "signal_norm", "vision_position_embedding"}
 
 
 def leaves_with_paths(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(path, leaf) of a nested dict, paths joined by "/" as JAX's
-    tree paths are in libra_tpu.training.optimizer."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from leaves_with_paths(v, f"{prefix}/{k}" if prefix else k)
-    else:
+    """(path, leaf) of nested dicts and lists, paths joined by "/" as
+    JAX's tree paths are in libra_tpu.training.optimizer (a list's items
+    by index); None is an empty subtree, as in JAX."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            yield from leaves_with_paths(v, f"{prefix}/{k}" if prefix else str(k))
+    elif tree is not None:
         yield prefix, tree
 
 
@@ -172,23 +174,41 @@ class Optimizer:
         f32 = np.float32
         leaves = dict(leaves_with_paths(params))
         n = state.count + 1                       # scale_by_adam's count_inc
-        c1 = float(f32(1) - f32(cfg.beta1) ** f32(n))
-        c2 = float(f32(1) - f32(cfg.beta2) ** f32(n))
+        c = bias_corrections(cfg.beta1, cfg.beta2, n)
         for lr_scale, paths in self.groups:
             step_size = -float(f32(self.schedule(state.count)) * f32(lr_scale))
             norm = global_norm([grads[p] for p in paths])
             keep = norm < cfg.max_grad_norm
             for p in paths:
-                g, w = grads[p], leaves[p]
-                mu, nu = state.mu[p], state.nu[p]
+                g = grads[p]
                 g = torch.where(keep, g, g / norm.to(g.dtype) * cfg.max_grad_norm)
-                mu.copy_((1 - cfg.beta1) * g + cfg.beta1 * mu)
-                nu.copy_((1 - cfg.beta2) * (g * g) + cfg.beta2 * nu)
-                u = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
-                if p in self.decay:
-                    u = u + cfg.weight_decay * w
-                w.add_(_as(step_size, u.dtype) * u)
+                adam_leaf_update(leaves[p], g, state.mu[p], state.nu[p], cfg.beta1,
+                                 cfg.beta2, c, step_size,
+                                 cfg.weight_decay if p in self.decay else None)
         return OptState(count=n, mu=state.mu, nu=state.nu)
+
+
+def bias_corrections(beta1: float, beta2: float, n: int) -> Tuple[float, float]:
+    """scale_by_adam's 1 - beta ** n for both moments at update count n,
+    in float32."""
+    f32 = np.float32
+    return (float(f32(1) - f32(beta1) ** f32(n)),
+            float(f32(1) - f32(beta2) ** f32(n)))
+
+
+def adam_leaf_update(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                     beta1: float, beta2: float, corrections: Tuple[float, float],
+                     step_size: float, weight_decay: Optional[float]) -> None:
+    """One leaf of scale_by_adam -> add_decayed_weights (when weight_decay
+    is not None) -> scale(step_size), in optax's order; w, mu and nu are
+    updated in place."""
+    c1, c2 = corrections
+    mu.copy_((1 - beta1) * g + beta1 * mu)
+    nu.copy_((1 - beta2) * (g * g) + beta2 * nu)
+    u = (mu / c1) / (torch.sqrt(nu / c2) + ADAM_EPS)
+    if weight_decay is not None:
+        u = u + weight_decay * w
+    w.add_(_as(step_size, u.dtype) * u)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
