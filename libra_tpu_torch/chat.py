@@ -43,9 +43,9 @@ from libra_tpu_torch.generation import (GenerationConfig, _last_position_logits,
                                         decode_micro_step, fuse_pixels,
                                         sample_tokens)
 from libra_tpu_torch.models import libra as M
+from libra_tpu_torch.ops.flash_bridge import resolve_attn_impl
 from libra_tpu_torch.ops.qlinear import a8_enabled
 from libra_tpu_torch.spec_decode import spec_decode_loop
-from libra_tpu_torch.training.fused import resolve_attn_impl
 
 
 class TurnResult(NamedTuple):

@@ -25,9 +25,8 @@ Training state is saved and restored with ``save_checkpoint`` /
 
 LPIPS weights for tokenizer training (torchvision's VGG16 and taming's
 lin heads) convert with ``convert_vgg16_lpips`` / ``load_lpips_params``.
-
-Not ported here: the Meta-format LLaMA converter (its target, the
-``models/llama`` tree, comes with ROADMAP A12).
+Meta-format LLaMA weights convert to the ``models/llama`` tree with
+``convert_meta_llama_state_dict``.
 """
 
 from __future__ import annotations
@@ -165,6 +164,50 @@ def convert_libra_state_dict(sd: Dict[str, np.ndarray], cfg: LibraConfig,
     if cfg.vision_prediction_mode == "2d":
         params["vision_hidden_placeholder"] = put(sd["vision_hidden_placeholder"])
     return params
+
+
+# ---------------------------------------------------------------------------
+# Meta-format LLaMA conversion
+# ---------------------------------------------------------------------------
+
+_META_NAMES = {
+    "attention.wq": "self_attn.q_proj", "attention.wk": "self_attn.k_proj",
+    "attention.wv": "self_attn.v_proj", "attention.wo": "self_attn.o_proj",
+    "feed_forward.w1": "mlp.gate_proj", "feed_forward.w3": "mlp.up_proj",
+    "feed_forward.w2": "mlp.down_proj", "attention_norm": "input_layernorm",
+    "ffn_norm": "post_attention_layernorm",
+}
+
+
+def convert_meta_llama_state_dict(sd: Dict[str, np.ndarray], cfg: LibraConfig,
+                                  device="cuda") -> Dict[str, Any]:
+    """Meta consolidated.*.pth layout -> the models/llama tree on `device`.
+
+    The reference's Meta -> HF converter (llama/convert_llama_weight_to_hf.py):
+    Meta stores the rotary dims of each head interleaved, while the
+    GPT-NeoX layout used here (and by HF) keeps them in halves, so the
+    rows of wq and wk take the standard de-interleave permutation. The
+    renamed state dict then goes through the HF converter."""
+    from libra_tpu_torch.models.llama import convert_hf_llama_state_dict
+
+    D, H = cfg.hidden_size, cfg.num_attention_heads
+    hd = D // H
+
+    def permute(w):
+        # (D, D) rows grouped per head: interleaved pairs -> halves
+        return (np.asarray(w).reshape(H, hd // 2, 2, D)
+                .transpose(0, 2, 1, 3).reshape(D, D))
+
+    hf = {"model.embed_tokens.weight": sd["tok_embeddings.weight"],
+          "model.norm.weight": sd["norm.weight"],
+          "lm_head.weight": sd["output.weight"]}
+    for i in range(cfg.num_hidden_layers):
+        for meta, name in _META_NAMES.items():
+            w = sd[f"layers.{i}.{meta}.weight"]
+            if meta in ("attention.wq", "attention.wk"):
+                w = permute(w)
+            hf[f"model.layers.{i}.{name}.weight"] = w
+    return convert_hf_llama_state_dict(hf, cfg, device)
 
 
 # ---------------------------------------------------------------------------

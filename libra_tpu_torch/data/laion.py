@@ -4,7 +4,9 @@ The PyTorch port's copy of ``libra_tpu/data/laion.py`` (the reference's
 LaionDataset, laion_dataset.py:52-256): streaming tar shards of (jpg,
 json{caption}) pairs, i2t/t2i coin flip, instruction sampling,
 label-mask spans, skip-and-continue robustness. The shards are read by
-``webdata.ShardStream``; libra_tpu's native C++ reader is ROADMAP A12.
+the native C++ reader (``runtime.NativeShardStream``) when it builds and
+``native_reader`` is on (the default), else by the Python
+``webdata.ShardStream``, as in libra_tpu.
 """
 
 from __future__ import annotations
@@ -51,7 +53,12 @@ class LaionDataset(PairSampleBuilder):
         self._rng = random.Random(fold_process_seed(seed, pi))
 
         bufsize, initial = (20000, 5000) if large_init else (5000, 1000)
-        self.stream = ShardStream(
+        stream_cls = ShardStream
+        if kwargs.get("native_reader", True):
+            from libra_tpu_torch import runtime
+            if runtime.native_available():
+                stream_cls = runtime.NativeShardStream
+        self.stream = stream_cls(
             location, shuffle_bufsize=bufsize, shuffle_initial=initial,
             seed=seed, deterministic=deterministic,
             map_fn=self.post_process,

@@ -4,9 +4,10 @@ The PyTorch port's copy of ``libra_tpu/data/webdata.py``, in place of the
 reference's `webdataset` DataPipeline (laion_dataset.py:60-67): resampled
 shards -> tar -> grouped samples -> shuffle buffer -> decode -> map, with
 skip-and-continue error handling at every stage (the reference's
-wds.warn_and_continue). Pure Python; libra_tpu's native C++ reader is
-ROADMAP A12. The per-process split reads the process index and count
-from torch.distributed when it is initialized.
+wds.warn_and_continue). Pure Python; the C++ reader with readahead,
+``libra_tpu_torch.runtime.NativeShardStream``, keeps the same sample-dict
+contract. The per-process split reads the process index and count from
+torch.distributed when it is initialized.
 """
 
 from __future__ import annotations

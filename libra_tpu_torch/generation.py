@@ -26,10 +26,9 @@ import torch
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.models import libra as M
+from libra_tpu_torch.ops.flash_bridge import resolve_attn_impl
 from libra_tpu_torch.ops.qlinear import a8_enabled
-from libra_tpu_torch.training.fused import (_scatter_block,
-                                            encode_images_to_tokens,
-                                            resolve_attn_impl)
+from libra_tpu_torch.training.fused import _scatter_block, encode_images_to_tokens
 
 
 @dataclass(frozen=True)

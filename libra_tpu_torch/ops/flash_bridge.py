@@ -305,5 +305,16 @@ def flash_bridged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, kb, vb, flag_q, flag_kv, bias, stats=False)[0]
 
 
+def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
+    """"auto" -> the flash kernel (differentiable: forward and backward
+    kernels) on CUDA tensors and the plain attention on the CPU."""
+    if attn_impl == "auto":
+        return "flash" if torch.device(device).type == "cuda" else "plain"
+    if attn_impl not in ("flash", "plain"):
+        raise ValueError(f"attn_impl must be 'auto', 'flash' or 'plain', "
+                         f"not {attn_impl!r}")
+    return attn_impl
+
+
 flash_bridged_attention.launches = 0
 flash_bridged_attention_bwd.launches = 0

@@ -20,10 +20,10 @@ from libra_tpu_torch.config import LibraConfig, VQGANConfig
 from libra_tpu_torch.models import libra as M
 from libra_tpu_torch.models import vqgan
 from libra_tpu_torch.training.optimizer import Optimizer
+from libra_tpu_torch.ops.flash_bridge import resolve_attn_impl
 from libra_tpu_torch.ops.routed import DropoutKey
 from libra_tpu_torch.training.trainer import (TrainState, _finish_step,
-                                              masked_value_and_grad,
-                                              resolve_attn_impl, step_key)
+                                              masked_value_and_grad, step_key)
 
 
 class FusedBatch(NamedTuple):

@@ -31,6 +31,7 @@ import torch
 
 from libra_tpu_torch.config import LibraConfig
 from libra_tpu_torch.models import libra as M
+from libra_tpu_torch.ops.flash_bridge import resolve_attn_impl
 from libra_tpu_torch.ops.routed import DropoutKey
 from libra_tpu_torch.training.optimizer import (OptState, Optimizer,
                                                 OptimizerConfig, global_norm,
@@ -46,17 +47,6 @@ class TrainState(NamedTuple):
 
 def init_state(params: Any, opt: Optimizer) -> TrainState:
     return TrainState(params=params, opt_state=opt.init(params), step=0)
-
-
-def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
-    """"auto" -> the flash kernel (differentiable: forward and backward
-    kernels) on CUDA tensors and the plain attention on the CPU."""
-    if attn_impl == "auto":
-        return "flash" if torch.device(device).type == "cuda" else "plain"
-    if attn_impl not in ("flash", "plain"):
-        raise ValueError(f"attn_impl must be 'auto', 'flash' or 'plain', "
-                         f"not {attn_impl!r}")
-    return attn_impl
 
 
 def step_key(cfg: LibraConfig, dropout_seed: int, step: int,

@@ -41,7 +41,7 @@ from libra_tpu_torch.tokenization import (IMG_PH, ImageTokenizer, LibraTokenizer
                                           SimpleTextTokenizer)
 from tests.test_chat_session import _concat_history, _text_delta, _turn1_inputs
 from tests.test_torch_port_fused_generation import _vq_tree
-from tests.test_torch_port_serving import TREES, _setup
+from tests.test_torch_port_serving import TREES, _jax_generator, _setup
 
 ALL = list(TREES)
 KV8 = ["int8", "int4"]
@@ -49,6 +49,16 @@ KV8 = ["int8", "int4"]
 
 def _gen_kw(tree, eos=-1, spec=0):
     return dict(eos_token_id=eos, spec_decode=spec, **TREES[tree][2])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_turn_fns(tree, eos, spec, pixels) -> dict:
+    """One jitted-turn table for every JAX session of the same tree and
+    generation settings: its entries are jax.jit of libra_tpu's module-level
+    turn functions over (cfg, gen, vq_cfg), with the params and the session
+    state as arguments, so sessions that share them run the same programs
+    and each (delta width, batch, cache size) compiles once a module."""
+    return {}
 
 
 def _sessions(tree, B, max_len=128, delta_bucket=4, eos=-1, pixels=False, spec=0):
@@ -64,6 +74,7 @@ def _sessions(tree, B, max_len=128, delta_bucket=4, eos=-1, pixels=False, spec=0
     js = JChatSession(np_tree, jcfg, batch=B, max_len=max_len,
                       gen=jgen.GenerationConfig(**_gen_kw(tree, eos, spec)),
                       delta_bucket=delta_bucket, **kw)
+    js._fns = _jax_turn_fns(tree, eos, spec, pixels)
     ts = ChatSession(params, cfg, batch=B, max_len=max_len,
                      gen=tgen.GenerationConfig(**_gen_kw(tree, eos, spec)),
                      delta_bucket=delta_bucket, **tkw)
@@ -85,9 +96,9 @@ def _ask(js, ts, inputs, max_new):
 def _history_tokens(tree, turns, answers, max_new, eos=-1):
     """JAX's Generator over the concatenated token history: the tokens it
     generates after it."""
-    _, jcfg, np_tree, _ = _setup(tree)
+    jcfg = _setup(tree)[1]
     full = _concat_history(jcfg, turns, answers)
-    want = jgen.Generator(np_tree, jcfg)(
+    want = _jax_generator(tree)(
         full, jgen.GenerationConfig(max_new_tokens=max_new, **_gen_kw(tree, eos)))
     return np.asarray(want.sequences)[:, :, full["input_ids"].shape[-1]:]
 
@@ -134,7 +145,7 @@ def test_two_turns_match_jax_and_full_reprefill(tree, forwards):
     # one delta pass of Nb1 rows, then max_new language-only decode steps
     assert forwards == [(Nb1, False)] + [(1, True)] * max_new
     assert ts.used == Nb1 + max_new
-    want1 = jgen.Generator(_setup(tree)[2], jcfg)(
+    want1 = _jax_generator(tree)(
         t1, jgen.GenerationConfig(max_new_tokens=max_new, **_gen_kw(tree)))
     np.testing.assert_array_equal(a1[0], np.asarray(want1.sequences)[:, :, N1:])
 
@@ -148,9 +159,9 @@ def test_two_turns_match_jax_and_full_reprefill(tree, forwards):
 
 @pytest.mark.parametrize("tree", ALL)
 def test_eos_row_freezes_and_next_turn_matches(tree):
-    _, jcfg, np_tree, _ = _setup(tree)
+    jcfg = _setup(tree)[1]
     t1 = _turn1_inputs(jcfg, 1, seed=3)
-    first = int(np.asarray(jgen.Generator(np_tree, jcfg)(t1, jgen.GenerationConfig(
+    first = int(np.asarray(_jax_generator(tree)(t1, jgen.GenerationConfig(
         max_new_tokens=1, **_gen_kw(tree))).sequences)[0, 0, -1])
     js, ts = _sessions(tree, 1, delta_bucket=1, eos=first)
     tok1, num1 = _ask(js, ts, t1, 4)
@@ -171,12 +182,12 @@ def test_eos_row_freezes_and_next_turn_matches(tree):
 @pytest.mark.parametrize("tree", KV8)
 def test_session_int8_kv_matches_generator(tree):
     """The int8 cache, deltas unpadded; max_len 96 rounds up to S = 128."""
-    _, jcfg, np_tree, _ = _setup(tree)
+    jcfg = _setup(tree)[1]
     js, ts = _sessions(tree, 2, max_len=96, delta_bucket=1)
     assert ts.S == js.S == 128
     t1 = _turn1_inputs(jcfg, 2, seed=5)
     a1 = _ask(js, ts, t1, 4)
-    want1 = jgen.Generator(np_tree, jcfg)(t1, jgen.GenerationConfig(
+    want1 = _jax_generator(tree)(t1, jgen.GenerationConfig(
         max_new_tokens=4, **_gen_kw(tree)))
     np.testing.assert_array_equal(
         a1[0], np.asarray(want1.sequences)[:, :, t1["input_ids"].shape[-1]:])
@@ -355,9 +366,9 @@ def test_spec_session_eos(tree):
     lockstep body does; the EOS stays visible to turn 2, which matches JAX's
     spec session and JAX's Generator over the history (int8 and int4: the
     verify passes at N = 3 through the decode-attention branch)."""
-    _, jcfg, np_tree, _ = _setup(tree)
+    jcfg = _setup(tree)[1]
     t1 = _turn1_inputs(jcfg, 1, seed=3)
-    first = int(np.asarray(jgen.Generator(np_tree, jcfg)(t1, jgen.GenerationConfig(
+    first = int(np.asarray(_jax_generator(tree)(t1, jgen.GenerationConfig(
         max_new_tokens=1, **_gen_kw(tree))).sequences)[0, 0, -1])
     js, ts = _sessions(tree, 1, delta_bucket=1, eos=first, spec=2)
     tok1, num1 = _ask(js, ts, t1, 4)

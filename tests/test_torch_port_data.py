@@ -5,8 +5,9 @@ datasets, and the builders. The sample dicts are equal to libra_tpu's at
 the same seed (images bit for bit: the same PIL and numpy steps).
 
 Shards are tests/test_data_layer.py's synthetic ones (_make_shard); both
-packages read them through the Python shard reader (libra_tpu's native
-reader, ROADMAP A12, is left off on its side).
+packages read them through the Python shard reader (native_reader=False
+on both sides; the native readers are held to each other in
+tests/test_torch_port_runtime.py).
 """
 
 import json
@@ -171,7 +172,7 @@ def test_laion_samples_match(shards, kw):
     loc = str(shards / "shard-*.tar")
     tt, jt = SimpleTextTokenizer(vocab_size=256), JSimpleTok(vocab_size=256)
     t = LaionDataset(*_procs(tproc, CLIPVisionConfig.tiny()), loc, tokenizer=tt,
-                     num_img_tokens=6, **kw)
+                     num_img_tokens=6, native_reader=False, **kw)
     j = JLaion(*_procs(jproc, JClip.tiny()), loc, tokenizer=jt, num_img_tokens=6,
                native_reader=False, **kw)
     got = [s for _, s in zip(range(8), t)]
